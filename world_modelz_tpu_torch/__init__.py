@@ -1,0 +1,27 @@
+"""world_modelz_tpu_torch — the PyTorch/CUDA port of world_modelz_tpu.
+
+The serving path runs here: tokenizer encode (conv encoder + nearest-code
+search) -> iterative-unmask rollout over the local-3D-attention denoiser ->
+tokenizer decode. Layouts at public functions follow the JAX package: NHWC
+images in [0, 1], (B, S, H, W) token grids, (B, S, H, W, heads * dh)
+attention operands.
+
+Every kernel of that path is hand-written CUDA for Hopper (``csrc/``), built
+with ``nvcc`` on first use (``kernels/_build.py``) and bound through ctypes.
+A kernel wrapper launches its kernel for a CUDA tensor and takes the plain
+PyTorch version only for a CPU tensor.
+
+Entry points take ``device=None``, which means ``"cuda"``; pass
+``device="cpu"`` to run on the CPU.
+
+Subpackages
+-----------
+ops        vector quantization (the nearest-code plain version)
+kernels    CUDA kernel wrappers, launch counters, the nvcc build
+models     tokenizer convs, local-3D attention transformer, denoiser
+diffusion  iterative-unmask sampler and multi-frame rollout
+serve      batched rollout service (request coalescing, sessions)
+convert    weight bridge from the JAX package's numpy parameter trees
+"""
+
+__version__ = "0.1.0"

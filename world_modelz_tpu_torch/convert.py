@@ -1,0 +1,140 @@
+"""Weight bridge: the JAX package's parameter trees -> the port's state_dicts.
+
+Input is the JAX package's parameters as nested dicts of numpy arrays
+(``jax.device_get`` of a flax params tree, or an orbax checkpoint restored
+to numpy); output is a ``state_dict`` of f32 torch tensors whose keys are
+the reference PyTorch layout — the layout the port's modules are named
+after, so ``load_state_dict(..., strict=True)`` takes it as it is.
+
+Layout changes:
+- flax Conv ``kernel`` (kh, kw, I, O)  -> ``Conv2d.weight`` (O, I, kh, kw)
+- flax Dense ``kernel`` (in, out)      -> ``Linear.weight`` (out, in)
+- flax BatchNorm scale/bias + batch_stats mean/var -> BN weight/bias/
+  running_mean/running_var (+ a zero ``num_batches_tracked``)
+- VQ codebook (L, K, D)                -> ``vq.embedding`` (L, K, D)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    # a copy: the source may be a read-only view of a device buffer
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def _conv(sd: StateDict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _bn(sd: StateDict, key: str, p: Mapping, s: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+    sd[f"{key}.running_mean"] = _t(s["mean"])
+    sd[f"{key}.running_var"] = _t(s["var"])
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _linear(sd: StateDict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _layernorm(sd: StateDict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def video_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``VqVideoDiffusionModel`` params -> ``models.video.
+    VqVideoDiffusionModel`` state_dict."""
+    tr = params["transformer"]
+    sd: StateDict = {}
+    for name in ("embedding", "pos_emb_s", "pos_emb_h", "pos_emb_w"):
+        sd[f"transformer.{name}.weight"] = _t(tr[name]["embedding"])
+    i = 0
+    while f"attn_norm_{i}" in tr:
+        base = f"transformer.layers.{i}"
+        _layernorm(sd, f"{base}.0.norm", tr[f"attn_norm_{i}"])
+        attn = tr[f"attn_{i}"]
+        for proj in ("to_q", "to_k", "to_v"):
+            _linear(sd, f"{base}.0.fn.{proj}", attn[proj])
+        if "to_out" in attn:
+            _linear(sd, f"{base}.0.fn.to_out.0", attn["to_out"])
+        _layernorm(sd, f"{base}.1.norm", tr[f"ff_norm_{i}"])
+        _linear(sd, f"{base}.1.fn.net.0", tr[f"ff_{i}"]["Dense_0"])
+        _linear(sd, f"{base}.1.fn.net.3", tr[f"ff_{i}"]["Dense_1"])
+        i += 1
+    if i == 0:
+        raise KeyError("no attn_norm_* layers in params['transformer']")
+    _linear(sd, "logit_proj", params["logit_proj"])
+    return sd
+
+
+def _residual(sd: StateDict, base: str, p: Mapping, s: Mapping) -> None:
+    _conv(sd, f"{base}._block.0", p["Conv_0"])
+    _bn(sd, f"{base}._block.1", p["BatchNorm_0"], s["BatchNorm_0"])
+    _conv(sd, f"{base}._block.3", p["Conv_1"])
+    _bn(sd, f"{base}._block.4", p["BatchNorm_1"], s["BatchNorm_1"])
+    if "Conv_2" in p:
+        _conv(sd, f"{base}.downsample.0", p["Conv_2"])
+        _bn(sd, f"{base}.downsample.1", p["BatchNorm_2"], s["BatchNorm_2"])
+
+
+def tokenizer_state_dict_from_state(
+    params: Mapping[str, Any],
+    batch_stats: Mapping[str, Any],
+    codebook,
+    cluster_size: Optional[Any] = None,
+) -> StateDict:
+    """JAX tokenizer (``TokenizerState.params``, ``.batch_stats`` and
+    ``.vq.codebook``) -> ``models.tokenizer.VQAutoEncoder`` state_dict.
+
+    ``cluster_size`` (L, K) fills the reference's ``vq.cluster_size``
+    buffer, which inference never reads; ones when omitted.
+    """
+    sd: StateDict = {}
+    enc_p, enc_s = params["encoder"], batch_stats["encoder"]
+    _conv(sd, "encoder._conv_1", enc_p["Conv_0"])
+    stack_p = enc_p["ResidualStack_0"]
+    stack_s = enc_s["ResidualStack_0"]
+    i = 0
+    while f"Residual_{i}" in stack_p:
+        _residual(
+            sd, f"encoder._residual_stack._stack.{i}",
+            stack_p[f"Residual_{i}"], stack_s[f"Residual_{i}"],
+        )
+        i += 1
+
+    dec_p, dec_s = params["decoder"], batch_stats["decoder"]
+    _conv(sd, "decoder.decoder_stack.0", dec_p["Conv_0"])
+    j = 0
+    while f"UpscaleResidual_{j}" in dec_p:
+        base = f"decoder.decoder_stack.{j + 1}"
+        p, s = dec_p[f"UpscaleResidual_{j}"], dec_s[f"UpscaleResidual_{j}"]
+        _bn(sd, f"{base}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
+        _conv(sd, f"{base}.conv1", p["Conv_0"])
+        _bn(sd, f"{base}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
+        _conv(sd, f"{base}.conv2", p["Conv_1"])
+        if "Conv_2" in p:
+            _conv(sd, f"{base}.conv_residual", p["Conv_2"])
+        j += 1
+    _conv(sd, f"decoder.decoder_stack.{j + 1}", dec_p["Conv_1"])
+
+    codebook = np.asarray(codebook, np.float32)
+    if codebook.ndim != 3:
+        raise ValueError(f"codebook must be (L, K, D), got {codebook.shape}")
+    sd["vq.embedding"] = _t(codebook)
+    if cluster_size is None:
+        cluster_size = np.ones(codebook.shape[:2], np.float32)
+    sd["vq.cluster_size"] = _t(cluster_size)
+    return sd

@@ -1,0 +1,17 @@
+"""Masked discrete diffusion sampling."""
+
+from world_modelz_tpu_torch.diffusion.masked import (
+    generator_noise,
+    rollout_frames,
+    top_k_logits,
+    unmask_frame,
+    unmask_step,
+)
+
+__all__ = [
+    "top_k_logits",
+    "unmask_step",
+    "unmask_frame",
+    "rollout_frames",
+    "generator_noise",
+]

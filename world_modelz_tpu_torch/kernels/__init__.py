@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels for Hopper, their wrappers and launch counts.
+
+Each wrapper launches its kernel for a CUDA tensor, takes its plain PyTorch
+version for a CPU tensor, and counts its launches in ``LAUNCHES``.
+"""
+
+from world_modelz_tpu_torch.kernels._build import LAUNCHES, load_library
+from world_modelz_tpu_torch.kernels.local3d import local3d_attention_fwd
+from world_modelz_tpu_torch.kernels.vq_kernels import vq_encode_nearest
+
+__all__ = [
+    "LAUNCHES",
+    "load_library",
+    "local3d_attention_fwd",
+    "vq_encode_nearest",
+]

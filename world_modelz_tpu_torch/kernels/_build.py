@@ -1,0 +1,152 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` into an object file (one
+``nvcc`` per source, all started together), and the objects are linked
+into one shared library with a plain C interface under ``build/kernels/``
+at the repository root. The library's name carries a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is. Nothing is built when a module is imported: the first kernel
+launch (or an explicit ``load_library()``) builds. A failed build raises.
+
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, List, Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build", "kernels",
+)
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+]
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# what the build did: seconds, library path, compiler output (ptxas -v)
+BUILD_INFO: Dict[str, object] = {}
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, dtype, stream
+    "wmz_local3d_fwd": ([_VP] * 4 + [_INT] * 10 + [_VP], _INT),
+    # x, codebook, e_t, e_sq, idx, N, K, D, x_dtype, stream
+    "wmz_vq_encode": ([_VP] * 5 + [_INT] * 4 + [_VP], _INT),
+    "wmz_cuda_error_string": ([_INT], ctypes.c_char_p),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found on PATH or at /usr/local/cuda/bin; the port's CUDA "
+        "kernels are built from csrc/ with nvcc on first use"
+    )
+
+
+def _sources() -> List[str]:
+    srcs = sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
+    )
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest(srcs: List[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands in parallel; raise with the compiler output of the
+    first that fails; return the joined output of all."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        for cmd in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"CUDA kernel build failed ({p.returncode}): "
+                f"{' '.join(cmd)}\n{out}"
+            )
+    return "".join(outs)
+
+
+def _build(lib_path: str, srcs: List[str]) -> str:
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [
+            os.path.join(tmp, os.path.basename(s)[:-3] + ".o") for s in srcs
+        ]
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj]
+            for src, obj in zip(srcs, objs)
+        ])
+        tmp_lib = os.path.join(tmp, os.path.basename(lib_path))
+        log += _run_all([[nvcc, "-shared", *objs, "-o", tmp_lib]])
+        os.replace(tmp_lib, lib_path)  # atomic: never a half-written .so
+    return log
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source digest) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        srcs = _sources()
+        lib_path = os.path.join(BUILD_DIR, f"libwmz_kernels_{_digest(srcs)}.so")
+        log = ""
+        built = not os.path.exists(lib_path)
+        if built:
+            log = _build(lib_path, srcs)
+        lib = ctypes.CDLL(lib_path)
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        BUILD_INFO.update(
+            seconds=time.perf_counter() - t0, path=lib_path, built=built,
+            log=log,
+        )
+        _lib = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a launch returned a non-zero cudaError_t."""
+    if status != 0:
+        msg = load_library().wmz_cuda_error_string(status).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {status} ({msg})")
