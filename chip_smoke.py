@@ -4,9 +4,12 @@
 Builds the port's hand-written CUDA kernels from ``world_modelz_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on
 the card, checks the full-width denoiser and the tokenizer on the card
-against the same modules on the CPU, and drives the serving path
+against the same modules on the CPU (logits, and the denoiser's parameter
+gradients through the backward kernels), drives the serving path
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
-``serve/m3_g8`` configuration with random seeded weights.
+``serve/m3_g8`` configuration, and drives the masked-diffusion trainer
+(``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
+steps, all with random seeded weights.
 
 Run from the repository root, on a machine with a GPU and the CUDA toolkit
 (no network needed):
@@ -23,6 +26,7 @@ the device.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,9 +49,33 @@ DENOISER = dict(data_shape=(SEQ, GRID, GRID), dim=384, num_classes=512,
                 extents=(3, 1, 1), depth=20, dim_head=128, mlp_dim=512,
                 heads=1)
 SERVICE = dict(batch_size=8, num_frames=8, num_iterations=30, sample_topk=-1)
+# train_step/m3_b64_g8_full (benchmarks/perf_ledger.py:850-959): the
+# flagship trainer at batch 64 on MovingMNIST, bf16 compute on f32 masters
+TRAIN = dict(
+    batch_size=64, bf16=True, tok_bf16=True, ema_decay=0.999, lr=1e-4,
+    weight_decay=1e-7, warmup=10, max_steps=60, eval_interval=0,
+    log_interval=10, checkpoint_interval=60, p_max_uniform=0.1,
+    n_past=SEQ - 1, image_size=IMG, num_digits=2, digit_size=24,
+    dim=DENOISER["dim"], depth=DENOISER["depth"],
+    dim_head=DENOISER["dim_head"], heads=DENOISER["heads"],
+    mlp_dim=DENOISER["mlp_dim"], extents=DENOISER["extents"], dropout=0.0,
+)
 
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
 BF16_TOL = 2e-2  # bf16 output rounding (2^-8 relative) of O(1) values
+# backward kernels vs plain, times max(1, max |grad|): f32 sums in another
+# order; bf16 output rounding (2^-8) of the largest gradients
+BWD_F32_TOL = 1e-4
+BWD_BF16_TOL = 3e-2
+STAT_TOL = 1e-4  # lse and delta (f32 in both), times max(1, max |stat|)
+# card vs CPU gradient of each parameter tensor, times max(max |its CPU
+# gradient|, GRAD_FLOOR x the largest gradient of any tensor)
+GRAD_TOL = 1e-4
+GRAD_FLOOR = 1e-2
+# device_ms: the profile's device time against CUDA events around the same
+# calls: relative slack, and the gap allowed between two queued kernels
+PROFILE_AGREE = 0.05
+PROFILE_GAP_US = 2.0
 LOGIT_TOL = 1e-3  # 20 f32 layers, cuBLAS vs CPU BLAS summation order
 PIXEL_RTOL = 1e-4  # f32 convolutions, cuDNN vs CPU, relative to max |pixel|
 VQ_GAP = 1e-3  # rows whose two nearest codes differ by more must agree
@@ -66,29 +94,91 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_kernels(prof):
+    """The profile's device events by name, without the GPU ranges of user
+    annotations (``Optimizer.step`` ...), which would count their kernels
+    twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ms(torch, fn, iters: int, warmup: int = 3, label: str = "") -> float:
     """Mean device time per call of ``fn`` in ms: the kernels and copies it
     issues, as torch.profiler (CUPTI) traces them, without the host's gaps
-    between launches. With ``label``, logs the split by kernel."""
-    from torch.autograd import DeviceType
+    between launches. With ``label``, logs the split by kernel.
+
+    Each profile is held against CUDA events around the same calls. The
+    calls are queued behind a spin kernel long enough for the host to
+    enqueue them all before the device starts on them, so the events see
+    the device's time alone, host gaps excluded. A profile that records
+    less than that (minus PROFILE_GAP_US per kernel for the gaps between
+    queued kernels, and PROFILE_AGREE of slack), or more, is taken again;
+    after three disagreements the call raises. Where the host could not
+    get ahead of the spin (``fn`` syncs), the events only bound the
+    profile from above."""
     from torch.profiler import ProfilerActivity, profile
 
+    host = []
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    us = sum(e.self_device_time_total for e in events)
+    # spin for twice the host's enqueue time of the calls, and 2 ms more
+    spin_ms = min(2e3 * min(host[-2:]) * iters + 2.0, 500.0)
+    cycles = int(spin_ms * spin_cycles_per_ms(torch))
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marks[0].record()
+            torch.cuda._sleep(cycles)
+            marks[1].record()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host_s = time.perf_counter() - t0
+            marks[2].record()
+            torch.cuda.synchronize()
+        events = [e for e in device_kernels(prof) if "spin_kernel" not in e.key]
+        us = sum(e.self_device_time_total for e in events)
+        launched = sum(e.count for e in events)
+        events_us = marks[1].elapsed_time(marks[2]) * 1e3
+        shielded = host_s * 1e3 < 0.9 * marks[0].elapsed_time(marks[1])
+        low = (us + PROFILE_GAP_US * launched < (1 - PROFILE_AGREE) * events_us
+               if shielded else us == 0)
+        if not low and us <= (1 + PROFILE_AGREE) * events_us:
+            break
+        log(f"  profile {attempt + 1} disagrees with CUDA events: {us:.3f} us "
+            f"in {launched} kernels vs {events_us:.3f} us "
+            f"({'shielded' if shielded else 'host-bound'}); profiling again")
+    else:
+        raise AssertionError(
+            f"{label or 'device_ms'}: the profiler and CUDA events disagree "
+            f"three times")
     if label:
         for e in events:
             log(f"  {label}: {e.self_device_time_total / 1e3 / iters:.5f} ms "
                 f"per call in {e.key[:70]}")
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
     return us / 1e3 / iters
+
+
+_SPIN = {}
+
+
+def spin_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms of device time,
+    measured once."""
+    if "rate" not in _SPIN:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(1_000_000)  # warm
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN["rate"] = 10_000_000 / start.elapsed_time(end)
+    return _SPIN["rate"]
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -136,6 +226,7 @@ def check_local3d(torch, dev):
 
     cases = [  # name, (B, S, H, W), heads, dh, extents
         ("serving", (8, 6, 8, 8), 1, 128, (3, 1, 1)),
+        ("train_m3_b64", (64, 6, 8, 8), 1, 128, (3, 1, 1)),
         ("training", (8, 6, 16, 16), 1, 128, (3, 1, 1)),
         ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1)),
     ]
@@ -163,11 +254,7 @@ def check_local3d(torch, dev):
             # boolean window mask
             n = s * h * w
             qs, ks, vs = (t.reshape(b, n, heads, dh).transpose(1, 2) for t in (q, k, v))
-            pos = torch.stack(torch.meshgrid(
-                torch.arange(s), torch.arange(h), torch.arange(w),
-                indexing="ij"), -1).reshape(n, 3).to(dev)
-            mask = ((pos[:, None, :] - pos[None, :, :]).abs()
-                    <= torch.tensor(ext, device=dev)).all(-1)
+            mask = window_mask(torch, dev, s, h, w, ext)
             lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask), 20)
             isz = torch.tensor([], dtype=dtype).element_size()
@@ -187,10 +274,143 @@ def check_local3d(torch, dev):
     return serving
 
 
+def window_mask(torch, dev, s, h, w, extents):
+    """(S*H*W, S*H*W) bool: True where the key lies in the query's window
+    (the dense mask the SDPA yardstick takes)."""
+    pos = torch.stack(torch.meshgrid(
+        torch.arange(s), torch.arange(h), torch.arange(w),
+        indexing="ij"), -1).reshape(s * h * w, 3).to(dev)
+    return ((pos[:, None, :] - pos[None, :, :]).abs()
+            <= torch.tensor(extents, device=dev)).all(-1)
+
+
+def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
+    """The split backward pair against its plain versions at the training
+    slice's shape, train_step_bench's shape and a multi-head asymmetric
+    one, in f32 and bf16. Returns {kernel: record} at the slice's shape in
+    bf16."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.kernels import (
+        local3d_attention_fwd,
+        local3d_bwd_dkv,
+        local3d_bwd_dq,
+    )
+    from world_modelz_tpu_torch.models.attention import (
+        local3d_attention_bwd_dkv,
+        local3d_attention_bwd_dq,
+    )
+
+    cases = [  # name, (B, S, H, W), heads, dh, extents
+        ("train_m3_b64", (64, 6, 8, 8), 1, 128, (3, 1, 1)),
+        ("train_bench", (8, 6, 16, 16), 1, 128, (3, 1, 1)),
+        ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1)),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    records = {}
+    for name, (b, s, h, w), heads, dh, ext in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (b, s, h, w, heads * dh)
+            q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                          for _ in range(4))
+            dq, lse, delta = local3d_bwd_dq(q, k, v, g, ext, heads)
+            dk, dv = local3d_bwd_dkv(q, k, v, g, lse, delta, ext, heads)
+            f32 = [t.float() for t in (q, k, v, g)]
+            p_dq, p_lse, p_delta = local3d_attention_bwd_dq(*f32, ext, heads)
+            p_dk, p_dv = local3d_attention_bwd_dkv(
+                *f32, p_lse, p_delta, ext, heads)
+            torch.cuda.synchronize()
+            tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+            errs = {}
+            for label, got, want, t in (
+                    ("dq", dq, p_dq, tol), ("dk", dk, p_dk, tol),
+                    ("dv", dv, p_dv, tol), ("lse", lse, p_lse, STAT_TOL),
+                    ("delta", delta, p_delta, STAT_TOL)):
+                err = float((got.float() - want).abs().max())
+                scale = max(1.0, float(want.abs().max()))
+                errs[label] = err
+                if not err <= t * scale:
+                    raise AssertionError(
+                        f"local3d_bwd {name} {dtype} {label}: max abs err "
+                        f"{err} > {t} x {scale}")
+            tname = str(dtype).replace("torch.", "")
+            isz = torch.tensor([], dtype=dtype).element_size()
+            pairs = b * heads * window_pairs(s, h, w, ext)
+            stats = 2 * lse.numel() * 4
+            dq_ms = device_ms(
+                torch, lambda: local3d_bwd_dq(q, k, v, g, ext, heads), 50)
+            dkv_ms = device_ms(torch, lambda: local3d_bwd_dkv(
+                q, k, v, g, lse, delta, ext, heads), 50)
+            # CUDA events over back-to-back launches: a cross-check of the
+            # profiler's sums
+            dq_b2b = cuda_ms(
+                torch, lambda: local3d_bwd_dq(q, k, v, g, ext, heads), 100)
+            dkv_b2b = cuda_ms(torch, lambda: local3d_bwd_dkv(
+                q, k, v, g, lse, delta, ext, heads), 100)
+            fwd_ms = device_ms(
+                torch, lambda: local3d_attention_fwd(q, k, v, ext, heads), 50)
+            p_dq_ms = device_ms(torch, lambda: local3d_attention_bwd_dq(
+                q, k, v, g, ext, heads), 5)
+            p_dkv_ms = device_ms(torch, lambda: local3d_attention_bwd_dkv(
+                q, k, v, g, lse, delta, ext, heads), 5)
+            # library yardstick: SDPA forward + backward over all S*H*W
+            # tokens with the dense boolean window mask
+            n = s * h * w
+            qs, ks, vs, gs = (t.reshape(b, n, heads, dh).transpose(1, 2)
+                              .detach().requires_grad_(t is not g)
+                              for t in (q, k, v, g))
+            mask = window_mask(torch, dev, s, h, w, ext)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), gs)
+
+            with torch.no_grad():
+                lib_fwd_ms = device_ms(torch, sdpa_fwd, 20)
+            lib_ms = device_ms(torch, sdpa_fwd_bwd, 20)
+            lib_bwd_ms = lib_ms - lib_fwd_ms
+            bounds = {
+                "local3d_bwd_dq": bound(
+                    5 * q.numel() * isz + stats, 6 * dh * pairs, tname),
+                "local3d_bwd_dkv": bound(
+                    6 * q.numel() * isz + stats, 8 * dh * pairs, tname),
+            }
+            log(f"local3d_bwd {name} {tname} {shape} extents={ext}: "
+                f"max_abs_err " + " ".join(
+                    f"{key}={val:.3g}" for key, val in errs.items())
+                + f" (tol {tol}, stats {STAT_TOL}, x max(1, max|x|)) "
+                f"dq_ms={dq_ms:.5f} dkv_ms={dkv_ms:.5f} (back_to_back "
+                f"{dq_b2b:.5f}, {dkv_b2b:.5f}) "
+                f"plain_dq_ms={p_dq_ms:.5f} plain_dkv_ms={p_dkv_ms:.5f} | "
+                f"fwd+dq+dkv_ms={fwd_ms + dq_ms + dkv_ms:.5f} vs "
+                f"SDPA fwd+bwd library_ms={lib_ms:.5f} "
+                f"(fwd {lib_fwd_ms:.5f}, bwd {lib_bwd_ms:.5f}) | bound_us "
+                f"dq={bounds['local3d_bwd_dq'][0] * 1e3:.4f} "
+                f"({bounds['local3d_bwd_dq'][1]}) "
+                f"dkv={bounds['local3d_bwd_dkv'][0] * 1e3:.4f} "
+                f"({bounds['local3d_bwd_dkv'][1]}) | "
+                f"{depth} launches of each per train step")
+            if name == "train_m3_b64" and dtype == torch.bfloat16:
+                for kname, ms, plain_ms, err in (
+                        ("local3d_bwd_dq", dq_ms, p_dq_ms,
+                         max(errs["dq"], errs["lse"], errs["delta"])),
+                        ("local3d_bwd_dkv", dkv_ms, p_dkv_ms,
+                         max(errs["dk"], errs["dv"]))):
+                    records[kname] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
+                        library_ms=lib_bwd_ms)
+    return records
+
+
 def check_vq(torch, dev):
     """Kernel B against its plain version at the serving encode batch (f32,
-    as the tokenizer feeds it, and bf16) and at the tokenize-benchmark
-    batch. Returns the serving f32 record."""
+    as the tokenizer feeds it, and bf16), at the training step's encode
+    batch (64 clips of S frames) and at the tokenize-benchmark batch.
+    Returns the serving f32 record."""
     from world_modelz_tpu_torch.kernels import vq_encode_nearest
     from world_modelz_tpu_torch.ops.vq import vq_encode
 
@@ -200,6 +420,7 @@ def check_vq(torch, dev):
     serving = None
     cases = [("serving", 8 * SEQ * GRID * GRID, torch.float32),
              ("serving", 8 * SEQ * GRID * GRID, torch.bfloat16),
+             ("train", TRAIN["batch_size"] * SEQ * GRID * GRID, torch.float32),
              ("bench", 256 * GRID * GRID, torch.float32)]
     for name, n, dtype in cases:
         x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
@@ -298,6 +519,214 @@ def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
         raise AssertionError(f"decoded pixels differ by {perr}")
 
 
+def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2):
+    """The denoiser's parameter gradients of a cross-entropy loss on the
+    card (f32, TF32 off, through the backward kernels) against the same
+    weights on the CPU (plain versions). Every to_q / to_k / to_v weight
+    must get a non-zero gradient."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.models import VqVideoDiffusionModel
+
+    torch.manual_seed(4)
+    cpu = VqVideoDiffusionModel(**denoiser, device="cpu").train()
+    card = VqVideoDiffusionModel(**denoiser, device=dev).train()
+    card.load_state_dict(cpu.state_dict())
+    k = denoiser["num_classes"]
+    s, h, w = denoiser["data_shape"]
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, k, (batch, s, h, w), generator=gen)
+    masked = torch.rand((batch, h, w), generator=gen) < 0.5
+    tokens[:, -1] = torch.where(masked, k, tokens[:, -1])
+    target = torch.randint(0, k, (batch, h, w), generator=gen)
+    before = dict(launches)
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        logits = model(tokens.to(d)).float()
+        F.cross_entropy(logits.reshape(-1, k), target.to(d).reshape(-1)).backward()
+    ran = {key: launches[key] - before.get(key, 0) for key in launches}
+    depth = denoiser["depth"]
+    for key in ("local3d_fwd", "local3d_bwd_dq", "local3d_bwd_dkv"):
+        if dev.type == "cuda" and ran.get(key, 0) != depth:
+            raise AssertionError(f"{key} ran {ran.get(key, 0)} times, not {depth}")
+    want = dict(cpu.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in want.values())
+    # per tensor: (max |CPU grad|, max abs err, limit)
+    rows = {}
+    for name, p in card.named_parameters():
+        if p.grad is None:
+            raise AssertionError(f"{name} has no gradient on the card")
+        ref = want[name].grad
+        mag = float(ref.abs().max())
+        rows[name] = (mag, float((p.grad.cpu() - ref).abs().max()),
+                      GRAD_TOL * max(mag, GRAD_FLOOR * scale))
+        if name.endswith(("to_q.weight", "to_k.weight", "to_v.weight")) and not bool(
+                p.grad.abs().max() > 0):
+            raise AssertionError(f"{name} has an all-zero gradient on the card")
+    worst = max(rows, key=lambda n: rows[n][1] / rows[n][2])
+    log(f"denoiser gradients f32 card vs CPU ({len(rows)} tensors, {depth} "
+        f"layers of local3d fwd/dq/dkv; limit {GRAD_TOL} x max(max|its "
+        f"grad|, {GRAD_FLOOR} x {scale:.3g})): worst err/limit "
+        f"{rows[worst][1] / rows[worst][2]:.3g} in {worst} (err "
+        f"{rows[worst][1]:.3g}, max|grad| {rows[worst][0]:.3g}); every "
+        f"to_q/to_k/to_v weight has a non-zero gradient")
+    for proj in ("to_q", "to_k", "to_v"):
+        names = [n for n in rows if n.endswith(f"{proj}.weight")]
+        big = max(names, key=lambda n: rows[n][0])
+        small = min(names, key=lambda n: rows[n][0])
+        bad = max(names, key=lambda n: rows[n][1] / rows[n][2])
+        log(f"  {proj}.weight x {len(names)}: max|grad| {rows[small][0]:.3g} "
+            f"to {rows[big][0]:.3g} (largest: {big}, err {rows[big][1]:.3g}); "
+            f"worst err/limit {rows[bad][1] / rows[bad][2]:.3g} in {bad} "
+            f"(err {rows[bad][1]:.3g}, limit {rows[bad][2]:.3g})")
+    if not rows[worst][1] <= rows[worst][2]:
+        raise AssertionError(
+            f"{worst}: gradient differs by {rows[worst][1]} > {rows[worst][2]}")
+
+
+def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
+                   root=os.path.join(HERE, "build", "smoke")):
+    """The trainer at full width (``cli.video_diffusion.train``) from a
+    seeded tokenizer checkpoint (random convs, a codebook of their
+    latents). Returns the launch counts of the run."""
+    import shutil
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli.video_diffusion import VideoDiffusionConfig
+    from world_modelz_tpu_torch.cli.video_diffusion import train as run_train
+    from world_modelz_tpu_torch.data import MovingMNIST
+    from world_modelz_tpu_torch.models import VQAutoEncoder
+    from world_modelz_tpu_torch.train import latest_checkpoint, save_checkpoint
+
+    shutil.rmtree(root, ignore_errors=True)
+    torch.manual_seed(3)
+    tok = VQAutoEncoder(**tokenizer, device="cpu")
+    # codebook: the encoder's own latents of seeded MovingMNIST patches (a
+    # k-means-style init), so tokens vary with the content; a random
+    # codebook sends nearly every patch to one code and the task is trivial
+    clips = MovingMNIST(seq_len=train["n_past"] + 1, image_size=train["image_size"],
+                        num_digits=train["num_digits"], digit_size=train["digit_size"],
+                        deterministic=False).sample_batch(np.random.default_rng(3), 16)
+    with torch.no_grad():
+        frames = torch.from_numpy(clips.reshape(-1, *clips.shape[2:]))
+        lat = tok.encoder(frames.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        lat = lat.reshape(-1, tokenizer["embedding_dim"])
+        pick = torch.randperm(lat.shape[0])[: tokenizer["num_embeddings"]]
+        tok.vq.embedding[0] = lat[pick] + 0.01 * torch.randn_like(lat[pick])
+    tok_path = save_checkpoint(
+        os.path.join(root, "tokenizer"), 0, {"tokenizer": tok.state_dict()},
+        tokenizer)
+    cfg = VideoDiffusionConfig(
+        **train, decoder_model=tok_path, output_dir=os.path.join(root, "run"),
+        platform="" if dev.type == "cuda" else dev.type)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    # the trainer as a user runs it: PyTorch's default TF32 settings (cuDNN
+    # convolutions in TF32, matmuls in full f32), not the parity phases' off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        result = run_train(cfg)
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
+        if on_card:
+            profile_training(torch, dev, cfg, result, tokenizer)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    steps = cfg.max_steps
+    losses = [h[1] for h in result.history]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses not finite or missing: {losses}")
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 10 {first}, last 10 {last}")
+    if result.rejected:
+        raise AssertionError(f"{result.rejected} steps rejected")
+    if latest_checkpoint(cfg.output_dir) != os.path.join(
+            cfg.output_dir, f"step_{steps:07d}"):
+        raise AssertionError("the final checkpoint did not land")
+    # per step: every layer's forward and both backward passes, one encode;
+    # plus the token-grid probe's encode before the first step
+    want = {"local3d_fwd": cfg.depth * steps, "local3d_bwd_dq": cfg.depth * steps,
+            "local3d_bwd_dkv": cfg.depth * steps, "vq_encode": steps + 1}
+    for name, n in want.items() if on_card else ():
+        if counts.get(name, 0) != n:
+            raise AssertionError(
+                f"{name} launched {counts.get(name, 0)} times, expected {n}")
+    t = {h[0]: h[4] for h in result.history}
+    window = steps - 10  # steps 11..60: compile and warm-up excluded
+    sps = window / (t[steps] - t[10])
+    log(f"training: train_step/m3_b64_g8_full, token grid {result.token_shape}, "
+        f"{steps} steps in {wall:.3f} s; loss first-10 mean {first:.5f} -> "
+        f"last-10 mean {last:.5f}; losses every 10: "
+        + " ".join(f"{x:.4f}" for x in losses[::10]))
+    log(f"training: steps 11-{steps}: {sps:.4f} steps/s = "
+        f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); "
+        f"peak device memory {peak:.3f} GiB; rejected {result.rejected}; "
+        f"launches {counts} (per step: {cfg.depth} local3d_fwd, "
+        f"{cfg.depth} local3d_bwd_dq, {cfg.depth} local3d_bwd_dkv, 1 "
+        f"vq_encode; +1 vq_encode for the token-grid probe); TF32: matmul "
+        f"off, cuDNN on (PyTorch's defaults); on {smi}")
+    return counts
+
+
+def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
+    """``n`` more train steps on the trained state, unprofiled, for the wall
+    per step, then one under torch.profiler: device time by kernel and the
+    device's busy share of the unprofiled step wall (kernels run in order
+    on one stream). The batches are made and shipped beforehand, as the
+    trainer's prefetch thread does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from world_modelz_tpu_torch.cli.video_diffusion import (
+        build_clip_fn,
+        draw_step,
+        load_tokenizer,
+        train_step,
+    )
+    from world_modelz_tpu_torch.models import tokenizer_inference_cast
+
+    tok, _ = load_tokenizer(cfg.decoder_model, dev)
+    tokenizer_inference_cast(tok)
+    clip_fn, _ = build_clip_fn(cfg, 7)
+    batches = [torch.from_numpy(clip_fn(cfg.batch_size)).to(dev) for _ in range(n + 2)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_tok = result.token_shape[1] * result.token_shape[2]
+
+    def one_step(frames):
+        draws = draw_step(gen, cfg.batch_size, n_tok,
+                          result.state.sampler.weights.shape[0],
+                          tokenizer["num_embeddings"])
+        return train_step(result.state, tok, frames, cfg, draws)
+
+    one_step(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for frames in batches[1:-1]:
+        one_step(frames)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_step(batches[-1])
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        log("profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"profile: one train step, device busy {busy_us / 1e3:.3f} ms of "
+        f"{step_s * 1e3:.3f} ms unprofiled wall (mean of {n}) = "
+        f"{busy_us / 1e6 / step_s:.4f} busy share; "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:7d} x  {e.key[:90]}")
+
+
 def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
                   denoiser=DENOISER, service=SERVICE, img=IMG):
     """The serving path at full width with a bf16 denoiser: 8 concurrent
@@ -371,15 +800,13 @@ def profile_batch(torch, svc, clips, t_batch: float) -> None:
     """One more rollout batch under torch.profiler: device time by kernel,
     and the device's busy share of the unprofiled batch time ``t_batch``
     (kernels run in order on one stream, so their sum is the busy time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         [f.result(timeout=600) for f in [svc.submit(c) for c in clips]]
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         log("profile: the profiler recorded no device time (not measured)")
@@ -436,9 +863,16 @@ def main() -> int:
 
     a = check_local3d(torch, dev)
     b = check_vq(torch, dev)
+    bwd = check_local3d_bwd(torch, dev)
     check_slice_parity(torch, dev)
-    counts = drive_serving(torch, dev, _build.LAUNCHES)
+    check_train_grads(torch, dev, _build.LAUNCHES)
+    serving = drive_serving(torch, dev, _build.LAUNCHES)
     log(f"serving: measured on {smi}")
+    training = drive_training(torch, dev, _build.LAUNCHES, smi)
+    # launches of the two main paths, each counted in its own run
+    counts = {key: serving.get(key, 0) + training.get(key, 0)
+              for key in set(serving) | set(training)}
+    log(f"launches: serving {serving}, training {training}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -449,6 +883,14 @@ def main() -> int:
              source="world_modelz_tpu_torch/csrc/vq_encode.cu",
              replaces="world_modelz_tpu/kernels/vq_kernels.py:34",
              launches=counts["vq_encode"], **b),
+        dict(name="local3d_bwd_dq", route="cuda",
+             source="world_modelz_tpu_torch/csrc/local3d_bwd.cu",
+             replaces="world_modelz_tpu/kernels/local3d.py:1183",
+             launches=counts["local3d_bwd_dq"], **bwd["local3d_bwd_dq"]),
+        dict(name="local3d_bwd_dkv", route="cuda",
+             source="world_modelz_tpu_torch/csrc/local3d_bwd.cu",
+             replaces="world_modelz_tpu/kernels/local3d.py:1261",
+             launches=counts["local3d_bwd_dkv"], **bwd["local3d_bwd_dkv"]),
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

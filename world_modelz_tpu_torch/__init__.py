@@ -1,12 +1,14 @@
 """world_modelz_tpu_torch — the PyTorch/CUDA port of world_modelz_tpu.
 
-The serving path runs here: tokenizer encode (conv encoder + nearest-code
+Two paths run here. Serving: tokenizer encode (conv encoder + nearest-code
 search) -> iterative-unmask rollout over the local-3D-attention denoiser ->
-tokenizer decode. Layouts at public functions follow the JAX package: NHWC
-images in [0, 1], (B, S, H, W) token grids, (B, S, H, W, heads * dh)
-attention operands.
+tokenizer decode. Training: the masked-diffusion trainer
+(``cli.video_diffusion``) over frozen-tokenizer MovingMNIST clips, with
+the attention's backward kernels. Layouts at public functions follow the
+JAX package: NHWC images in [0, 1], (B, S, H, W) token grids,
+(B, S, H, W, heads * dh) attention operands.
 
-Every kernel of that path is hand-written CUDA for Hopper (``csrc/``), built
+Every kernel of those paths is hand-written CUDA for Hopper (``csrc/``), built
 with ``nvcc`` on first use (``kernels/_build.py``) and bound through ctypes.
 A kernel wrapper launches its kernel for a CUDA tensor and takes the plain
 PyTorch version only for a CPU tensor.
@@ -17,10 +19,15 @@ Entry points take ``device=None``, which means ``"cuda"``; pass
 Subpackages
 -----------
 ops        vector quantization (the nearest-code plain version)
-kernels    CUDA kernel wrappers, launch counters, the nvcc build
+kernels    CUDA kernel wrappers, the attention's autograd Function, launch
+           counters, the nvcc build
 models     tokenizer convs, local-3D attention transformer, denoiser
-diffusion  iterative-unmask sampler and multi-frame rollout
+diffusion  corruption, iterative-unmask sampler and multi-frame rollout
 serve      batched rollout service (request coalescing, sessions)
+train      optimizer, schedule, EMA, loss-aware sampler, guard, checkpoints
+data       MovingMNIST source and the prefetching device feeder
+cli        the video-diffusion trainer (``python -m ...cli.video_diffusion``)
+utils      dataclass CLI configs
 convert    weight bridge from the JAX package's numpy parameter trees
 """
 

@@ -12,6 +12,10 @@ Layout changes:
 - flax BatchNorm scale/bias + batch_stats mean/var -> BN weight/bias/
   running_mean/running_var (+ a zero ``num_batches_tracked``)
 - VQ codebook (L, K, D)                -> ``vq.embedding`` (L, K, D)
+
+``tokenizer_checkpoint_from_state`` writes a JAX tokenizer's arrays as a
+port tokenizer checkpoint (``train/checkpoint.py`` format, config
+embedded), which ``cli.video_diffusion.load_tokenizer`` reads.
 """
 
 from __future__ import annotations
@@ -138,3 +142,23 @@ def tokenizer_state_dict_from_state(
         cluster_size = np.ones(codebook.shape[:2], np.float32)
     sd["vq.cluster_size"] = _t(cluster_size)
     return sd
+
+
+def tokenizer_checkpoint_from_state(
+    params: Mapping[str, Any],
+    batch_stats: Mapping[str, Any],
+    codebook,
+    config: Mapping[str, Any],
+    directory: str,
+    cluster_size: Optional[Any] = None,
+) -> str:
+    """Write a JAX tokenizer (numpy ``params``, ``batch_stats`` and
+    ``codebook``, as for ``tokenizer_state_dict_from_state``) as a port
+    tokenizer checkpoint at step 0 under ``directory``, with ``config``
+    (the tokenizer trainer's fields: ``embedding_dim``,
+    ``num_embeddings``, ``downscale_steps``, ``hidden_planes``,
+    ``in_channels``) embedded. Returns the checkpoint's path."""
+    from world_modelz_tpu_torch.train.checkpoint import save_checkpoint
+
+    sd = tokenizer_state_dict_from_state(params, batch_stats, codebook, cluster_size)
+    return save_checkpoint(directory, 0, {"tokenizer": sd}, dict(config))

@@ -32,7 +32,8 @@
 // place in their (B, S, H, W, heads * dh) layout: no transposes and no
 // zero-padded frames. The window's k/v rows are re-read from L2 by every
 // query that sees them; shared-memory K/V tiles and tensor-core products
-// are later work.
+// are later work. The window and the warp layout are defined once, for
+// this kernel and the backward pair, in local3d_window.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,32 +41,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "local3d_window.cuh"
+#include "vec.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kGroupLanes = 8;                   // lanes that share one key
-constexpr int kGroups = 32 / kGroupLanes;        // keys in flight per warp
-
-// four consecutive elements, converted to f32 (16-byte f32 / 8-byte bf16
-// loads; the wrapper checks the alignment)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v.x, v.y);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
+using wmz::group_sum;
+using wmz::kGroupLanes;
+using wmz::kGroups;
+using wmz::kWarpsPerBlock;
+using wmz::load4;
+using wmz::store4;
+using wmz::Window;
+using wmz::window_of;
+using wmz::window_row;
 
 // E: elements of the head dimension per lane, dh = kGroupLanes * E, E % 4 == 0
 template <typename T, int E>
@@ -80,28 +69,14 @@ local3d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = lane % kGroupLanes;
   const long long query =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const long long total = (long long)B * S * H * W * heads;
-  if (query >= total) return;  // whole warps only: the shuffles stay full
-
-  // query -> (b, s, h, w, head), head fastest: the memory order
-  long long r = query;
-  const int head = (int)(r % heads);
-  r /= heads;
-  const int w = (int)(r % W);
-  r /= W;
-  const int h = (int)(r % H);
-  r /= H;
-  const int s = (int)(r % S);
-  const int b = (int)(r / S);
-  const long long inner = (long long)heads * dh;
-  const long long lane_off = (long long)head * dh + t * E;
-  auto row = [&](int ss, int hh, int ww) -> long long {
-    return ((((long long)b * S + ss) * H + hh) * W + ww) * inner + lane_off;
-  };
+  if (query >= (long long)B * S * H * W * heads) return;  // whole warps
+  const Window c = window_of(query, S, H, W, heads, es, eh, ew);
+  // element offset of a row's lane slice
+  auto elems = [&](long long row) -> long long { return row * dh + t * E; };
 
   float qr[E], acc[E];
   {
-    const T* qp = q + row(s, h, w);
+    const T* qp = q + elems(query);
 #pragma unroll
     for (int e = 0; e < E; e += 4) {
       const float4 x = load4(qp + e);
@@ -115,21 +90,11 @@ local3d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  const int s0 = max(s - es, 0), s1 = min(s + es, S - 1);
-  const int h0 = max(h - eh, 0), h1 = min(h + eh, H - 1);
-  const int w0 = max(w - ew, 0), w1 = min(w + ew, W - 1);
-  const int nw = w1 - w0 + 1, nhw = (h1 - h0 + 1) * nw;
-  const int n = (s1 - s0 + 1) * nhw;  // window keys, all valid
-
 #pragma unroll 2
-  for (int i0 = 0; i0 < n; i0 += kGroups) {
+  for (int i0 = 0; i0 < c.n; i0 += kGroups) {
     const int i = i0 + group;
-    const bool valid = i < n;
-    const int ii = valid ? i : 0;
-    const int ss = s0 + ii / nhw;
-    const int hh = h0 + (ii % nhw) / nw;
-    const int ww = w0 + ii % nw;
-    const long long o = row(ss, hh, ww);
+    const bool valid = i < c.n;
+    const long long o = elems(window_row(c, valid ? i : 0, S, H, W, heads));
     float part = 0.f;
 #pragma unroll
     for (int e = 0; e < E; e += 4) {
@@ -139,10 +104,7 @@ local3d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part = fmaf(qr[e + 2], x.z, part);
       part = fmaf(qr[e + 3], x.w, part);
     }
-    // all 32 lanes take part; the xor offsets stay inside a group
-#pragma unroll
-    for (int off = kGroupLanes / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
+    part = group_sum(part);
     if (valid) {
       const float m_new = fmaxf(m, part);
       const float corr = expf(m - m_new);  // 0 on the first key (m = -inf)
@@ -167,20 +129,20 @@ local3d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
     const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
     const float m_new = fmaxf(m, m_o);
-    const float a = m == -INFINITY ? 0.f : expf(m - m_new);
-    const float c = m_o == -INFINITY ? 0.f : expf(m_o - m_new);
-    l = l * a + l_o * c;
+    const float ca = m == -INFINITY ? 0.f : expf(m - m_new);
+    const float cb = m_o == -INFINITY ? 0.f : expf(m_o - m_new);
+    l = l * ca + l_o * cb;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const float acc_o = __shfl_xor_sync(0xffffffffu, acc[e], off);
-      acc[e] = acc[e] * a + acc_o * c;
+      acc[e] = acc[e] * ca + acc_o * cb;
     }
     m = m_new;
   }
 
   if (group == 0) {
     const float inv = 1.f / l;
-    T* op = out + row(s, h, w);
+    T* op = out + elems(query);
 #pragma unroll
     for (int e = 0; e < E; e += 4)
       store4(op + e, make_float4(acc[e] * inv, acc[e + 1] * inv,
@@ -192,32 +154,19 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int H, int W, int heads, int dh, int es,
                    int eh, int ew, cudaStream_t stream) {
-  const long long total = (long long)B * S * H * W * heads;
-  const unsigned blocks =
-      (unsigned)((total + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const float scale = 1.0f / sqrtf((float)dh);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
-  const dim3 grid(blocks), block(kWarpsPerBlock * 32);
+  const dim3 grid(wmz::blocks_for(B, S, H, W, heads));
+  const dim3 block(kWarpsPerBlock * 32);
 #define WMZ_L3D_CASE(EE)                                                   \
   case EE:                                                                 \
     local3d_fwd_kernel<T, EE><<<grid, block, 0, stream>>>(                 \
         qq, kk, vv, oo, B, S, H, W, heads, es, eh, ew, scale);             \
     break;
-  switch (dh / kGroupLanes) {
-    WMZ_L3D_CASE(4)
-    WMZ_L3D_CASE(8)
-    WMZ_L3D_CASE(12)
-    WMZ_L3D_CASE(16)
-    WMZ_L3D_CASE(20)
-    WMZ_L3D_CASE(24)
-    WMZ_L3D_CASE(28)
-    WMZ_L3D_CASE(32)
-    default:
-      return cudaErrorInvalidValue;
-  }
+  WMZ_L3D_E_SWITCH(dh, WMZ_L3D_CASE)
 #undef WMZ_L3D_CASE
   return cudaGetLastError();
 }
@@ -229,7 +178,7 @@ extern "C" int wmz_local3d_fwd(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int W,
                                int heads, int dh, int es, int eh, int ew,
                                int dtype, void* stream) {
-  if (dh % 32 != 0 || dh < 32 || dh > 256) return (int)cudaErrorInvalidValue;
+  if (wmz::bad_dh(dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {

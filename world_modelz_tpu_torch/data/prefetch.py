@@ -1,0 +1,95 @@
+"""Host -> device prefetching.
+
+Port of ``world_modelz_tpu.data.prefetch.PrefetchIterator``: a worker
+thread assembles host batches into a bounded queue, ``depth`` batches
+ahead, and copies each to the device from pinned memory with
+``non_blocking=True``, so ``next()`` usually returns a batch that is
+already on its way to the card.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+
+def _to_device(batch: Any, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor -> a tensor on ``device``; host memory is
+    pinned first when the target is a GPU."""
+    t = torch.as_tensor(np.ascontiguousarray(batch)) if isinstance(
+        batch, np.ndarray) else batch
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class PrefetchIterator:
+    """Wrap a host batch function with background prefetch and device copy.
+
+    Args:
+      make_batch: callable returning the next host batch (a numpy array or
+        a tensor).
+      depth: number of batches to keep ready ahead of the consumer.
+      device: target device; None keeps batches on the host.
+
+    An exception in ``make_batch`` is raised by the ``next()`` that would
+    have returned its batch. ``close()`` stops and joins the worker.
+    """
+
+    _SENTINEL = object()
+
+    def __init__(
+        self,
+        make_batch: Callable[[], Any],
+        depth: int = 2,
+        device: Optional[torch.device] = None,
+    ):
+        self._make_batch = make_batch
+        self._device = torch.device(device) if device is not None else None
+        self._queue: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                batch = self._make_batch()
+                if self._device is not None:
+                    batch = _to_device(batch, self._device)
+            except Exception as e:  # raised again by the consumer's next()
+                self._error = e
+                self._put(self._SENTINEL)
+                return
+            self._put(batch)
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def __iter__(self) -> Iterator[Any]:
+        return self
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is self._SENTINEL:
+            raise self._error if self._error else StopIteration
+        return item
+
+    def close(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout)

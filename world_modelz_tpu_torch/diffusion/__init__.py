@@ -1,6 +1,7 @@
-"""Masked discrete diffusion sampling."""
+"""Masked discrete diffusion: corruption and sampling."""
 
 from world_modelz_tpu_torch.diffusion.masked import (
+    corrupt_tokens,
     generator_noise,
     rollout_frames,
     top_k_logits,
@@ -9,6 +10,7 @@ from world_modelz_tpu_torch.diffusion.masked import (
 )
 
 __all__ = [
+    "corrupt_tokens",
     "top_k_logits",
     "unmask_step",
     "unmask_frame",

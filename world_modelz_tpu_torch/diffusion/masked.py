@@ -1,15 +1,21 @@
-"""Masked discrete diffusion sampling: iterative unmasking and rollout.
+"""Masked discrete diffusion: the corruption process, iterative unmasking
+and rollout.
 
-Port of the sampling half of ``world_modelz_tpu.diffusion.masked``
-(reference: minecraft/main2.py:85-131): starting from flat logits, each of
-``num_iterations`` steps draws a candidate last frame, re-masks a shrinking
-``1 - alpha`` fraction of it and queries the denoiser; ``rollout_frames``
-repeats that per generated frame and shifts the context window.
+Port of ``world_modelz_tpu.diffusion.masked``. ``corrupt_tokens`` is the
+training corruption (reference: vq-video-diffusion/main.py:246-259):
+Bernoulli(r) masking plus a uniform resample with probability
+r * p_max_uniform. The sampler (reference: minecraft/main2.py:85-131)
+starts from flat logits; each of ``num_iterations`` steps draws a candidate
+last frame, re-masks a shrinking ``1 - alpha`` fraction of it and queries
+the denoiser; ``rollout_frames`` repeats that per generated frame and
+shifts the context window.
 
-Randomness is explicit. One step consumes a Gumbel tensor (B, H, W, K) —
-``jax.random.categorical`` is ``argmax(logits + gumbel)`` — and a re-mask
-uniform tensor (B, H, W). By default they come from a ``torch.Generator``;
-a caller (the tests) may hand in its own draws through ``noise``.
+Randomness is explicit. ``corrupt_tokens`` takes its three draws (mask
+uniforms, resample uniforms, uniform class ids) as tensors. One unmask step
+consumes a Gumbel tensor (B, H, W, K) — ``jax.random.categorical`` is
+``argmax(logits + gumbel)`` — and a re-mask uniform tensor (B, H, W). By
+default they come from a ``torch.Generator``; a caller (the tests) may hand
+in its own draws.
 """
 
 from __future__ import annotations
@@ -22,6 +28,53 @@ import torch
 # (frame, iteration) -> (gumbel (B, H, W, K), uniform (B, H, W)), both f32
 Noise = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def corrupt_tokens(
+    tokens: torch.Tensor,
+    r: torch.Tensor,
+    *,
+    num_classes: int,
+    mask_token: int,
+    p_max_uniform: float = 0.1,
+    mask_uniform: Optional[torch.Tensor] = None,
+    resample_uniform: Optional[torch.Tensor] = None,
+    uniform_classes: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply the forward (corruption) process to clean tokens.
+
+    Args:
+      tokens: (B, N) int tokens in [0, num_classes).
+      r: (B,) diffusion times in [0, 1].
+      num_classes: codebook size.
+      mask_token: index of masked positions (== num_classes).
+      p_max_uniform: max uniform-resample probability (main2.py:221).
+      mask_uniform, resample_uniform: (B, N) uniforms in [0, 1); position n
+        is masked where ``mask_uniform < r`` and resampled where
+        ``resample_uniform < r * p_max_uniform``.
+      uniform_classes: (B, N) int class ids in [0, num_classes) for the
+        resampled positions.
+      generator: source of the draws not given (on the tokens' device).
+
+    Returns:
+      (corrupted tokens (B, N), mask (B, N) bool — True where masked).
+    """
+    b, n = tokens.shape
+    dev = tokens.device
+    if mask_uniform is None:
+        mask_uniform = torch.rand((b, n), generator=generator, device=dev)
+    if resample_uniform is None:
+        resample_uniform = torch.rand((b, n), generator=generator, device=dev)
+    if uniform_classes is None:
+        uniform_classes = torch.randint(
+            0, num_classes, (b, n), generator=generator, device=dev)
+    r = r.reshape(b, 1)
+    mask = mask_uniform < r
+    resample = resample_uniform < r * p_max_uniform
+    corrupted = torch.where(resample, uniform_classes.to(tokens.dtype), tokens)
+    corrupted = torch.where(mask, mask_token, corrupted)
+    return corrupted, mask
 
 
 def top_k_logits(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled for ``sm_90a`` into an object file (one
 ``nvcc`` per source, all started together), and the objects are linked
 into one shared library with a plain C interface under ``build/kernels/``
-at the repository root. The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is loaded
+at the repository root. The library's name carries a hash of the sources,
+the ``csrc/*.cuh`` headers they include and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded
 as it is. Nothing is built when a module is imported: the first kernel
 launch (or an explicit ``load_library()``) builds. A failed build raises.
 
@@ -46,6 +47,12 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, dtype, stream
     "wmz_local3d_fwd": ([_VP] * 4 + [_INT] * 10 + [_VP], _INT),
+    # q, k, v, g, dq, lse, delta, B, S, H, W, heads, dh, es, eh, ew, dtype,
+    # stream
+    "wmz_local3d_bwd_dq": ([_VP] * 7 + [_INT] * 10 + [_VP], _INT),
+    # q, k, v, g, lse, delta, dk, dv, B, S, H, W, heads, dh, es, eh, ew,
+    # dtype, stream
+    "wmz_local3d_bwd_dkv": ([_VP] * 8 + [_INT] * 10 + [_VP], _INT),
     # x, codebook, e_t, e_sq, idx, N, K, D, x_dtype, stream
     "wmz_vq_encode": ([_VP] * 5 + [_INT] * 4 + [_VP], _INT),
     "wmz_cuda_error_string": ([_INT], ctypes.c_char_p),
@@ -75,8 +82,12 @@ def _sources() -> List[str]:
 
 
 def _digest(srcs: List[str]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    headers = sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")
+    )
+    for path in srcs + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

@@ -1,9 +1,12 @@
-"""Local-3D attention forward: the CUDA kernel ``csrc/local3d_fwd.cu`` and
-its wrapper.
+"""Local-3D attention: the CUDA kernels ``csrc/local3d_fwd.cu`` (forward)
+and ``csrc/local3d_bwd.cu`` (the split backward pair), their wrappers, and
+the autograd Function that joins them.
 
 Counterpart of ``world_modelz_tpu.kernels.local3d.local3d_attention_pallas``
-(forward). A CUDA tensor launches the kernel; a CPU tensor takes the plain
-version, ``models.attention.local3d_attention``.
+and its custom_vjp. A CUDA tensor launches a kernel; a CPU tensor takes the
+plain version of the same function in ``models.attention``
+(``local3d_attention``, ``local3d_attention_bwd_dq``,
+``local3d_attention_bwd_dkv``).
 """
 
 from __future__ import annotations
@@ -16,12 +19,73 @@ from world_modelz_tpu_torch.kernels._build import LAUNCHES, check, load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+Extents = Tuple[int, int, int]
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (take the plain version);
+    False when all share one CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or tensors[0].device.type != "cuda":
+        raise ValueError(
+            f"local3d operands must share one CUDA device (or all lie on the "
+            f"CPU), got {sorted(map(str, devices))}"
+        )
+    return False
+
+
+def _check_layout(q: torch.Tensor, heads: int, *same: torch.Tensor) -> None:
+    """q and every tensor of ``same`` are (B, S, H, W, heads * dim_head) of
+    one shape."""
+    if q.dim() != 5 or any(t.shape != q.shape for t in same):
+        raise ValueError(
+            f"expected operands of one (B, S, H, W, inner) shape, got "
+            f"{[tuple(t.shape) for t in (q, *same)]}"
+        )
+    if q.shape[-1] % heads:
+        raise ValueError(
+            f"inner width {q.shape[-1]} not divisible by heads={heads}")
+
+
+def _kernel_args(extents: Extents, heads: int, tensors, stats=()):
+    """Checks what the CUDA kernels take; returns (B, S, H, W, heads, dh,
+    es, eh, ew, dtype code)."""
+    q = tensors[0]
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(
+            f"local3d kernels take float32 or bfloat16 operands of one "
+            f"dtype, got {[t.dtype for t in tensors]}"
+        )
+    if any(t.dtype != torch.float32 for t in stats):
+        raise TypeError("local3d lse and delta must be float32")
+    b, s, h, w, inner = q.shape
+    dh = inner // heads
+    if dh % 32 or dh > 256:
+        raise ValueError(
+            f"local3d kernels need dim_head % 32 == 0 and <= 256, got {dh}"
+        )
+    es, eh, ew = (int(e) for e in extents)
+    if min(es, eh, ew) < 0:
+        raise ValueError(f"extents must be >= 0, got {extents}")
+    every = (*tensors, *stats)
+    if not all(t.is_contiguous() for t in every):
+        raise ValueError("local3d kernels need contiguous operands")
+    if any(t.data_ptr() % 16 for t in every):
+        raise ValueError("local3d kernels need 16-byte aligned operands")
+    return b, s, h, w, heads, dh, es, eh, ew, _DTYPES[q.dtype]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
 
 def local3d_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    extents: Tuple[int, int, int],
+    extents: Extents,
     heads: int,
 ) -> torch.Tensor:
     """Windowed space-time attention; same contract as the plain version.
@@ -32,52 +96,131 @@ def local3d_attention_fwd(
       heads: number of heads.
 
     Returns:
-      (B, S, H, W, heads * dim_head) in the input dtype.
+      (B, S, H, W, heads * dim_head) in the input dtype. No autograd graph
+      on CUDA: training goes through ``local3d_attention``.
     """
-    if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"expected q, k, v of one (B, S, H, W, inner) shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    b, s, h, w, inner = q.shape
-    if inner % heads:
-        raise ValueError(f"inner width {inner} not divisible by heads={heads}")
-    devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
-        from world_modelz_tpu_torch.models.attention import local3d_attention
+    _check_layout(q, heads, k, v)
+    if _on_cpu(q, k, v):
+        from world_modelz_tpu_torch.models.attention import local3d_attention as plain
 
-        return local3d_attention(q, k, v, extents, heads)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(
-            f"q, k, v must share one CUDA device (or all lie on the CPU), "
-            f"got {sorted(map(str, devices))}"
-        )
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"local3d kernel takes float32 or bfloat16 q/k/v of one dtype, "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    dh = inner // heads
-    if dh % 32 or dh > 256:
-        raise ValueError(
-            f"local3d kernel needs dim_head % 32 == 0 and <= 256, got {dh}"
-        )
-    es, eh, ew = (int(e) for e in extents)
-    if min(es, eh, ew) < 0:
-        raise ValueError(f"extents must be >= 0, got {extents}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("local3d kernel needs contiguous q, k, v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("local3d kernel needs 16-byte aligned q, k, v")
+        return plain(q, k, v, extents, heads)
+    args = _kernel_args(extents, heads, (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = load_library()
     LAUNCHES["local3d_fwd"] += 1
     status = lib.wmz_local3d_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, w, heads, dh, es, eh, ew, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
+        _stream(q),
     )
     check(status, "local3d_fwd")
     return out
+
+
+def local3d_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    extents: Extents,
+    heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward pass 1: (dq, lse, delta) for the output cotangent ``g``.
+
+    dq is (B, S, H, W, heads * dim_head) in the input dtype; lse (the
+    log-sum-exp of each query's scaled scores) and delta (rowsum(dP * P))
+    are (B, S, H, W, heads) float32.
+    """
+    _check_layout(q, heads, k, v, g)
+    if _on_cpu(q, k, v, g):
+        from world_modelz_tpu_torch.models.attention import local3d_attention_bwd_dq
+
+        return local3d_attention_bwd_dq(q, k, v, g, extents, heads)
+    args = _kernel_args(extents, heads, (q, k, v, g))
+    dq = torch.empty_like(q)
+    lse = torch.empty(q.shape[:4] + (heads,), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    if q.numel() == 0:
+        return dq, lse, delta
+    lib = load_library()
+    LAUNCHES["local3d_bwd_dq"] += 1
+    status = lib.wmz_local3d_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *args, _stream(q),
+    )
+    check(status, "local3d_bwd_dq")
+    return dq, lse, delta
+
+
+def local3d_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    extents: Extents,
+    heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass 2: (dk, dv) from pass 1's lse and delta, in the input
+    dtype."""
+    _check_layout(q, heads, k, v, g)
+    stat_shape = q.shape[:4] + (heads,)
+    if lse.shape != stat_shape or delta.shape != stat_shape:
+        raise ValueError(
+            f"lse and delta must be {tuple(stat_shape)}, got "
+            f"{tuple(lse.shape)} and {tuple(delta.shape)}"
+        )
+    if _on_cpu(q, k, v, g, lse, delta):
+        from world_modelz_tpu_torch.models.attention import local3d_attention_bwd_dkv
+
+        return local3d_attention_bwd_dkv(q, k, v, g, lse, delta, extents, heads)
+    args = _kernel_args(extents, heads, (q, k, v, g), (lse, delta))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0:
+        return dk, dv
+    lib = load_library()
+    LAUNCHES["local3d_bwd_dkv"] += 1
+    status = lib.wmz_local3d_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *args, _stream(q),
+    )
+    check(status, "local3d_bwd_dkv")
+    return dk, dv
+
+
+class Local3dAttentionFunction(torch.autograd.Function):
+    """Forward kernel, and the split backward pair as its gradient; the
+    counterpart of the custom_vjp of ``local3d_attention_pallas``. Saves
+    only q, k and v (the backward recomputes the scores)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, extents, heads):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        ctx.extents, ctx.heads = extents, heads
+        ctx.save_for_backward(q, k, v)
+        return local3d_attention_fwd(q, k, v, extents, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        dq, lse, delta = local3d_bwd_dq(q, k, v, g, ctx.extents, ctx.heads)
+        dk, dv = local3d_bwd_dkv(q, k, v, g, lse, delta, ctx.extents, ctx.heads)
+        return dq, dk, dv, None, None
+
+
+def local3d_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    extents: Extents,
+    heads: int,
+) -> torch.Tensor:
+    """Differentiable windowed attention: ``local3d_attention_fwd`` forward,
+    ``local3d_bwd_dq`` then ``local3d_bwd_dkv`` backward (the kernels on
+    CUDA, their plain versions on the CPU)."""
+    return Local3dAttentionFunction.apply(q, k, v, tuple(extents), heads)

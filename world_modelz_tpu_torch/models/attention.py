@@ -10,8 +10,12 @@ embeddings.
 (``kernels/local3d.py``), written as the JAX package writes it: keys and
 values stacked for the 2e_s+1 frame offsets, dense per-frame scores, and an
 additive -1e9 mask for pairs outside the spatial window or off the clip.
-CPU tensors and the tests use it; ``Local3dAttention`` on CUDA launches the
-kernel. Submodule names follow the reference state_dict layout
+``local3d_attention_bwd_dq`` and ``local3d_attention_bwd_dkv`` are the
+plain versions of the two backward kernels, written as the JAX package's
+split backward (``_bwd_impl_split``) computes. CPU tensors and the tests
+use them; ``Local3dAttention`` goes through the autograd Function of
+``kernels/local3d.py``, which on CUDA launches the kernels and on the CPU
+calls these three. Submodule names follow the reference state_dict layout
 (``transformer.layers.{i}.0.fn.to_q`` ...), so the weight bridge
 (``convert.py``) loads with ``strict=True``.
 """
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from world_modelz_tpu_torch.kernels.local3d import local3d_attention_fwd
+from world_modelz_tpu_torch.kernels import local3d as local3d_kernels
 
 NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
 
@@ -95,6 +99,31 @@ def _shift_stack_frames(t: torch.Tensor, es: int) -> torch.Tensor:
     return torch.stack(stacks, dim=2)
 
 
+def _to_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H, W, heads * d) -> (B * heads, S, H * W, d); d is 1 for the
+    (B, S, H, W, heads) stat tensors."""
+    b, s, h, w, inner = t.shape
+    d = inner // heads
+    t = t.reshape(b, s, h * w, heads, d).permute(0, 3, 1, 2, 4)
+    return t.reshape(b * heads, s, h * w, d)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """At least float32: bf16 is widened, float64 (gradcheck) kept."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _from_heads(t: torch.Tensor, shape) -> torch.Tensor:
+    """Inverse of ``_to_heads`` for the (B, S, H, W, heads * d) ``shape``."""
+    b, s, h, w, inner = shape
+    heads = t.shape[0] // b
+    return (
+        t.reshape(b, heads, s, h * w, -1)
+        .permute(0, 2, 3, 1, 4)
+        .reshape(b, s, h, w, inner)
+    )
+
+
 def local3d_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -118,28 +147,122 @@ def local3d_attention(
     hw = h * w
     ts = 2 * es + 1
 
-    def to_heads(t):
-        return (
-            t.reshape(b, s, hw, heads, dh)
-            .permute(0, 3, 1, 2, 4)
-            .reshape(b * heads, s, hw, dh)
-        )
-
-    qh = to_heads(q)
-    kh = _shift_stack_frames(to_heads(k), es)  # (Z, S, Ts, HW, dh)
-    vh = _shift_stack_frames(to_heads(v), es)
+    qh = _to_heads(q, heads)
+    kh = _shift_stack_frames(_to_heads(k, heads), es)  # (Z, S, Ts, HW, dh)
+    vh = _shift_stack_frames(_to_heads(v, heads), es)
 
     scale = dh**-0.5
-    scores = torch.einsum("zsqd,zstkd->zsqtk", qh.float(), kh.float()) * scale
+    scores = torch.einsum("zsqd,zstkd->zsqtk", _f32(qh), _f32(kh)) * scale
     scores = scores + local3d_attention_weights_mask(s, h, w, extents, q.device)
     attn = torch.softmax(
         scores.reshape(b * heads, s, hw, ts * hw), dim=-1
     ).reshape(scores.shape)
     out = torch.einsum("zsqtk,zstkd->zsqd", attn.to(vh.dtype), vh)
+    return _from_heads(out, q.shape)
+
+
+def local3d_attention_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    extents: Tuple[int, int, int],
+    heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward pass 1 (plain version): query-centric, as the JAX
+    package's ``_bwd_kernel_dq``: dense per-frame scores of each query
+    against its 2e_s+1 stacked key frames, the additive window mask, then
+
+      lse = m + log l,  delta = rowsum(dP * P),
+      dq = scale * (P * (dP - delta)) @ K.
+
+    Args:
+      q, k, v: (B, S, H, W, heads * dim_head); g: the output's cotangent.
+
+    Returns:
+      dq in q's dtype; lse and delta (B, S, H, W, heads), float32 (float64
+      for float64 inputs). All arithmetic in f32 or wider.
+    """
+    es = extents[0]
+    b, s, h, w, inner = q.shape
+    dh = inner // heads
+    hw = h * w
+    ts = 2 * es + 1
+    qh = _f32(_to_heads(q, heads))
+    gh = _f32(_to_heads(g, heads))
+    kh = _shift_stack_frames(_f32(_to_heads(k, heads)), es)
+    vh = _shift_stack_frames(_f32(_to_heads(v, heads)), es)
+
+    scale = dh**-0.5
+    scores = torch.einsum("zsqd,zstkd->zsqtk", qh, kh) * scale
+    scores = scores + local3d_attention_weights_mask(s, h, w, extents, q.device)
+    flat = scores.reshape(b * heads, s, hw, ts * hw)
+    m = flat.amax(-1, keepdim=True)
+    p = torch.exp(flat - m)
+    l = p.sum(-1, keepdim=True)
+    attn = (p / l).reshape(scores.shape)
+    lse = (m + torch.log(l))[..., 0]  # (Z, S, HW)
+
+    dp = torch.einsum("zsqd,zstkd->zsqtk", gh, vh)
+    delta = (dp * attn).sum((-2, -1))
+    dscores = attn * (dp - delta[..., None, None])
+    dq = torch.einsum("zsqtk,zstkd->zsqd", dscores, kh) * scale
+    stats = q.shape[:4] + (heads,)
     return (
-        out.reshape(b, heads, s, hw, dh)
-        .permute(0, 2, 3, 1, 4)
-        .reshape(b, s, h, w, inner)
+        _from_heads(dq, q.shape).to(q.dtype),
+        _from_heads(lse[..., None], stats),
+        _from_heads(delta[..., None], stats),
+    )
+
+
+def local3d_attention_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    extents: Tuple[int, int, int],
+    heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass 2 (plain version): key-centric, as the JAX package's
+    ``_bwd_kernel_dkv``. The window is symmetric, so the queries that see a
+    key of frame f are the window of that key: queries, cotangents and
+    their stats are stacked for the 2e_s+1 frame offsets around f, P is
+    rebuilt as exp(scores - lse) under the same additive mask, and
+
+      dv = P^T @ G,  dk = scale * (P * (G @ V^T - delta))^T @ Q.
+
+    Args:
+      q, k, v, g: (B, S, H, W, heads * dim_head); lse, delta: pass 1's
+        (B, S, H, W, heads) float32 stats.
+
+    Returns:
+      (dk, dv) in k's and v's dtypes. All arithmetic in f32 or wider.
+    """
+    es = extents[0]
+    b, s, h, w, inner = q.shape
+    dh = inner // heads
+    kh = _f32(_to_heads(k, heads))  # (Z, S, HW, dh): the keys
+    vh = _f32(_to_heads(v, heads))
+    # queries at frame f + t - es, zero off the clip (those are masked)
+    qs = _shift_stack_frames(_f32(_to_heads(q, heads)), es)
+    gs = _shift_stack_frames(_f32(_to_heads(g, heads)), es)
+    lses = _shift_stack_frames(_to_heads(lse, heads), es)[..., 0]
+    deltas = _shift_stack_frames(_to_heads(delta, heads), es)[..., 0]
+
+    scale = dh**-0.5
+    # (Z, S, HW keys, Ts, HW queries); the mask is symmetric in (key, query)
+    scores = torch.einsum("zfkd,zftqd->zfktq", kh, qs) * scale
+    scores = scores + local3d_attention_weights_mask(s, h, w, extents, q.device)
+    p = torch.exp(scores - lses[:, :, None])
+    dp = torch.einsum("zfkd,zftqd->zfktq", vh, gs)
+    dscores = p * (dp - deltas[:, :, None])
+    dv = torch.einsum("zfktq,zftqd->zfkd", p, gs)
+    dk = torch.einsum("zfktq,zftqd->zfkd", dscores, qs) * scale
+    return (
+        _from_heads(dk, k.shape).to(k.dtype),
+        _from_heads(dv, v.shape).to(v.dtype),
     )
 
 
@@ -147,7 +270,10 @@ class Local3dAttention(nn.Module):
     """QKV projections around the windowed attention core
     (local_3d_attention.py:34-118). ``to_q`` and ``to_k`` have no bias,
     ``to_v`` and ``to_out`` do; ``to_out`` is absent when
-    ``heads == 1 and dim_head == dim``."""
+    ``heads == 1 and dim_head == dim``. The core is the autograd Function
+    ``kernels.local3d.local3d_attention``, so gradients reach ``to_q``,
+    ``to_k`` and ``to_v`` on CUDA as on the CPU. The dropout after
+    ``to_out`` follows ``module.train()``, as flax's ``train=True``."""
 
     def __init__(
         self,
@@ -170,7 +296,7 @@ class Local3dAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """x: normed (B, S, H, W, dim) key/value input; q: query input."""
-        out = local3d_attention_fwd(
+        out = local3d_kernels.local3d_attention(
             self.to_q(q), self.to_k(x), self.to_v(x), self.extents, self.heads
         )
         if self.to_out is not None:

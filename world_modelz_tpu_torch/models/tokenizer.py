@@ -65,6 +65,7 @@ class VQAutoEncoder(nn.Module):
         self.embedding_dim = embedding_dim
         self.num_embeddings = num_embeddings
         self.downscale_steps = downscale_steps
+        self.in_channels = in_channels
         self.encoder = SimpleResidualEncoder(
             in_channels, embedding_dim, downscale_steps, hidden_planes
         )

@@ -23,7 +23,9 @@ class VqVideoDiffusionModel(nn.Module):
     parameters' dtype.
 
     ``device=None`` means ``"cuda"`` (raises without a GPU); ``dtype`` is the
-    parameter dtype (the serving configuration runs bfloat16).
+    parameter dtype (the serving configuration runs bfloat16). The model
+    starts in eval mode, as serving uses it; a trainer calls ``.train()``
+    (dropout on, flax's ``train=True``).
     """
 
     def __init__(
