@@ -7,9 +7,10 @@ the card, checks the full-width denoiser and the tokenizer on the card
 against the same modules on the CPU (logits, and the denoiser's parameter
 gradients through the backward kernels), drives the serving path
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
-``serve/m3_g8`` configuration, and drives the masked-diffusion trainer
+``serve/m3_g8`` configuration, drives the masked-diffusion trainer
 (``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
-steps, all with random seeded weights.
+steps, and drives the tokenizer trainer (``cli.train_vqae.train``) at
+``train_vqae/mnist_b96`` for 200 steps, all with random seeded weights.
 
 Run from the repository root, on a machine with a GPU and the CUDA toolkit
 (no network needed):
@@ -61,6 +62,19 @@ TRAIN = dict(
     mlp_dim=DENOISER["mlp_dim"], extents=DENOISER["extents"], dropout=0.0,
 )
 
+# train_vqae/mnist_b96: the tokenizer that serve/m3_g8 and
+# train_step/m3_b64_g8_full consume (TOKENIZER), trained on MovingMNIST
+# with the JAX trainer's defaults (cli/train_vqae.py:53-100); cut to 200
+# steps (default 10,000), lr halved at step 100 (default every 3,000),
+# dead-code revival every 50 (default 500), checkpoints every 100
+VQAE_TRAIN = dict(
+    dataset="moving_mnist", image_size=IMG, batch_size=96, optimizer="AdamW",
+    lr=2e-4, weight_decay=1e-4, loss_fn="MAE", latent_loss_weight=0.005,
+    nan_guard=True, max_steps=200, lr_decay_interval=100,
+    vq_reuse_interval=50, checkpoint_interval=100, log_interval=10,
+    **TOKENIZER,
+)
+
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
 BF16_TOL = 2e-2  # bf16 output rounding (2^-8 relative) of O(1) values
 # backward kernels vs plain, times max(1, max |grad|): f32 sums in another
@@ -79,6 +93,23 @@ PROFILE_GAP_US = 2.0
 LOGIT_TOL = 1e-3  # 20 f32 layers, cuBLAS vs CPU BLAS summation order
 PIXEL_RTOL = 1e-4  # f32 convolutions, cuDNN vs CPU, relative to max |pixel|
 VQ_GAP = 1e-3  # rows whose two nearest codes differ by more must agree
+# vq_train_stats vs float64 sums over the kernel's own indices: the
+# worst-case f32 rounding of the kernel's sums (at most 141 adds in one
+# chain; 64-term dot products and norms per row), relative to sum |x| for
+# dw and to sum (|x|^2 + |e_k|^2) for err
+VQ_DW_RTOL = 1e-5
+VQ_ERR_RTOL = 3e-5
+# one f32 tokenizer train step, card vs CPU: loss and BatchNorm running
+# statistics relative to max(1, |value|); the new codebook relative to
+# max(1, max |codebook|), on the codes no near-tied row moved between
+TOK_STEP_TOL = 1e-4
+# its parameter gradients against float64 on the CPU, each relative to
+# max(max |its grad|, GRAD_FLOOR x the largest gradient): the f32 gradient
+# of a BatchNorm stack is itself up to ~2e-2 off float64 in the encoder,
+# so the card's may be off by GRAD_SPREAD x the CPU's worst f32 error, and
+# by TOK_GRAD_TOL at least (cuDNN's f32 algorithms sum in other orders)
+TOK_GRAD_TOL = 1e-3
+GRAD_SPREAD = 2.0
 
 
 def log(msg: str) -> None:
@@ -460,6 +491,88 @@ def check_vq(torch, dev):
     return serving
 
 
+def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
+    """Kernel C (``vq_train_stats``) against its plain version and float64
+    sums at the tokenizer trainer's batch (96 frames of 8x8 latents), at a
+    ragged N and with a codebook whose codes but 12 lie far from the data.
+    Returns the training-shape record."""
+    from world_modelz_tpu_torch.kernels import vq_encode_nearest, vq_train_stats
+    from world_modelz_tpu_torch.ops.vq import vq_train_stats_reference
+
+    k, d = TOKENIZER["num_embeddings"], TOKENIZER["embedding_dim"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    codebook = torch.randn((k, d), generator=gen, device=dev)
+    far = codebook.clone()
+    far[12:] += 100.0  # 500 codes no row is near
+    record = None
+    for name, n, cb in (("train", n_train, codebook),
+                        ("ragged", n_train + 37, codebook),
+                        ("mostly_dead", n_train, far)):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        idx, q, cnt, err, dw = vq_train_stats(x, cb)
+        p_idx = vq_train_stats_reference(x, cb)[0]
+        enc = vq_encode_nearest(x, cb)
+        again = vq_train_stats(x, cb)
+        torch.cuda.synchronize()
+        il = idx.long()
+        x64, e64 = x.double(), cb.double()
+        x_sq, e_sq = (x64 * x64).sum(-1), (e64 * e64).sum(-1)
+        dist = x_sq[:, None] + e_sq[None] - 2.0 * (x64 @ e64.T)  # (N, K) f64
+        top2 = dist.topk(2, dim=-1, largest=False).values
+        untied = (top2[:, 1] - top2[:, 0]) > VQ_GAP
+        agree = idx == p_idx
+        share = float(agree.float().mean())
+        if share < 0.999 or not bool(agree[untied].all()):
+            raise AssertionError(
+                f"vq_train {name}: indices agree with the plain version on "
+                f"{share:.5f} of rows, {int((~agree & untied).sum())} beyond "
+                f"the gap")
+        if not (torch.equal(idx, enc) and torch.equal(q, cb[il])):
+            raise AssertionError(
+                f"vq_train {name}: idx/q differ from vq_encode_nearest + gather")
+        if not torch.equal(cnt, torch.bincount(il, minlength=k).float()):
+            raise AssertionError(f"vq_train {name}: counts are not exact")
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)  # noqa: E731
+        dw64 = zeros(k, d).index_add_(0, il, x64)
+        dw_lim = VQ_DW_RTOL * zeros(k, d).index_add_(0, il, x64.abs())
+        err64 = zeros(k).index_add_(0, il, dist.gather(1, il[:, None])[:, 0].clamp_min(0))
+        err_lim = VQ_ERR_RTOL * zeros(k).index_add_(0, il, x_sq + e_sq[il])
+        dw_err, err_err = (dw.double() - dw64).abs(), (err.double() - err64).abs()
+        if not (bool((dw_err <= dw_lim).all()) and bool((err_err <= err_lim).all())):
+            raise AssertionError(
+                f"vq_train {name}: dw or err beyond its limit (dw "
+                f"{float((dw_err / dw_lim.clamp_min(1e-30)).max()):.3g}, err "
+                f"{float((err_err / err_lim.clamp_min(1e-30)).max()):.3g} of it)")
+        if not all(torch.equal(a, b) for a, b in zip((idx, q, cnt, err, dw), again)):
+            raise AssertionError(f"vq_train {name}: two launches differ")
+        dead = int((cnt == 0).sum())
+        if name == "mostly_dead" and dead < k - 12:
+            raise AssertionError(f"vq_train {name}: only {dead} dead codes")
+        kernel = lambda: vq_train_stats(x, cb)  # noqa: E731
+        ms = device_ms(torch, kernel, 100, label=f"vq_train_stats {name}")
+        launch_ms = cuda_ms(torch, kernel, 200)
+        plain_ms = device_ms(torch, lambda: vq_train_stats_reference(x, cb), 10)
+        # x in; idx, q out; codebook in; cnt, err, dw out
+        nbytes = n * d * 4 + n * 4 + n * d * 4 + k * d * 4 + 2 * k * 4 + k * d * 4
+        ops = 2 * n * k * d + 2 * k * d + 2 * n * k + 2 * n * d + n * d
+        bound_ms, bound_by = bound(nbytes, ops, "float32")
+        err_max = float(max(dw_err.max(), err_err.max()))
+        log(f"vq_train_stats {name} float32 N={n} K={k} D={d}: agree={share:.5f} "
+            f"dead codes {dead}; idx/q equal vq_encode_nearest + gather, cnt "
+            f"exact, repeat bitwise; max_abs_err dw={float(dw_err.max()):.3g} "
+            f"err={float(err_err.max()):.3g} (limits {VQ_DW_RTOL} x sum|x|, "
+            f"{VQ_ERR_RTOL} x sum(|x|^2+|e|^2); worst used "
+            f"{float((dw_err / dw_lim.clamp_min(1e-30)).max()):.3g}, "
+            f"{float((err_err / err_lim.clamp_min(1e-30)).max()):.3g}) "
+            f"kernel_ms={ms:.5f} back_to_back_ms={launch_ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms=null "
+            f"bound_us={bound_ms * 1e3:.4f} ({bound_by})")
+        if name == "train":
+            record = dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return record
+
+
 def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
                        batch=2):
     """The denoiser in f32 and the tokenizer on the card (kernel path)
@@ -727,6 +840,227 @@ def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
             f"{e.count:7d} x  {e.key[:90]}")
 
 
+def check_tokenizer_train_step(torch, dev, launches, train=VQAE_TRAIN, batch=8):
+    """One f32 tokenizer training step (``cli.train_vqae.train_step``) at
+    full width on the card (convolutions with TF32 off, ``vq_train_stats``)
+    against the same weights and batch on the CPU (the plain fused
+    statistics): loss, BatchNorm running statistics and the new codebook
+    against the CPU in f32; parameter gradients against the CPU in float64,
+    within GRAD_SPREAD x the CPU's own worst f32 error (TOK_GRAD_TOL).
+    Codes that a near-tied row may move between the two are left out of
+    the codebook comparison."""
+    import copy
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli import train_vqae as tv
+
+    cfg = tv.TrainVqaeConfig(**dict(train, batch_size=batch), vq_backend="pallas")
+    frames = torch.from_numpy(np.random.default_rng(8).uniform(size=(
+        batch, cfg.image_size, cfg.image_size, cfg.in_channels)).astype(np.float32))
+    torch.manual_seed(8)
+    cpu = tv.init_state(cfg, tv.make_tokenizer(cfg, "cpu"))
+    tok = tv.make_tokenizer(cfg, dev)
+    tok.load_state_dict(cpu.tok.state_dict())
+    card = tv.init_state(cfg, tok)
+    f64 = tv.init_state(cfg, copy.deepcopy(cpu.tok).double())
+    # the step's latents (batch-statistics BatchNorm) and codebook on the
+    # CPU, from copies, for the tie check below
+    with torch.no_grad():
+        enc = copy.deepcopy(cpu.tok.encoder).train()
+        lat = enc(frames.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    old_cb = cpu.tok.vq.embedding[0].clone()
+    before = dict(launches)
+    m_cpu, ok_cpu, _ = tv.train_step(cpu, frames, cfg)
+    m_card, ok_card, _ = tv.train_step(card, frames.to(dev), cfg)
+    ran = launches.get("vq_train_stats", 0) - before.get("vq_train_stats", 0)
+    if dev.type == "cuda" and ran != 1:
+        raise AssertionError(f"vq_train_stats ran {ran} times in the card step")
+    tv.train_step(f64, frames.double(), cfg)
+    if not (ok_cpu and ok_card):
+        raise AssertionError("the parity step was rejected")
+    loss_err = abs(m_card["loss"] - m_cpu["loss"])
+    if not loss_err <= TOK_STEP_TOL * max(1.0, abs(m_cpu["loss"])):
+        raise AssertionError(f"tokenizer step loss differs by {loss_err}")
+    want = dict(f64.tok.named_parameters())
+    got_cpu = dict(cpu.tok.named_parameters())
+    floor = GRAD_FLOOR * max(float(p.grad.abs().max()) for p in want.values())
+    rows = {}  # per tensor: (max(max |f64 grad|, floor), card err, CPU f32 err)
+    for name, p in card.tok.named_parameters():
+        ref = want[name].grad
+        rows[name] = (max(float(ref.abs().max()), floor),
+                      float((p.grad.cpu().double() - ref).abs().max()),
+                      float((got_cpu[name].grad.double() - ref).abs().max()))
+    cpu_worst = max(rows, key=lambda n: rows[n][2] / rows[n][0])
+    rel_lim = max(TOK_GRAD_TOL, GRAD_SPREAD * rows[cpu_worst][2] / rows[cpu_worst][0])
+    worst = max(rows, key=lambda n: rows[n][1] / rows[n][0])
+    bn_err = 0.0
+    want_b = dict(cpu.tok.named_buffers())
+    for name, b in card.tok.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            ref = want_b[name]
+            e = float(((b.cpu() - ref).abs() / ref.abs().clamp_min(1.0)).max())
+            bn_err = max(bn_err, e)
+    # near-tied latent rows (f64 top-2 gap <= VQ_GAP on the CPU latents)
+    # may pick another code on the card; their codes are not compared
+    x = lat.reshape(-1, cfg.embedding_dim).double()
+    e = old_cb.double()
+    dist = (x * x).sum(-1)[:, None] + (e * e).sum(-1)[None] - 2.0 * x @ e.T
+    top2 = dist.topk(2, dim=-1, largest=False)
+    tied = (top2.values[:, 1] - top2.values[:, 0]) <= VQ_GAP
+    skip = torch.zeros(cfg.num_embeddings, dtype=torch.bool)
+    skip[top2.indices[tied].reshape(-1)] = True
+    cb_cpu, cb_card = cpu.tok.vq.embedding[0], card.tok.vq.embedding[0].cpu()
+    cb_err = float((cb_card - cb_cpu).abs()[~skip].max())
+    cb_lim = TOK_STEP_TOL * max(1.0, float(cb_cpu.abs().max()))
+    log(f"tokenizer train step f32 card vs CPU (batch {batch}, uniform noise "
+        f"images, full width, TF32 off): loss {m_card['loss']:.6f} vs "
+        f"{m_cpu['loss']:.6f} (err {loss_err:.3g}); gradients vs the CPU in "
+        f"float64 ({len(rows)} tensors, each relative to max(max|its grad|, "
+        f"{floor:.3g})): the CPU's f32 err peaks at "
+        f"{rows[cpu_worst][2] / rows[cpu_worst][0]:.3g} in {cpu_worst}, so "
+        f"the limit is {rel_lim:.3g}; the card's peaks at "
+        f"{rows[worst][1] / rows[worst][0]:.3g} in {worst} (err "
+        f"{rows[worst][1]:.3g}; the CPU's there {rows[worst][2]:.3g}); "
+        f"BatchNorm running stats rel err "
+        f"{bn_err:.3g}; codebook err {cb_err:.3g} (limit {cb_lim:.3g}; "
+        f"{int(tied.sum())} near-tied rows, {int(skip.sum())} codes left out)")
+    if not rows[worst][1] <= rel_lim * rows[worst][0]:
+        raise AssertionError(
+            f"{worst}: gradient differs by {rows[worst][1]} > "
+            f"{rel_lim} x {rows[worst][0]}")
+    if not bn_err <= TOK_STEP_TOL:
+        raise AssertionError(f"BatchNorm running statistics differ by {bn_err}")
+    if not cb_err <= cb_lim:
+        raise AssertionError(f"the new codebook differs by {cb_err}")
+
+
+def drive_tokenizer_training(torch, dev, launches, smi, train=VQAE_TRAIN,
+                             root=os.path.join(HERE, "build", "smoke_vqae")):
+    """The tokenizer trainer at full width (``cli.train_vqae.train``) at
+    train_vqae/mnist_b96; then the denoiser trainer's ``load_tokenizer``
+    reads its final checkpoint and encodes a MovingMNIST batch. Returns the
+    launch counts of the training run."""
+    import json as json_mod
+    import shutil
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli.train_vqae import TrainVqaeConfig
+    from world_modelz_tpu_torch.cli.train_vqae import train as run_train
+    from world_modelz_tpu_torch.cli.video_diffusion import load_tokenizer
+    from world_modelz_tpu_torch.data import MovingMNIST
+    from world_modelz_tpu_torch.train import latest_checkpoint
+
+    shutil.rmtree(root, ignore_errors=True)
+    on_card = dev.type == "cuda"
+    cfg = TrainVqaeConfig(**train, output_dir=root,
+                          platform="" if on_card else dev.type)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    # the trainer as a user runs it: PyTorch's default TF32 settings (cuDNN
+    # convolutions in TF32, matmuls in full f32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        result = run_train(cfg)
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
+        if on_card:
+            profile_tokenizer_training(torch, dev, cfg, result)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    steps = cfg.max_steps
+    hist = result.history
+    r_loss = [h["r_loss"] for h in hist]
+    if len(hist) != steps or not all(
+            math.isfinite(h[key]) for h in hist for key in ("loss", "r_loss", "perplexity")):
+        raise AssertionError(f"losses not finite or missing: {[h['loss'] for h in hist]}")
+    first, last = sum(r_loss[:20]) / 20, sum(r_loss[-20:]) / 20
+    if not last < first:
+        raise AssertionError(f"recon loss did not fall: first 20 {first}, last 20 {last}")
+    if result.rejected:
+        raise AssertionError(f"{result.rejected} steps rejected")
+    if latest_checkpoint(root) != os.path.join(root, f"step_{steps:07d}"):
+        raise AssertionError("the final checkpoint did not land")
+    pngs = sorted(f for f in os.listdir(root) if f.endswith(".png"))
+    if len(pngs) != steps // cfg.checkpoint_interval:
+        raise AssertionError(f"reconstruction grids: {pngs}")
+    with open(result.metrics_path) as f:
+        logged = [json_mod.loads(line) for line in f]
+    want_steps = [1] + list(range(cfg.log_interval, steps + 1, cfg.log_interval))
+    if [r["step"] for r in logged] != want_steps or not all(
+            math.isfinite(r["perplexity"]) for r in logged):
+        raise AssertionError(f"log points {[r['step'] for r in logged]}")
+    if on_card and counts.get("vq_train_stats", 0) != steps:
+        raise AssertionError(
+            f"vq_train_stats launched {counts.get('vq_train_stats', 0)} times, "
+            f"expected {steps}")
+    # the hand-off: the denoiser trainer reads the checkpoint and encodes
+    tok, _ = load_tokenizer(result.checkpoint, dev)
+    clips = MovingMNIST(seq_len=1, image_size=cfg.image_size, digit_size=24,
+                        num_digits=2).sample_batch(np.random.default_rng(9), 16)[:, 0]
+    tokens = tok.encode(torch.from_numpy(clips).to(dev))
+    k, grid = cfg.num_embeddings, cfg.image_size // 2 ** cfg.downscale_steps
+    if tuple(tokens.shape) != (16, grid, grid) or int(tokens.min()) < 0 or int(
+            tokens.max()) >= k:
+        raise AssertionError(f"hand-off tokens {tuple(tokens.shape)} outside [0, {k})")
+    t = {h["step"]: h["t"] for h in hist}
+    sps = (steps - 20) / (t[steps] - t[20])  # steps 21..200
+    every = max(1, steps // 10)
+    log(f"tokenizer training: train_vqae/mnist_b96, {steps} steps in {wall:.3f} s; "
+        f"recon loss first-20 mean {first:.5f} -> last-20 mean {last:.5f}; "
+        f"recon loss every {every}: " + " ".join(f"{x:.4f}" for x in r_loss[::every])
+        + "; perplexity at log points: "
+        + " ".join(f"{r['perplexity']:.1f}" for r in logged[::2]))
+    log(f"tokenizer training: steps 21-{steps}: {sps:.4f} steps/s = "
+        f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); peak "
+        f"device memory {peak:.3f} GiB; rejected {result.rejected}; launches "
+        f"{counts}; checkpoint {os.path.basename(result.checkpoint)} + "
+        f"{len(pngs)} PNG grids; hand-off encode {tuple(tokens.shape)} tokens "
+        f"in [{int(tokens.min())}, {int(tokens.max())}], "
+        f"{int(torch.unique(tokens).numel())} distinct; TF32: matmul off, "
+        f"cuDNN on; on {smi}")
+    return counts
+
+
+def profile_tokenizer_training(torch, dev, cfg, result, n=5) -> None:
+    """``n`` more tokenizer train steps on the trained state, unprofiled,
+    for the wall per step, then one under torch.profiler: device time by
+    kernel and the busy share, as ``profile_training``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from world_modelz_tpu_torch.cli.train_vqae import build_batch_fn, train_step
+
+    batch_fn, _ = build_batch_fn(cfg, 7)
+    batches = [torch.from_numpy(batch_fn()).to(dev) for _ in range(n + 2)]
+    train_step(result.state, batches[0], cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:-1]:
+        train_step(result.state, b, cfg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(result.state, batches[-1], cfg)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        log("profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"profile: one tokenizer train step, device busy {busy_us / 1e3:.3f} ms "
+        f"of {step_s * 1e3:.3f} ms unprofiled wall (mean of {n}) = "
+        f"{busy_us / 1e6 / step_s:.4f} busy share; "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:7d} x  {e.key[:90]}")
+
+
 def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
                   denoiser=DENOISER, service=SERVICE, img=IMG):
     """The serving path at full width with a bf16 denoiser: 8 concurrent
@@ -864,15 +1198,20 @@ def main() -> int:
     a = check_local3d(torch, dev)
     b = check_vq(torch, dev)
     bwd = check_local3d_bwd(torch, dev)
+    c = check_vq_train(torch, dev)
     check_slice_parity(torch, dev)
     check_train_grads(torch, dev, _build.LAUNCHES)
+    check_tokenizer_train_step(torch, dev, _build.LAUNCHES)
     serving = drive_serving(torch, dev, _build.LAUNCHES)
     log(f"serving: measured on {smi}")
     training = drive_training(torch, dev, _build.LAUNCHES, smi)
-    # launches of the two main paths, each counted in its own run
-    counts = {key: serving.get(key, 0) + training.get(key, 0)
-              for key in set(serving) | set(training)}
-    log(f"launches: serving {serving}, training {training}")
+    tokenizer = drive_tokenizer_training(torch, dev, _build.LAUNCHES, smi)
+    # launches of the three main paths, each counted in its own run
+    paths = (serving, training, tokenizer)
+    counts = {key: sum(p.get(key, 0) for p in paths)
+              for key in set().union(*paths)}
+    log(f"launches: serving {serving}, training {training}, tokenizer "
+        f"training {tokenizer}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -891,6 +1230,10 @@ def main() -> int:
              source="world_modelz_tpu_torch/csrc/local3d_bwd.cu",
              replaces="world_modelz_tpu/kernels/local3d.py:1261",
              launches=counts["local3d_bwd_dkv"], **bwd["local3d_bwd_dkv"]),
+        dict(name="vq_train_stats", route="cuda",
+             source="world_modelz_tpu_torch/csrc/vq_train.cu",
+             replaces="world_modelz_tpu/kernels/vq_kernels.py:146",
+             launches=counts["vq_train_stats"], **c),
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

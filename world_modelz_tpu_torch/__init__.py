@@ -1,10 +1,12 @@
 """world_modelz_tpu_torch — the PyTorch/CUDA port of world_modelz_tpu.
 
-Two paths run here. Serving: tokenizer encode (conv encoder + nearest-code
-search) -> iterative-unmask rollout over the local-3D-attention denoiser ->
-tokenizer decode. Training: the masked-diffusion trainer
-(``cli.video_diffusion``) over frozen-tokenizer MovingMNIST clips, with
-the attention's backward kernels. Layouts at public functions follow the
+Three paths run here. Serving: tokenizer encode (conv encoder +
+nearest-code search) -> iterative-unmask rollout over the
+local-3D-attention denoiser -> tokenizer decode. Training: the
+masked-diffusion trainer (``cli.video_diffusion``) over frozen-tokenizer
+MovingMNIST clips, with the attention's backward kernels. Tokenizer
+training: the VQ-VAE trainer (``cli.train_vqae``), with the fused VQ
+search + EMA statistics kernel. Layouts at public functions follow the
 JAX package: NHWC images in [0, 1], (B, S, H, W) token grids,
 (B, S, H, W, heads * dh) attention operands.
 
@@ -18,16 +20,19 @@ Entry points take ``device=None``, which means ``"cuda"``; pass
 
 Subpackages
 -----------
-ops        vector quantization (the nearest-code plain version)
+ops        vector quantization (lookups, the EMA training forward,
+           dead-code revival, the kernels' plain versions)
 kernels    CUDA kernel wrappers, the attention's autograd Function, launch
            counters, the nvcc build
 models     tokenizer convs, local-3D attention transformer, denoiser
 diffusion  corruption, iterative-unmask sampler and multi-frame rollout
 serve      batched rollout service (request coalescing, sessions)
-train      optimizer, schedule, EMA, loss-aware sampler, guard, checkpoints
-data       MovingMNIST source and the prefetching device feeder
-cli        the video-diffusion trainer (``python -m ...cli.video_diffusion``)
-utils      dataclass CLI configs
+train      optimizer, schedules, EMA, loss-aware sampler, guard, checkpoints
+data       MovingMNIST and synthetic trajectory sources, the prefetching
+           device feeder
+cli        the trainers (``python -m ...cli.video_diffusion``,
+           ``python -m ...cli.train_vqae``)
+utils      dataclass CLI configs, image grids and PNGs, the JSONL logger
 convert    weight bridge from the JAX package's numpy parameter trees
 """
 

@@ -22,3 +22,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def platform_device(platform: str) -> torch.device:
+    """A trainer's ``--platform``: ``""`` is the GPU (raises without one),
+    ``"cpu"`` the CPU."""
+    if platform == "":
+        return resolve_device(None)
+    if platform == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"--platform must be '' (the GPU) or 'cpu', got {platform!r}")

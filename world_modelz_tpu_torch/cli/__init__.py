@@ -1,5 +1,6 @@
 """Command-line entry points mirroring the JAX package's ``cli``.
 
 Each module exposes a config dataclass, a ``train(cfg)`` function and a
-``main(argv)`` CLI wrapper. Ported: ``video_diffusion`` (the trainer).
+``main(argv)`` CLI wrapper. Ported: ``video_diffusion`` (the denoiser
+trainer) and ``train_vqae`` (the tokenizer trainer).
 """

@@ -3,7 +3,8 @@
 Port of ``world_modelz_tpu.cli.video_diffusion`` (reference:
 vq-video-diffusion/main.py, minecraft/main2.py), training half:
 - frozen VQ tokenizer loaded from a checkpoint's embedded config
-  (main2.py:390-396), encoded through the ``vq_encode`` kernel
+  (main2.py:390-396; ``cli.train_vqae.load_tokenizer``, so the tokenizer
+  trainer's checkpoints feed it), encoded through the ``vq_encode`` kernel
 - loss-aware diffusion-time sampling and masked corruption of the last
   frame (main2.py:251-264)
 - the local-3D-attention denoiser, whose attention runs the forward kernel
@@ -45,7 +46,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from world_modelz_tpu_torch._device import resolve_device
+from world_modelz_tpu_torch._device import platform_device
+from world_modelz_tpu_torch.cli.train_vqae import load_tokenizer
 from world_modelz_tpu_torch.data import MovingMNIST, PrefetchIterator
 from world_modelz_tpu_torch.diffusion import corrupt_tokens
 from world_modelz_tpu_torch.models import (
@@ -69,7 +71,12 @@ from world_modelz_tpu_torch.train import (
     restore_checkpoint,
     warmup_cosine_schedule,
 )
-from world_modelz_tpu_torch.utils import config_to_dict, dataclass_cli
+from world_modelz_tpu_torch.utils.config import (
+    check_defaults,
+    config_to_dict,
+    dataclass_cli,
+    unported,
+)
 
 
 @dataclasses.dataclass
@@ -146,18 +153,6 @@ class VideoDiffusionConfig:
     topk: int = -1  # evaluation sampling: not ported
 
 
-# the tokenizer trainer's config defaults (JAX cli/train_vqae.py:72-76)
-TOKENIZER_DEFAULTS = dict(
-    embedding_dim=64, num_embeddings=512, downscale_steps=3,
-    hidden_planes=128, in_channels=3,
-)
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to world_modelz_tpu_torch yet (ROADMAP {item})")
-
-
 # flags kept for parity with the JAX CLI whose features are not ported:
 # nothing reads them, so a value other than the default raises
 _UNPORTED_FIELDS = {
@@ -175,40 +170,28 @@ _UNPORTED_FIELDS = {
 
 def check_supported(cfg: VideoDiffusionConfig) -> None:
     """Raise NotImplementedError for options of features not ported."""
-    defaults = {f.name: f.default for f in dataclasses.fields(VideoDiffusionConfig)}
-    for name, (what, item) in _UNPORTED_FIELDS.items():
-        if getattr(cfg, name) != defaults[name]:
-            raise _unported(f"--{name} ({what})", item)
+    check_defaults(cfg, _UNPORTED_FIELDS)
     if cfg.log_fence not in ("deferred", "sync"):
         raise ValueError(
             f"--log_fence must be 'deferred' or 'sync', got {cfg.log_fence!r}")
     if cfg.eval:
-        raise _unported("--eval (rollout evaluation and artifacts)", "A.2")
+        raise unported("--eval (rollout evaluation and artifacts)", "A.2")
     if cfg.dataset != "moving_mnist":
-        raise _unported(f"--dataset {cfg.dataset}", "A.8")
+        raise unported(f"--dataset {cfg.dataset}", "A.8")
     if cfg.data_pipeline != "native":
-        raise _unported(f"--data_pipeline {cfg.data_pipeline}", "A.8")
+        raise unported(f"--data_pipeline {cfg.data_pipeline}", "A.8")
     if cfg.device_composite:
-        raise _unported("--device_composite", "A.8")
+        raise unported("--device_composite", "A.8")
     if cfg.n_model > 1 or cfg.n_seq > 1 or cfg.fsdp:
-        raise _unported("--n_model / --n_seq / --fsdp parallelism", "A.9")
+        raise unported("--n_model / --n_seq / --fsdp parallelism", "A.9")
     if cfg.accumulation_steps > 1:
-        raise _unported("--accumulation_steps > 1", "A.8")
+        raise unported("--accumulation_steps > 1", "A.8")
     if cfg.steps_per_dispatch > 1:
-        raise _unported("--steps_per_dispatch > 1", "A.8")
+        raise unported("--steps_per_dispatch > 1", "A.8")
     if cfg.timing_report:
-        raise _unported("--timing_report", "A.8")
+        raise unported("--timing_report", "A.8")
     if cfg.wandb:
-        raise _unported("--wandb (the metric logger)", "A.8")
-
-
-def platform_device(platform: str) -> torch.device:
-    """``""`` is the GPU (raises without one), ``"cpu"`` the CPU."""
-    if platform == "":
-        return resolve_device(None)
-    if platform == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"--platform must be '' (the GPU) or 'cpu', got {platform!r}")
+        raise unported("--wandb (the metric logger)", "A.8")
 
 
 def build_clip_fn(cfg: VideoDiffusionConfig, seed: int):
@@ -255,16 +238,6 @@ def make_model(
         device=device,
     )
     return model.train()
-
-
-def load_tokenizer(path: str, device=None) -> Tuple[VQAutoEncoder, Dict]:
-    """Rehydrate a frozen tokenizer from a port checkpoint's embedded
-    config (main2.py:390-396); returns (tokenizer in eval mode, config)."""
-    state, _step, config = restore_checkpoint(path)
-    kw = {k: config.get(k, v) for k, v in TOKENIZER_DEFAULTS.items()}
-    tok = VQAutoEncoder(**kw, device=device)
-    tok.load_state_dict(state["tokenizer"], strict=True)
-    return tok, config
 
 
 @dataclasses.dataclass
@@ -460,7 +433,7 @@ def train(cfg: VideoDiffusionConfig) -> TrainResult:
         (start_step // cfg.eval_interval + 1) * cfg.eval_interval
         <= cfg.max_steps
     ):
-        raise _unported(
+        raise unported(
             f"evaluation at eval_interval={cfg.eval_interval} (pass "
             "--eval_interval 0 to train without it)", "A.2")
 

@@ -13,9 +13,12 @@ Layout changes:
   running_mean/running_var (+ a zero ``num_batches_tracked``)
 - VQ codebook (L, K, D)                -> ``vq.embedding`` (L, K, D)
 
-``tokenizer_checkpoint_from_state`` writes a JAX tokenizer's arrays as a
-port tokenizer checkpoint (``train/checkpoint.py`` format, config
-embedded), which ``cli.video_diffusion.load_tokenizer`` reads.
+The two VQ statistics outside the reference layout (``activation_count``,
+``accumulated_error``) go beside the state_dict: ``tokenizer_vq_stats``.
+``tokenizer_checkpoint_from_state`` writes a JAX tokenizer's arrays (its
+whole ``VQState``) as a port tokenizer checkpoint (``train/checkpoint.py``
+format, config embedded), which ``cli.train_vqae.load_tokenizer`` reads
+and ``cli.train_vqae`` resumes training from.
 """
 
 from __future__ import annotations
@@ -144,6 +147,22 @@ def tokenizer_state_dict_from_state(
     return sd
 
 
+def tokenizer_vq_stats(
+    codebook,
+    activation_count: Optional[Any] = None,
+    accumulated_error: Optional[Any] = None,
+) -> StateDict:
+    """The JAX ``VQState``'s ``activation_count`` and ``accumulated_error``
+    (L, K) as the tensors ``VectorQuantizer.load_stats`` takes; zeros (as
+    after ``vq_reset_stats``) when omitted."""
+    shape = np.shape(codebook)[:2]
+    return {
+        name: _t(np.zeros(shape, np.float32) if a is None else a)
+        for name, a in (("activation_count", activation_count),
+                        ("accumulated_error", accumulated_error))
+    }
+
+
 def tokenizer_checkpoint_from_state(
     params: Mapping[str, Any],
     batch_stats: Mapping[str, Any],
@@ -151,14 +170,20 @@ def tokenizer_checkpoint_from_state(
     config: Mapping[str, Any],
     directory: str,
     cluster_size: Optional[Any] = None,
+    activation_count: Optional[Any] = None,
+    accumulated_error: Optional[Any] = None,
 ) -> str:
-    """Write a JAX tokenizer (numpy ``params``, ``batch_stats`` and
-    ``codebook``, as for ``tokenizer_state_dict_from_state``) as a port
-    tokenizer checkpoint at step 0 under ``directory``, with ``config``
-    (the tokenizer trainer's fields: ``embedding_dim``,
-    ``num_embeddings``, ``downscale_steps``, ``hidden_planes``,
-    ``in_channels``) embedded. Returns the checkpoint's path."""
+    """Write a JAX tokenizer (numpy ``params``, ``batch_stats`` and the
+    ``VQState`` arrays, as for ``tokenizer_state_dict_from_state`` and
+    ``tokenizer_vq_stats``) as a port tokenizer checkpoint at step 0 under
+    ``directory``, with ``config`` (the tokenizer trainer's fields:
+    ``embedding_dim``, ``num_embeddings``, ``downscale_steps``,
+    ``hidden_planes``, ``in_channels``, ...) embedded. Returns the
+    checkpoint's path; ``cli.train_vqae --checkpoint`` resumes from it
+    with a fresh optimizer."""
     from world_modelz_tpu_torch.train.checkpoint import save_checkpoint
 
     sd = tokenizer_state_dict_from_state(params, batch_stats, codebook, cluster_size)
-    return save_checkpoint(directory, 0, {"tokenizer": sd}, dict(config))
+    vq = tokenizer_vq_stats(codebook, activation_count, accumulated_error)
+    return save_checkpoint(
+        directory, 0, {"tokenizer": sd, "vq_stats": vq}, dict(config))

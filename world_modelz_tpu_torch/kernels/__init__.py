@@ -13,7 +13,10 @@ from world_modelz_tpu_torch.kernels.local3d import (
     local3d_bwd_dkv,
     local3d_bwd_dq,
 )
-from world_modelz_tpu_torch.kernels.vq_kernels import vq_encode_nearest
+from world_modelz_tpu_torch.kernels.vq_kernels import (
+    vq_encode_nearest,
+    vq_train_stats,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -23,4 +26,5 @@ __all__ = [
     "local3d_bwd_dq",
     "local3d_bwd_dkv",
     "vq_encode_nearest",
+    "vq_train_stats",
 ]

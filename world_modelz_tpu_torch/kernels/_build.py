@@ -55,6 +55,10 @@ _SIGNATURES = {
     "wmz_local3d_bwd_dkv": ([_VP] * 8 + [_INT] * 10 + [_VP], _INT),
     # x, codebook, e_t, e_sq, idx, N, K, D, x_dtype, stream
     "wmz_vq_encode": ([_VP] * 5 + [_INT] * 4 + [_VP], _INT),
+    # x, codebook, e_t, e_sq, idx, q, err_row, part_dw, part_cnt, part_err,
+    # cnt, err, dw, N, K, D, stream
+    "wmz_vq_train_stats": ([_VP] * 13 + [_INT] * 3 + [_VP], _INT),
+    "wmz_vq_train_splits": ([_INT], _INT),
     "wmz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 

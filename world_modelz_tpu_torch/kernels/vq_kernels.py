@@ -1,19 +1,66 @@
-"""Nearest-code search: the CUDA kernel ``csrc/vq_encode.cu`` and its wrapper.
+"""VQ kernels and their wrappers.
 
-Counterpart of ``world_modelz_tpu.kernels.vq_kernels.vq_encode_pallas`` in
-its index-only form. A CUDA tensor launches the kernel; a CPU tensor takes
-the plain version, ``ops.vq.vq_encode``.
+``vq_encode_nearest``: the nearest-code search ``csrc/vq_encode.cu``,
+counterpart of ``world_modelz_tpu.kernels.vq_kernels.vq_encode_pallas`` in
+its index-only form; plain version ``ops.vq.vq_encode``.
+
+``vq_train_stats``: the fused search + EMA statistics of a tokenizer
+training step, ``csrc/vq_train.cu``, counterpart of
+``vq_train_stats_pallas``; plain version ``ops.vq.vq_train_stats_reference``.
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
+Both kernels run the one search of ``csrc/vq_search.cuh``.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from world_modelz_tpu_torch.kernels._build import LAUNCHES, check, load_library
-from world_modelz_tpu_torch.ops.vq import vq_encode
+from world_modelz_tpu_torch.ops.vq import vq_encode, vq_train_stats_reference
 
 MAX_D = 64  # the kernel stages x and codebook chunks for D <= 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _on_cpu(x: torch.Tensor, codebook: torch.Tensor) -> bool:
+    """Check shapes; True when both tensors lie on the CPU (the plain
+    version runs), False when they share a CUDA device (the kernel runs);
+    anything else raises."""
+    if x.dim() != 2 or codebook.dim() != 2 or x.shape[1] != codebook.shape[1]:
+        raise ValueError(
+            f"expected x (N, D) and codebook (K, D), got {tuple(x.shape)} "
+            f"and {tuple(codebook.shape)}"
+        )
+    if x.device.type == "cpu" and codebook.device.type == "cpu":
+        return True
+    if x.device.type != "cuda" or codebook.device != x.device:
+        raise ValueError(
+            f"x and codebook must share one CUDA device (or both lie on the "
+            f"CPU), got {x.device} and {codebook.device}"
+        )
+    return False
+
+
+def _check_kernel_inputs(x: torch.Tensor, codebook: torch.Tensor, dtypes) -> None:
+    if x.dtype not in dtypes or codebook.dtype != torch.float32:
+        names = "/".join(str(t).replace("torch.", "") for t in dtypes)
+        raise TypeError(
+            f"vq kernel takes x {names} and a float32 codebook, got "
+            f"{x.dtype} and {codebook.dtype}"
+        )
+    n, d = x.shape
+    k = codebook.shape[0]
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"vq kernel supports 0 < D <= {MAX_D}, got {d}")
+    if k == 0:
+        raise ValueError("vq kernel needs a codebook of at least one code")
+    if not (x.is_contiguous() and codebook.is_contiguous()):
+        raise ValueError("vq kernel needs contiguous x and codebook")
+    if n >= 2**31 or k * d >= 2**31:
+        raise ValueError(f"vq kernel indexes with int32, got N={n}, K={k}")
 
 
 def vq_encode_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -26,31 +73,11 @@ def vq_encode_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     Returns:
       (N,) int32 indices of ``argmin_k |x - e_k|^2``; ties go to the lowest k.
     """
-    if x.dim() != 2 or codebook.dim() != 2 or x.shape[1] != codebook.shape[1]:
-        raise ValueError(
-            f"expected x (N, D) and codebook (K, D), got {tuple(x.shape)} "
-            f"and {tuple(codebook.shape)}"
-        )
-    if x.device.type == "cpu" and codebook.device.type == "cpu":
+    if _on_cpu(x, codebook):
         return vq_encode(codebook[None], x[:, None, :]).reshape(-1)
-    if x.device.type != "cuda" or codebook.device != x.device:
-        raise ValueError(
-            f"x and codebook must share one CUDA device (or both lie on the "
-            f"CPU), got {x.device} and {codebook.device}"
-        )
-    if x.dtype not in _DTYPES or codebook.dtype != torch.float32:
-        raise TypeError(
-            f"vq kernel takes x float32/bfloat16 and a float32 codebook, got "
-            f"{x.dtype} and {codebook.dtype}"
-        )
+    _check_kernel_inputs(x, codebook, _DTYPES)
     n, d = x.shape
     k = codebook.shape[0]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"vq kernel supports 0 < D <= {MAX_D}, got {d}")
-    if not (x.is_contiguous() and codebook.is_contiguous()):
-        raise ValueError("vq kernel needs contiguous x and codebook")
-    if n >= 2**31 or k >= 2**31:
-        raise ValueError(f"vq kernel indexes rows with int32, got N={n}")
     idx = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n == 0:
         return idx
@@ -66,3 +93,53 @@ def vq_encode_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     )
     check(status, "vq_encode")
     return idx
+
+
+def vq_train_stats(
+    x: torch.Tensor, codebook: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused nearest-code search + EMA statistics of one training step.
+
+    Args:
+      x: (N, D) float32 rows (D <= 64 on CUDA).
+      codebook: (K, D) float32 code vectors (single latent).
+
+    Returns:
+      idx (N,) int32 (ties to the lowest k; the codes ``vq_encode_nearest``
+      picks), q (N, D) f32 (the old codebook's codes, gathered exactly),
+      cnt (K,) f32 (exact counts), err (K,) f32 (per-code sums of
+      max(min dist + |x|^2, 0)) and dw (K, D) f32 (per-code sums of x).
+      On CUDA, two calls on the same input give bitwise-equal results.
+    """
+    if _on_cpu(x, codebook):
+        return vq_train_stats_reference(x, codebook)
+    _check_kernel_inputs(x, codebook, (torch.float32,))
+    n, d = x.shape
+    k = codebook.shape[0]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    q = torch.empty((n, d), **f32)
+    if n == 0:
+        return idx, q, torch.zeros((k,), **f32), torch.zeros((k,), **f32), \
+            torch.zeros((k, d), **f32)
+    cnt, err = torch.empty((k,), **f32), torch.empty((k,), **f32)
+    dw = torch.empty((k, d), **f32)
+    lib = load_library()
+    splits = lib.wmz_vq_train_splits(n)
+    # scratch: transposed codebook, code norms, per-row errors, and the
+    # per-split partial sums the fold adds in order
+    e_t, e_sq, err_row = (torch.empty(s, **f32) for s in ((d, k), (k,), (n,)))
+    part_dw = torch.empty((splits, k, d), **f32)
+    part_cnt = torch.empty((splits, k), dtype=torch.int32, device=dev)
+    part_err = torch.empty((splits, k), **f32)
+    LAUNCHES["vq_train_stats"] += 1
+    status = lib.wmz_vq_train_stats(
+        x.data_ptr(), codebook.data_ptr(), e_t.data_ptr(), e_sq.data_ptr(),
+        idx.data_ptr(), q.data_ptr(), err_row.data_ptr(), part_dw.data_ptr(),
+        part_cnt.data_ptr(), part_err.data_ptr(), cnt.data_ptr(),
+        err.data_ptr(), dw.data_ptr(), n, k, d,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(status, "vq_train_stats")
+    return idx, q, cnt, err, dw

@@ -5,8 +5,10 @@ vq-video-diffusion/autoencoder.py:8-152). These modules are ordinary
 PyTorch: NCHW inside; the tokenizer (``models/tokenizer.py``) permutes its
 NHWC images at its boundary. Submodule names follow the reference
 state_dict layout, so ``convert.tokenizer_state_dict_from_state`` loads
-with ``strict=True``. BatchNorm is torch's (eps 1e-5; flax momentum 0.9 is
-torch momentum 0.1) and runs in eval mode on the serving path.
+with ``strict=True``. BatchNorm (``BatchNorm2d``) is torch's in eval mode
+(eps 1e-5); in training it normalizes with the biased batch variance, as
+both frameworks do, and updates its running statistics as flax does
+(momentum 0.9, the biased variance).
 """
 
 from __future__ import annotations
@@ -23,8 +25,42 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.01)
 
 
-def _bn(planes: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward updates the running
+    statistics as flax's ``nn.BatchNorm(momentum=0.9)`` does:
+
+        running_mean = 0.9 running_mean + 0.1 mean
+        running_var  = 0.9 running_var  + 0.1 var   (biased, over B*H*W)
+
+    torch's own update takes the unbiased variance (x n/(n-1)), which at a
+    small batch or the deepest encoder layer is not close. The batch
+    statistics come from the same fused batch-norm call that normalizes
+    (into scratch buffers at momentum 1, which leaves the batch mean and
+    unbiased variance there), so no extra pass over the input is made.
+    ``num_batches_tracked`` is left as it is. Eval mode is torch's.
+    """
+
+    def __init__(self, planes: int):
+        super().__init__(planes, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        stats = torch.zeros((2, x.shape[1]), dtype=self.running_mean.dtype,
+                            device=x.device)
+        y = F.batch_norm(x, stats[0], stats[1], self.weight, self.bias,
+                         training=True, momentum=1.0, eps=self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum  # flax's momentum
+            self.running_mean.mul_(keep).add_(stats[0], alpha=self.momentum)
+            self.running_var.mul_(keep).add_(
+                stats[1], alpha=self.momentum * (n - 1) / n)
+        return y
+
+
+def _bn(planes: int) -> BatchNorm2d:
+    return BatchNorm2d(planes)
 
 
 class Residual(nn.Module):

@@ -1,15 +1,22 @@
-"""VQ-VAE frame tokenizer, inference half: conv encoder -> nearest code ->
-conv decoder.
+"""VQ-VAE frame tokenizer: conv encoder -> EMA vector quantizer -> conv
+decoder.
 
-Port of ``world_modelz_tpu.models.tokenizer.VQAutoEncoder.encode`` /
-``decode`` (reference: minecraft/train_vqae.py:22-55) in eval mode. Images
-are NHWC floats in [0, 1]; token grids are (B, H / 2^L, W / 2^L) int32 in
-[0, num_embeddings). On CUDA the nearest-code search runs the hand-written
-kernel (``kernels/vq_kernels.py``), the counterpart of the JAX
-``vq_backend="pallas"`` encode; on the CPU it runs the plain version.
+Port of ``world_modelz_tpu.models.tokenizer.VQAutoEncoder`` (reference:
+minecraft/train_vqae.py:22-55). Images are NHWC floats in [0, 1]; token
+grids are (B, H / 2^L, W / 2^L) int32 in [0, num_embeddings). ``encode``
+and ``decode`` run the conv stacks in eval mode; ``forward`` is the
+training pass (batch-statistics BatchNorm, EMA codebook update). On CUDA
+the nearest-code search runs the hand-written kernels
+(``kernels/vq_kernels.py``): ``vq_encode_nearest`` for encode and
+``vq_train_stats`` (through ``ops.vq.vq_apply_fused``) for training, the
+counterparts of the JAX ``vq_backend="pallas"`` paths; on the CPU they run
+their plain versions.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -20,32 +27,78 @@ from world_modelz_tpu_torch.models.conv import (
     SimpleResidualDecoder,
     SimpleResidualEncoder,
 )
-from world_modelz_tpu_torch.ops.vq import vq_decode
+from world_modelz_tpu_torch.ops.vq import (
+    VQOutput,
+    VQState,
+    vq_apply,
+    vq_apply_fused,
+    vq_decode,
+)
 
 
 class VectorQuantizer(nn.Module):
-    """Codebook holder with the reference buffer layout: ``embedding``
-    (L, K, D) and ``cluster_size`` (L, K) (vq/vq.py:15-16). Inference reads
-    ``embedding`` only."""
+    """Holder of the quantizer's state (JAX ``VQState``) in buffers.
+
+    ``embedding`` (L, K, D) and ``cluster_size`` (L, K) are the reference
+    buffer layout (vq/vq.py:15-16), so its state_dicts load with
+    ``strict=True``. ``activation_count`` and ``accumulated_error`` (L, K),
+    the statistics dead-code revival reads, are not part of that layout:
+    they are registered with ``persistent=False``, and the tokenizer
+    trainer checkpoints them beside the state_dict (``stats()``,
+    ``load_stats()``).
+    """
 
     def __init__(self, num_latents: int, num_embeddings: int, embedding_dim: int):
         super().__init__()
+        shape = (num_latents, num_embeddings)
         self.register_buffer(
-            "embedding", torch.randn(num_latents, num_embeddings, embedding_dim)
+            "embedding", torch.randn(*shape, embedding_dim)
         )
+        self.register_buffer("cluster_size", torch.ones(shape))
         self.register_buffer(
-            "cluster_size", torch.ones(num_latents, num_embeddings)
-        )
+            "activation_count", torch.zeros(shape), persistent=False)
+        self.register_buffer(
+            "accumulated_error", torch.zeros(shape), persistent=False)
+
+    def state(self) -> VQState:
+        """The buffers as a ``VQState`` (the same tensors, not copies)."""
+        return VQState(self.embedding, self.cluster_size,
+                       self.activation_count, self.accumulated_error)
+
+    @torch.no_grad()
+    def load_state(self, state: VQState) -> None:
+        """Copy ``state`` into the buffers, in place."""
+        current = self.state()
+        for f in dataclasses.fields(state):
+            buf, val = getattr(current, f.name), getattr(state, f.name)
+            if val is not buf:
+                buf.copy_(val)
+
+    def stats(self) -> dict:
+        """The two statistics outside the state_dict, for checkpoints."""
+        return {"activation_count": self.activation_count,
+                "accumulated_error": self.accumulated_error}
+
+    @torch.no_grad()
+    def load_stats(self, stats: dict) -> None:
+        self.activation_count.copy_(stats["activation_count"])
+        self.accumulated_error.copy_(stats["accumulated_error"])
 
 
 class VQAutoEncoder(nn.Module):
-    """Frozen VQ-VAE tokenizer (eval-mode BatchNorm).
+    """VQ-VAE tokenizer. The module stays in eval mode: ``encode`` and
+    ``decode`` use the running BatchNorm statistics, and ``forward`` sets
+    the conv stacks' mode for its own call.
 
     Args:
       embedding_dim, num_embeddings: codebook width D and size K.
       downscale_steps: L; the token grid is the image grid / 2^L.
       hidden_planes: conv width of the residual blocks.
       in_channels: image channels.
+      vq_backend: the training quantizer on the CPU, as the JAX option:
+        ``"xla"`` runs ``vq_apply``, ``"pallas"`` ``vq_apply_fused`` with
+        the plain statistics. On CUDA both run ``vq_apply_fused``, whose
+        statistics come from the ``vq_train_stats`` kernel.
       device: ``None`` means ``"cuda"`` (raises without a GPU); pass
         ``"cpu"`` to run on the CPU.
     """
@@ -58,10 +111,15 @@ class VQAutoEncoder(nn.Module):
         hidden_planes: int = 128,
         in_channels: int = 3,
         *,
+        vq_backend: str = "xla",
         device: DeviceLike = None,
     ):
         super().__init__()
+        if vq_backend not in ("xla", "pallas"):
+            raise ValueError(
+                f"vq_backend must be 'xla' or 'pallas', got {vq_backend!r}")
         dev = resolve_device(device)
+        self.vq_backend = vq_backend
         self.embedding_dim = embedding_dim
         self.num_embeddings = num_embeddings
         self.downscale_steps = downscale_steps
@@ -79,6 +137,34 @@ class VQAutoEncoder(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.vq.embedding.device
+
+    def forward(
+        self, x: torch.Tensor, train: bool = True
+    ) -> Tuple[torch.Tensor, VQOutput]:
+        """The autoencoding pass (JAX ``forward``, train_vqae.py:33-43):
+        (B, H, W, C) images -> (reconstruction (B, H, W, C), VQOutput).
+
+        With ``train``, BatchNorm normalizes with batch statistics and
+        updates its running statistics, and the codebook takes its EMA
+        update from the batch's assignments to the old codebook. The VQ
+        activation and error statistics accumulate in both modes. The
+        buffers are updated in place."""
+        stacks = (self.encoder, self.decoder)
+        modes = [m.training for m in stacks]
+        for m in stacks:
+            m.train(train)
+        try:
+            h = self.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            fused = h.device.type == "cuda" or self.vq_backend == "pallas"
+            apply = vq_apply_fused if fused else vq_apply
+            # the JAX tokenizer's EMA decay 0.99 and eps 1e-5 (the defaults)
+            out, new_vq = apply(self.vq.state(), h, train=train)
+            self.vq.load_state(new_vq)
+            recon = self.decoder(out.quantized.permute(0, 3, 1, 2))
+        finally:
+            for m, mode in zip(stacks, modes):
+                m.train(mode)
+        return recon.permute(0, 2, 3, 1), out
 
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> torch.Tensor:

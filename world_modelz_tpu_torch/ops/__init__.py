@@ -1,13 +1,31 @@
 """Vector-quantization ops (plain PyTorch)."""
 
 from world_modelz_tpu_torch.ops.vq import (
+    VQOutput,
+    VQState,
     codebook_distances,
+    vq_apply,
+    vq_apply_fused,
     vq_decode,
+    vq_decode_masked,
     vq_encode,
+    vq_init,
+    vq_reset_stats,
+    vq_reuse_inactive,
+    vq_train_stats_reference,
 )
 
 __all__ = [
+    "VQState",
+    "VQOutput",
+    "vq_init",
     "codebook_distances",
     "vq_encode",
     "vq_decode",
+    "vq_decode_masked",
+    "vq_apply",
+    "vq_apply_fused",
+    "vq_train_stats_reference",
+    "vq_reuse_inactive",
+    "vq_reset_stats",
 ]

@@ -27,10 +27,16 @@ from world_modelz_tpu_torch.train.optim import (
     global_grad_norm,
     make_optimizer,
 )
-from world_modelz_tpu_torch.train.schedules import warmup_cosine_schedule
+from world_modelz_tpu_torch.train.schedules import (
+    host_schedule,
+    step_decay_schedule,
+    warmup_cosine_schedule,
+)
 
 __all__ = [
     "warmup_cosine_schedule",
+    "step_decay_schedule",
+    "host_schedule",
     "ema_init",
     "ema_update",
     "LossAwareSamplerState",

@@ -4,7 +4,7 @@ A copy of ``world_modelz_tpu.utils.config`` (the port imports nothing of
 the JAX package): dataclass fields become CLI flags; tuple fields accept
 the reference's comma-string syntax (``--extents 3,1,1``) and bools accept
 yes/no/true/false/0/1. Configs serialize to dicts for embedding into
-checkpoints.
+checkpoints and back.
 """
 
 from __future__ import annotations
@@ -91,3 +91,27 @@ def config_to_dict(cfg: Any) -> Dict[str, Any]:
     return {
         k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()
     }
+
+
+def config_from_dict(cls: Type[T], d: Dict[str, Any]) -> T:
+    """A ``cls`` from a config dict (as embedded in a checkpoint): keys
+    that are not fields of ``cls`` are dropped, lists become tuples."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.items() if k in names})
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    """The error a CLI raises for an option whose feature is not ported."""
+    return NotImplementedError(
+        f"{what} is not ported to world_modelz_tpu_torch yet (ROADMAP {item})")
+
+
+def check_defaults(cfg: Any, fields: Dict[str, Tuple[str, str]]) -> None:
+    """Raise ``unported`` for a field of ``fields`` (name -> (what reads
+    it, ROADMAP item)) set to anything but its default: flags kept only for
+    parity with the JAX CLI, which nothing in the port reads."""
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    for name, (what, item) in fields.items():
+        if getattr(cfg, name) != defaults[name]:
+            raise unported(f"--{name} ({what})", item)
