@@ -3,14 +3,16 @@
 
 Builds the port's hand-written CUDA kernels from ``world_modelz_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on
-the card, checks the full-width denoiser and the tokenizer on the card
-against the same modules on the CPU (logits, and the denoiser's parameter
-gradients through the backward kernels), drives the serving path
+the card, checks the full-width denoiser, the tokenizer and the sparse
+denoiser on the card against the same modules on the CPU (logits, and the
+denoisers' parameter gradients through the backward kernels), drives the serving path
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
 ``serve/m3_g8`` configuration, drives the masked-diffusion trainer
 (``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
-steps, and drives the tokenizer trainer (``cli.train_vqae.train``) at
-``train_vqae/mnist_b96`` for 200 steps, all with random seeded weights.
+steps, drives the tokenizer trainer (``cli.train_vqae.train``) at
+``train_vqae/mnist_b96`` for 200 steps, and drives the sparse space-time
+trainer (``cli.sparse_diffusion.train``) at ``train_sparse/s16_n1024_b16``
+for 60 steps with its evaluation sweep, all with random seeded weights.
 
 Run from the repository root, on a machine with a GPU and the CUDA toolkit
 (no network needed):
@@ -73,6 +75,29 @@ VQAE_TRAIN = dict(
     nan_guard=True, max_steps=200, lr_decay_interval=100,
     vq_reuse_interval=50, checkpoint_interval=100, log_interval=10,
     **TOKENIZER,
+)
+
+# train_sparse/s16_n1024_b16: the sparse space-time trainer at its
+# as-trained configuration (scripts/chain_train_sparse.sh:58-67,
+# benchmarks/perf_ledger.py:672-702): 16x16x16 token volumes of 64x64x3
+# synthetic trajectories, 1,024-token subsets, a dense 8-layer transformer
+# of width 512 with 8 heads of 64 on the flash kernels, bf16 on f32
+# masters. Its tokenizer: 3 channels, 2 downscale steps (chain stage 1).
+SPARSE_TOKENIZER = dict(embedding_dim=64, num_embeddings=512, downscale_steps=2,
+                        hidden_planes=128, in_channels=3)
+SPARSE_MODEL = dict(shape=(16, 16, 16), dim=512, num_classes=512, depth=8,
+                    dim_head=64, mlp_dim=1024, heads=8, attn_backend="flash")
+# cuts, each logged: 60 steps (default 30,000), warmup 10 (500) and the
+# cosine over 60, a 4,000-frame buffer (75,000), checkpoints every 30
+# (2,500), one evaluation at step 60 (every 5,000)
+SPARSE_TRAIN = dict(
+    dataset="synthetic", image_size=64, S=16, H=16, W=16, skip_frames=2,
+    num_context=1024, sampling_type="neighbors", dim=512, depth=8, heads=8,
+    mlp_dim=1024, attn_backend="flash", batch_size=16, bf16=True,
+    ema_decay=0.999, lr=1e-4, change_batch_interval=4, nan_guard=True,
+    max_steps=60, warmup=10, buffer_size=4000, checkpoint_interval=30,
+    eval_interval=60, log_interval=10, eval_batch_size=8,
+    num_eval_iterations=100,
 )
 
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
@@ -235,6 +260,39 @@ def window_pairs(s, h, w, extents) -> int:
     def axis(n, e):
         return sum(min(i + e, n - 1) - max(i - e, 0) + 1 for i in range(n))
     return axis(s, extents[0]) * axis(h, extents[1]) * axis(w, extents[2])
+
+
+def ptxas_summary(build_log: str):
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
+    name and template arguments, registers, barriers and shared memory, and
+    spills where there are any; and every line that reports an error."""
+    import re
+
+    lines, name = [], None
+    for line in build_log.splitlines():
+        if "error" in line:
+            lines.append(line.strip())
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            # Itanium mangling: a name follows its length, which may sit at
+            # the end of a longer run of hex digits
+            for m in re.finditer(r"\d+", name):
+                run = m.group()
+                cands = [name[m.end(): m.end() + int(run[i:])] for i in range(len(run))]
+                cand = next((c for c in cands if c.endswith("_kernel")), None)
+                if cand:
+                    rest = name[m.end() + len(cand):]
+                    name = cand + rest[: rest.find("EE") + 1]
+                    break
+            spill = ""
+        elif name and "spill stores" in line and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores"):
+            spill = "; " + line.strip()
+        elif name and "Used" in line and "registers" in line:
+            lines.append(f"{name}: {line.split('Used', 1)[1].strip()}{spill}")
+            name = None
+    return lines
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -440,8 +498,9 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
 def check_vq(torch, dev):
     """Kernel B against its plain version at the serving encode batch (f32,
     as the tokenizer feeds it, and bf16), at the training step's encode
-    batch (64 clips of S frames) and at the tokenize-benchmark batch.
-    Returns the serving f32 record."""
+    batch (64 clips of S frames), at the tokenize-benchmark batch and at
+    the sparse trainer's encode batch (N = 65,536). Returns the serving f32
+    record."""
     from world_modelz_tpu_torch.kernels import vq_encode_nearest
     from world_modelz_tpu_torch.ops.vq import vq_encode
 
@@ -452,7 +511,10 @@ def check_vq(torch, dev):
     cases = [("serving", 8 * SEQ * GRID * GRID, torch.float32),
              ("serving", 8 * SEQ * GRID * GRID, torch.bfloat16),
              ("train", TRAIN["batch_size"] * SEQ * GRID * GRID, torch.float32),
-             ("bench", 256 * GRID * GRID, torch.float32)]
+             ("bench", 256 * GRID * GRID, torch.float32),
+             # the sparse trainer's encode: 16 clips of 16 frames, 16x16
+             ("sparse_train", SPARSE_TRAIN["batch_size"] * SPARSE_TRAIN["S"]
+              * SPARSE_TRAIN["H"] * SPARSE_TRAIN["W"], torch.float32)]
     for name, n, dtype in cases:
         x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
         got = vq_encode_nearest(x, codebook).long()
@@ -571,6 +633,128 @@ def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
             record = dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return record
+
+
+def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
+    """The three flash kernels against their plain versions at the sparse
+    trainer's shape (B=16, H=8, N=1,024, D=64, bf16), the evaluation's (B=8,
+    f32, as the sweep runs the f32 masters), a ragged N and D=128 in f32.
+    q, k and v are the head views of one fused (B, N, 3 * H * D) tensor, as
+    DenseAttention hands them over. Each kernel is fed the same inputs as
+    its plain version (the kernels' own out, lse and delta), and must
+    repeat bitwise. Returns {kernel: record} at the training shape."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.kernels import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from world_modelz_tpu_torch.models.attention import (
+        dense_attention_bwd_dkv,
+        dense_attention_bwd_dq,
+        dense_attention_fwd,
+    )
+
+    cases = [  # name, (B, H, N, D), dtype
+        ("train", (16, 8, 1024, 64), torch.bfloat16),
+        ("eval", (8, 8, 1024, 64), torch.float32),
+        ("ragged", (16, 8, 1000, 64), torch.bfloat16),
+        ("d128", (8, 4, 1024, 128), torch.float32),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    records = {}
+    for name, (b, h, n, d), dtype in cases:
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
+        q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, -1))
+        g = torch.randn((b, n, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        scale = d**-0.5
+        out, lse = flash_attention_fwd(q, k, v, scale)
+        dq, delta = flash_bwd_dq(q, k, v, out, g, lse, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, scale)
+        again = (*flash_attention_fwd(q, k, v, scale),
+                 *flash_bwd_dq(q, k, v, out, g, lse, scale),
+                 *flash_bwd_dkv(q, k, v, g, lse, delta, scale))
+        f32 = [t.float() for t in (q, k, v, out, g)]
+        p_out, p_lse = dense_attention_fwd(*f32[:3], scale)
+        p_dq, p_delta = dense_attention_bwd_dq(*f32, lse, scale)
+        p_dk, p_dv = dense_attention_bwd_dkv(*f32[:3], f32[4], lse, delta, scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(
+                (out, lse, dq, delta, dk, dv), again)):
+            raise AssertionError(f"flash {name}: two launches differ")
+        fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        bwd_tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+        errs = {}
+        for label, got, want, tol in (
+                ("out", out, p_out, fwd_tol), ("lse", lse, p_lse, STAT_TOL),
+                ("dq", dq, p_dq, bwd_tol), ("delta", delta, p_delta, STAT_TOL),
+                ("dk", dk, p_dk, bwd_tol), ("dv", dv, p_dv, bwd_tol)):
+            err = float((got.float() - want).abs().max())
+            lim = tol * max(1.0, float(want.abs().max()))
+            errs[label] = err
+            if not err <= lim:
+                raise AssertionError(
+                    f"flash {name} {dtype} {label}: max abs err {err} > {lim}")
+        del p_out, p_lse, p_dq, p_delta, p_dk, p_dv
+        tname = str(dtype).replace("torch.", "")
+        isz = qkv.element_size()
+        elems = b * h * n * d
+        work = b * h * n * n * d
+        bounds = {  # (bytes in and out, products), each input read once
+            "flash_fwd": bound(4 * elems * isz + b * h * n * 4, 4 * work, tname),
+            "flash_bwd_dq": bound(6 * elems * isz + 2 * b * h * n * 4, 6 * work, tname),
+            "flash_bwd_dkv": bound(6 * elems * isz + 2 * b * h * n * 4, 8 * work, tname),
+        }
+        ms = {
+            "flash_fwd": device_ms(torch, lambda: flash_attention_fwd(q, k, v, scale), 20),
+            "flash_bwd_dq": device_ms(
+                torch, lambda: flash_bwd_dq(q, k, v, out, g, lse, scale), 10),
+            "flash_bwd_dkv": device_ms(
+                torch, lambda: flash_bwd_dkv(q, k, v, g, lse, delta, scale), 10),
+        }
+        b2b = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, scale), 20)
+        plain_ms = {
+            "flash_fwd": device_ms(torch, lambda: dense_attention_fwd(q, k, v, scale), 3),
+            "flash_bwd_dq": device_ms(torch, lambda: dense_attention_bwd_dq(
+                q, k, v, out, g, lse, scale), 3),
+            "flash_bwd_dkv": device_ms(torch, lambda: dense_attention_bwd_dkv(
+                q, k, v, g, lse, delta, scale), 3),
+        }
+        # library yardstick: SDPA forward, and forward + backward, on the
+        # same views
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+
+        with torch.no_grad():
+            lib_fwd = device_ms(torch, sdpa, 10)
+        lib_all = device_ms(
+            torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), g), 10)
+        lib = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_all - lib_fwd,
+               "flash_bwd_dkv": lib_all - lib_fwd}
+        log(f"flash {name} {tname} (B, H, N, D)={(b, h, n, d)}: max_abs_err "
+            + " ".join(f"{key}={val:.3g}" for key, val in errs.items())
+            + f" (tol fwd {fwd_tol}, bwd {bwd_tol}, stats {STAT_TOL}, x "
+            f"max(1, max|x|)); repeat bitwise | " + " ".join(
+                f"{key}: kernel_ms={ms[key]:.5f} plain_ms={plain_ms[key]:.5f} "
+                f"bound_us={bounds[key][0] * 1e3:.4f} ({bounds[key][1]})"
+                for key in ms)
+            + f" | fwd back_to_back_ms={b2b:.5f} | SDPA fwd library_ms="
+            f"{lib_fwd:.5f}, fwd+bwd {lib_all:.5f} | {depth} launches of each "
+            f"per train step")
+        if name == "train":
+            for key, err_keys in (("flash_fwd", ("out", "lse")),
+                                  ("flash_bwd_dq", ("dq", "delta")),
+                                  ("flash_bwd_dkv", ("dk", "dv"))):
+                records[key] = dict(
+                    max_abs_err=max(errs[e] for e in err_keys), ms=ms[key],
+                    plain_ms=plain_ms[key], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], library_ms=lib[key])
+        del qkv, q, k, v, g, out, lse, dq, delta, dk, dv, again, qs, ks, vs
+        torch.cuda.empty_cache()
+    return records
 
 
 def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
@@ -787,14 +971,35 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
     return counts
 
 
-def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
-    """``n`` more train steps on the trained state, unprofiled, for the wall
-    per step, then one under torch.profiler: device time by kernel and the
-    device's busy share of the unprofiled step wall (kernels run in order
-    on one stream). The batches are made and shipped beforehand, as the
-    trainer's prefetch thread does."""
+def profile_busy(torch, label, fn, wall_s, reps) -> None:
+    """``fn`` once more under torch.profiler: device time by kernel, and
+    the device's busy share of ``wall_s``, the unprofiled wall of one call
+    (mean of ``reps``; kernels run in order on one stream, so their sum is
+    the busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        log(f"profile: {label}: the profiler recorded no device time (not measured)")
+        return
+    log(f"profile: {label}, device busy {busy_us / 1e3:.3f} ms of "
+        f"{wall_s * 1e3:.3f} ms unprofiled wall (mean of {reps}) = "
+        f"{busy_us / 1e6 / wall_s:.4f} busy share; "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:7d} x  {e.key[:90]}")
+
+
+def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
+    """``n`` more train steps on the trained state, unprofiled, for the wall
+    per step, then one under torch.profiler (``profile_busy``). The batches
+    are made and shipped beforehand, as the trainer's prefetch thread
+    does."""
     from world_modelz_tpu_torch.cli.video_diffusion import (
         build_clip_fn,
         draw_step,
@@ -823,21 +1028,7 @@ def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
         one_step(frames)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_step(batches[-1])
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us == 0:
-        log("profile: the profiler recorded no device time (not measured)")
-        return
-    log(f"profile: one train step, device busy {busy_us / 1e3:.3f} ms of "
-        f"{step_s * 1e3:.3f} ms unprofiled wall (mean of {n}) = "
-        f"{busy_us / 1e6 / step_s:.4f} busy share; "
-        f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
-        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:7d} x  {e.key[:90]}")
+    profile_busy(torch, "one train step", lambda: one_step(batches[-1]), step_s, n)
 
 
 def check_tokenizer_train_step(torch, dev, launches, train=VQAE_TRAIN, batch=8):
@@ -1029,10 +1220,8 @@ def drive_tokenizer_training(torch, dev, launches, smi, train=VQAE_TRAIN,
 
 def profile_tokenizer_training(torch, dev, cfg, result, n=5) -> None:
     """``n`` more tokenizer train steps on the trained state, unprofiled,
-    for the wall per step, then one under torch.profiler: device time by
-    kernel and the busy share, as ``profile_training``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    for the wall per step, then one under torch.profiler
+    (``profile_busy``)."""
     from world_modelz_tpu_torch.cli.train_vqae import build_batch_fn, train_step
 
     batch_fn, _ = build_batch_fn(cfg, 7)
@@ -1044,21 +1233,261 @@ def profile_tokenizer_training(torch, dev, cfg, result, n=5) -> None:
         train_step(result.state, b, cfg)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(result.state, batches[-1], cfg)
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us == 0:
-        log("profile: the profiler recorded no device time (not measured)")
-        return
-    log(f"profile: one tokenizer train step, device busy {busy_us / 1e3:.3f} ms "
-        f"of {step_s * 1e3:.3f} ms unprofiled wall (mean of {n}) = "
-        f"{busy_us / 1e6 / step_s:.4f} busy share; "
-        f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
-        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:7d} x  {e.key[:90]}")
+    profile_busy(torch, "one tokenizer train step",
+                 lambda: train_step(result.state, batches[-1], cfg), step_s, n)
+
+
+def check_sparse_parity(torch, dev, launches, model=SPARSE_MODEL, batch=2,
+                        n_ctx=SPARSE_TRAIN["num_context"]):
+    """The sparse denoiser at full width in f32 on the card (the flash
+    kernels, TF32 off) against the same weights on the CPU (their plain
+    versions): logits, and every parameter's gradient of a cross-entropy
+    loss with the per-tensor limits of ``check_train_grads``. Every layer's
+    to_qkv must get a non-zero gradient on the card."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.models import VqSparseDiffusionModel
+
+    torch.manual_seed(11)
+    cpu = VqSparseDiffusionModel(**model, device="cpu").train()
+    card = VqSparseDiffusionModel(**model, device=dev).train()
+    card.load_state_dict(cpu.state_dict())
+    k = model["num_classes"]
+    s, h, w = model["shape"]
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, k + 1, (batch, n_ctx), generator=gen)
+    indices = torch.stack([torch.randperm(s * h * w, generator=gen)[:n_ctx]
+                           for _ in range(batch)])
+    target = torch.randint(0, k, (batch, n_ctx), generator=gen)
+    before = dict(launches)
+    logits = {}
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        out = m(tokens.to(d), indices.to(d)).float()
+        F.cross_entropy(out.reshape(-1, k), target.to(d).reshape(-1)).backward()
+        logits[d if d == "cpu" else "card"] = out.detach().cpu()
+    ran = {key: launches[key] - before.get(key, 0) for key in launches}
+    depth = model["depth"]
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if dev.type == "cuda" and ran.get(key, 0) != depth:
+            raise AssertionError(f"{key} ran {ran.get(key, 0)} times, not {depth}")
+    err = float((logits["card"] - logits["cpu"]).abs().max())
+    log(f"sparse model f32 logits {tuple(logits['cpu'].shape)}: max_abs_err="
+        f"{err:.3g} (tol {LOGIT_TOL}, logits span "
+        f"{float(logits['cpu'].abs().max()):.3g})")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"sparse logits differ by {err}")
+    want = dict(cpu.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in want.values())
+    rows = {}  # per tensor: (max |CPU grad|, max abs err, limit)
+    for name, p in card.named_parameters():
+        if p.grad is None:
+            raise AssertionError(f"{name} has no gradient on the card")
+        ref = want[name].grad
+        mag = float(ref.abs().max())
+        rows[name] = (mag, float((p.grad.cpu() - ref).abs().max()),
+                      GRAD_TOL * max(mag, GRAD_FLOOR * scale))
+        if name.endswith("to_qkv.weight") and not bool(p.grad.abs().max() > 0):
+            raise AssertionError(f"{name} has an all-zero gradient on the card")
+    worst = max(rows, key=lambda n: rows[n][1] / rows[n][2])
+    qkv = [n for n in rows if n.endswith("to_qkv.weight")]
+    small = min(qkv, key=lambda n: rows[n][0])
+    log(f"sparse model gradients f32 card vs CPU ({len(rows)} tensors, {depth} "
+        f"layers of flash fwd/dq/dkv; limit {GRAD_TOL} x max(max|its grad|, "
+        f"{GRAD_FLOOR} x {scale:.3g})): worst err/limit "
+        f"{rows[worst][1] / rows[worst][2]:.3g} in {worst} (err "
+        f"{rows[worst][1]:.3g}, max|grad| {rows[worst][0]:.3g}); to_qkv.weight "
+        f"x {len(qkv)}, smallest max|grad| {rows[small][0]:.3g} in {small}: "
+        f"every layer's to_qkv has a non-zero gradient")
+    if not rows[worst][1] <= rows[worst][2]:
+        raise AssertionError(
+            f"{worst}: gradient differs by {rows[worst][1]} > {rows[worst][2]}")
+
+
+def sparse_tokenizer_checkpoint(torch, root, tokenizer=SPARSE_TOKENIZER,
+                                train=SPARSE_TRAIN):
+    """A seeded 3-channel tokenizer whose codebook is its encoder's own
+    latents of synthetic trajectory frames (so tokens vary with the
+    content), saved as a port tokenizer checkpoint; returns its path."""
+    import numpy as np
+
+    from world_modelz_tpu_torch.data import SyntheticTrajectorySource
+    from world_modelz_tpu_torch.models import VQAutoEncoder
+    from world_modelz_tpu_torch.train import save_checkpoint
+
+    torch.manual_seed(12)
+    tok = VQAutoEncoder(**tokenizer, device="cpu")
+    src = SyntheticTrajectorySource(num_trajectories=4, traj_frames=24,
+                                    frame_size=train["image_size"], seed=12)
+    frames = np.concatenate([np.stack(list(src.load_frames(name)))[::6]
+                             for name in src.trajectory_names()])
+    with torch.no_grad():
+        x = torch.from_numpy(frames).float().div(255.0)
+        lat = tok.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        lat = lat.reshape(-1, tokenizer["embedding_dim"])
+        pick = torch.randperm(lat.shape[0])[: tokenizer["num_embeddings"]]
+        tok.vq.embedding[0] = lat[pick] + 0.01 * torch.randn_like(lat[pick])
+    return save_checkpoint(os.path.join(root, "tokenizer"), 0,
+                           {"tokenizer": tok.state_dict()}, tokenizer)
+
+
+def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
+                          tokenizer=SPARSE_TOKENIZER,
+                          root=os.path.join(HERE, "build", "smoke_sparse")):
+    """The sparse trainer at full width (``cli.sparse_diffusion.train``) at
+    train_sparse/s16_n1024_b16 from a seeded tokenizer checkpoint, with its
+    evaluation (the base and the EMA weights) at the last step; then one
+    more evaluation pass alone, counted and timed. Returns the launch
+    counts of the training run."""
+    import shutil
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli import sparse_diffusion as sd
+    from world_modelz_tpu_torch.train import latest_checkpoint
+
+    shutil.rmtree(root, ignore_errors=True)
+    tok_path = sparse_tokenizer_checkpoint(torch, root, tokenizer, train)
+    on_card = dev.type == "cuda"
+    cfg = sd.SparseDiffusionConfig(
+        **train, decoder_model=tok_path, output_dir=os.path.join(root, "run"),
+        platform="" if on_card else dev.type)
+    log(f"sparse training: train_sparse/s16_n1024_b16, cut to {cfg.max_steps} "
+        f"steps (default 30,000), warmup {cfg.warmup} (500), cosine over "
+        f"{cfg.max_steps}, buffer {cfg.buffer_size} frames (75,000), "
+        f"checkpoints every {cfg.checkpoint_interval} (2,500), evaluation at "
+        f"step {cfg.eval_interval} (every 5,000); tokenizer seeded, codebook "
+        f"from its encoder's latents of synthetic frames")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    # the trainer as a user runs it: PyTorch's default TF32 settings
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        result = sd.train(cfg)
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
+        tok, _ = sd.load_tokenizer(tok_path, dev)
+        launches.clear()
+        t0 = time.perf_counter()
+        _, vol, frames = sd.run_eval(result.state.model, None, tok, cfg,
+                                     cfg.max_steps + 1, "alone")
+        if on_card:
+            torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t0
+        eval_counts = dict(launches)
+        if on_card:
+            profile_sparse(torch, dev, cfg, result, tok)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    steps = cfg.max_steps
+    losses = [h[1] for h in result.history]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses not finite or missing: {losses}")
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 10 {first}, last 10 {last}")
+    if result.rejected:
+        raise AssertionError(f"{result.rejected} steps rejected")
+    for at in range(cfg.checkpoint_interval, steps + 1, cfg.checkpoint_interval):
+        if not os.path.isdir(os.path.join(cfg.output_dir, f"step_{at:07d}")):
+            raise AssertionError(f"the checkpoint of step {at} did not land")
+    if latest_checkpoint(cfg.output_dir) != os.path.join(
+            cfg.output_dir, f"step_{steps:07d}"):
+        raise AssertionError("the final checkpoint did not land")
+    if [(e[0], e[1]) for e in result.evals] != [(steps, "base"), (steps, "ema")] or \
+            not all(os.path.isfile(e[2]) for e in result.evals):
+        raise AssertionError(f"evaluation PNGs: {result.evals}")
+    k = tok.num_embeddings
+    if int(vol.min()) < 0 or int(vol.max()) >= k:
+        raise AssertionError(f"sampled tokens outside [0, {k}): "
+                             f"[{int(vol.min())}, {int(vol.max())}]")
+    if frames.shape != (cfg.eval_batch_size, cfg.S, cfg.image_size, cfg.image_size, 3) \
+            or not np.isfinite(frames).all():
+        raise AssertionError(f"decoded frames {frames.shape} not finite")
+    depth = cfg.depth
+    chunks = cfg.S * cfg.H * cfg.W // cfg.num_context + 1
+    per_eval = cfg.num_eval_iterations * chunks * depth
+    encodes = len(range(0, steps, cfg.change_batch_interval))
+    want = {"flash_fwd": depth * steps + 2 * per_eval,
+            "flash_bwd_dq": depth * steps, "flash_bwd_dkv": depth * steps,
+            "vq_encode": encodes}
+    for name, n in want.items() if on_card else ():
+        if counts.get(name, 0) != n:
+            raise AssertionError(
+                f"{name} launched {counts.get(name, 0)} times, expected {n}")
+    if on_card and eval_counts != {"flash_fwd": per_eval}:
+        raise AssertionError(f"one evaluation pass launched {eval_counts}, "
+                             f"expected {per_eval} flash_fwd")
+    t = {h[0]: h[4] for h in result.history}
+    sps = (steps - 10) / (t[steps] - t[10])  # steps 11..60
+    log(f"sparse training: {steps} steps in {wall:.3f} s (evaluation incl.); "
+        f"loss first-10 mean {first:.5f} -> last-10 mean {last:.5f}; losses "
+        f"every 10: " + " ".join(f"{x:.4f}" for x in losses[::10]))
+    log(f"sparse training: steps 11-{steps}: {sps:.4f} steps/s = "
+        f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); peak "
+        f"device memory {peak:.3f} GiB; rejected {result.rejected}; launches "
+        f"{counts} (per step {depth} of each flash kernel; {per_eval} flash_fwd "
+        f"per evaluation pass, 2 passes; {encodes} vq_encode at N = "
+        f"{cfg.batch_size * cfg.S * cfg.H * cfg.W}); evaluation walls "
+        + ", ".join(f"{e[1]} {e[3]:.3f} s" for e in result.evals)
+        + f"; TF32: matmul off, cuDNN on; on {smi}")
+    log(f"sparse evaluation alone: {eval_wall:.3f} s for {cfg.num_eval_iterations} "
+        f"iterations x {chunks} chunks of B={cfg.eval_batch_size}, N="
+        f"{cfg.num_context} (f32), launches {eval_counts}; tokens in "
+        f"[{int(vol.min())}, {int(vol.max())}], {int(torch.unique(vol).numel())} "
+        f"distinct; frames finite, range [{frames.min():.4g}, {frames.max():.4g}]")
+    return counts
+
+
+def profile_sparse(torch, dev, cfg, result, tok, n=5, eval_iters=5) -> None:
+    """``n`` more sparse train steps with their batch ready, unprofiled, for
+    the wall per step, then one under torch.profiler (``profile_busy``).
+    Then the same for ``eval_iters`` iterations of the evaluation sweep."""
+    import dataclasses
+
+    from world_modelz_tpu_torch.cli import sparse_diffusion as sd
+
+    sampler = sd.build_sampler(cfg)
+    try:
+        shape = (cfg.S, cfg.H, cfg.W)
+        batches = [sd.encode_batch(tok, torch.from_numpy(
+            sampler.sample_batch(cfg.batch_size)).to(dev), shape) for _ in range(2)]
+    finally:
+        sampler.close()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    volume = cfg.S * cfg.H * cfg.W
+
+    def one_step(i):
+        draws = sd.draw_step(gen, cfg.batch_size, cfg.num_context, volume,
+                             result.state.sampler.weights.shape[0],
+                             tok.num_embeddings)
+        return sd.train_step(result.state, batches[i % 2], cfg, draws)
+
+    one_step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        one_step(i + 1)
+    torch.cuda.synchronize()
+    profile_busy(torch, "one sparse train step", lambda: one_step(0),
+                 (time.perf_counter() - t0) / n, n)
+
+    short = dataclasses.replace(cfg, num_eval_iterations=eval_iters)
+    model = result.state.model
+
+    def sweep():
+        sd.run_eval(model, None, tok, short, 0, "profile")
+
+    sweep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    profile_busy(torch, f"{eval_iters} evaluation iterations (decode and PNG "
+                 f"incl.)", sweep, time.perf_counter() - t0, 1)
 
 
 def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
@@ -1191,27 +1620,29 @@ def main() -> int:
     _build.load_library()
     info = _build.BUILD_INFO
     log(f"build: {info['seconds']:.2f} s (built={info['built']}) {info['path']}")
-    for line in str(info["log"]).splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(str(info["log"])):
+        log(f"  ptxas: {line}")
 
     a = check_local3d(torch, dev)
     b = check_vq(torch, dev)
     bwd = check_local3d_bwd(torch, dev)
     c = check_vq_train(torch, dev)
+    flash = check_flash(torch, dev)
     check_slice_parity(torch, dev)
     check_train_grads(torch, dev, _build.LAUNCHES)
     check_tokenizer_train_step(torch, dev, _build.LAUNCHES)
+    check_sparse_parity(torch, dev, _build.LAUNCHES)
     serving = drive_serving(torch, dev, _build.LAUNCHES)
     log(f"serving: measured on {smi}")
     training = drive_training(torch, dev, _build.LAUNCHES, smi)
     tokenizer = drive_tokenizer_training(torch, dev, _build.LAUNCHES, smi)
-    # launches of the three main paths, each counted in its own run
-    paths = (serving, training, tokenizer)
+    sparse = drive_sparse_training(torch, dev, _build.LAUNCHES, smi)
+    # launches of the four main paths, each counted in its own run
+    paths = (serving, training, tokenizer, sparse)
     counts = {key: sum(p.get(key, 0) for p in paths)
               for key in set().union(*paths)}
     log(f"launches: serving {serving}, training {training}, tokenizer "
-        f"training {tokenizer}")
+        f"training {tokenizer}, sparse training {sparse}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -1234,6 +1665,14 @@ def main() -> int:
              source="world_modelz_tpu_torch/csrc/vq_train.cu",
              replaces="world_modelz_tpu/kernels/vq_kernels.py:146",
              launches=counts["vq_train_stats"], **c),
+    ] + [
+        dict(name=name, route="cuda",
+             source=f"world_modelz_tpu_torch/csrc/{src}",
+             replaces=f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+             launches=counts[name], **flash[name])
+        for name, src, line in (("flash_fwd", "flash_fwd.cu", 331),
+                                ("flash_bwd_dq", "flash_bwd.cu", 1146),
+                                ("flash_bwd_dkv", "flash_bwd.cu", 796))
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

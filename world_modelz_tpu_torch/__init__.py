@@ -1,12 +1,15 @@
 """world_modelz_tpu_torch — the PyTorch/CUDA port of world_modelz_tpu.
 
-Three paths run here. Serving: tokenizer encode (conv encoder +
+Four paths run here. Serving: tokenizer encode (conv encoder +
 nearest-code search) -> iterative-unmask rollout over the
 local-3D-attention denoiser -> tokenizer decode. Training: the
 masked-diffusion trainer (``cli.video_diffusion``) over frozen-tokenizer
 MovingMNIST clips, with the attention's backward kernels. Tokenizer
 training: the VQ-VAE trainer (``cli.train_vqae``), with the fused VQ
-search + EMA statistics kernel. Layouts at public functions follow the
+search + EMA statistics kernel. Sparse space-time diffusion: the trainer
+``cli.sparse_diffusion`` (a dense transformer over token subsets of
+synthetic trajectory volumes, with the flash-attention kernels) and its
+chunked volume sweep. Layouts at public functions follow the
 JAX package: NHWC images in [0, 1], (B, S, H, W) token grids,
 (B, S, H, W, heads * dh) attention operands.
 
@@ -22,16 +25,19 @@ Subpackages
 -----------
 ops        vector quantization (lookups, the EMA training forward,
            dead-code revival, the kernels' plain versions)
-kernels    CUDA kernel wrappers, the attention's autograd Function, launch
+kernels    CUDA kernel wrappers, the attentions' autograd Functions, launch
            counters, the nvcc build
-models     tokenizer convs, local-3D attention transformer, denoiser
-diffusion  corruption, iterative-unmask sampler and multi-frame rollout
+models     tokenizer convs, local-3D and dense attention transformers, the
+           two denoisers
+diffusion  corruption, iterative-unmask sampler and multi-frame rollout;
+           sparse position samplers and the volume sweep
 serve      batched rollout service (request coalescing, sessions)
 train      optimizer, schedules, EMA, loss-aware sampler, guard, checkpoints
-data       MovingMNIST and synthetic trajectory sources, the prefetching
-           device feeder
+data       MovingMNIST and synthetic trajectory sources, the buffered clip
+           sampler, the prefetching device feeder
 cli        the trainers (``python -m ...cli.video_diffusion``,
-           ``python -m ...cli.train_vqae``)
+           ``python -m ...cli.train_vqae``,
+           ``python -m ...cli.sparse_diffusion``)
 utils      dataclass CLI configs, image grids and PNGs, the JSONL logger
 convert    weight bridge from the JAX package's numpy parameter trees
 """

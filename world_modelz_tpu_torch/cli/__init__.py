@@ -2,5 +2,6 @@
 
 Each module exposes a config dataclass, a ``train(cfg)`` function and a
 ``main(argv)`` CLI wrapper. Ported: ``video_diffusion`` (the denoiser
-trainer) and ``train_vqae`` (the tokenizer trainer).
+trainer), ``train_vqae`` (the tokenizer trainer) and ``sparse_diffusion``
+(the sparse space-time trainer with its evaluation).
 """

@@ -1,0 +1,513 @@
+"""Sparse space-time diffusion training CLI.
+
+Port of ``world_modelz_tpu.cli.sparse_diffusion`` (reference:
+minecraft/sparse_diffusion.py:272-543): train a dense transformer denoiser
+on random ``num_context``-token subsets of (S, H, W) token volumes, the
+positions drawn from time-dependent temporal windows ("neighbors") or
+uniformly, with
+- amortized tokenization: a fresh trajectory batch is encoded (through the
+  ``vq_encode`` kernel) only every ``change_batch_interval`` steps
+  (:412-425);
+- loss-aware or uniform diffusion-time sampling, masked corruption of the
+  gathered tokens, cross-entropy on all N tokens;
+- the bf16 forward on f32 masters (``torch.func.functional_call``; the
+  cast is differentiable, so the gradients land in f32, as JAX's cast in
+  ``loss_fn``), whose attention runs the flash kernels when N >= 1024 or
+  with ``--attn_backend flash``;
+- warmup + cosine AdamW, EMA, the non-finite guard (one host read per step;
+  a rejected step leaves the state bitwise unchanged);
+- evaluation: the chunked volume sweep (``sparse_denoise_volume``), decoded
+  to frames and written as a PNG grid, for the base and the EMA weights;
+- async checkpoints with the embedded config, resume, warm start and
+  ``--single_batch`` (with its ``gt.png``).
+
+Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
+that ports them: the MineRL and video datasets, the external tokenizer, the
+grain pipeline, fused dispatch, the timing report and wandb (A.8);
+mixture-of-experts FFNs (A.5); tensor, pipeline and FSDP parallelism (A.9).
+The flags of those features raise at any value other than their default.
+
+Run (the GPU by default, ``--platform cpu`` for the CPU):
+
+    python -m world_modelz_tpu_torch.cli.sparse_diffusion \\
+        --decoder_model <tokenizer checkpoint> --S 16 --num_context 1024 \\
+        --heads 8 --attn_backend flash
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from world_modelz_tpu_torch._device import platform_device
+from world_modelz_tpu_torch.cli.train_vqae import load_tokenizer
+from world_modelz_tpu_torch.cli.video_diffusion import (
+    TrainState,
+    ce_step,
+    checkpoint_restorer,
+    init_state,
+)
+from world_modelz_tpu_torch.data import (
+    BufferedTrajectorySampler,
+    PrefetchIterator,
+    SyntheticTrajectorySource,
+)
+from world_modelz_tpu_torch.diffusion import (
+    corrupt_tokens,
+    sample_flat_positions,
+    sample_time_dependent,
+    sparse_denoise_volume,
+)
+from world_modelz_tpu_torch.models import VQAutoEncoder, VqSparseDiffusionModel
+from world_modelz_tpu_torch.train import (
+    AsyncCheckpointSaver,
+    CheckpointGuard,
+    host_schedule,
+    loss_aware_sample,
+    restore_checkpoint,
+    uniform_sample,
+)
+from world_modelz_tpu_torch.utils.config import (
+    check_defaults,
+    config_to_dict,
+    dataclass_cli,
+    unported,
+)
+from world_modelz_tpu_torch.utils.image import make_grid, save_image
+from world_modelz_tpu_torch.utils.logging import MetricLogger
+
+
+@dataclasses.dataclass
+class SparseDiffusionConfig:
+    """Flags mirror minecraft/sparse_diffusion.py:213-269 (field names and
+    defaults of the JAX package's config)."""
+
+    manual_seed: int = 42
+    platform: str = ""  # "" = the GPU (raises without one), "cpu"
+    lr: float = 5e-5
+    batch_size: int = 48
+    eval_batch_size: int = 8
+    save_frames: bool = False
+    max_steps: int = 500_000
+    warmup: int = 500
+    weight_decay: float = 1e-2
+    optimizer: str = "AdamW"
+    ema_decay: float = 0.0
+    bf16: bool = False  # bfloat16 compute with f32 master weights
+    nan_guard: bool = True  # reject steps with non-finite loss/grads
+    checkpoint: str = ""  # resume path
+    # weights-only warm start: params/EMA, fresh optimizer/sampler, step 0
+    init_from: str = ""
+
+    decoder_model: str = ""  # tokenizer checkpoint path (required)
+    tokenizer: str = ""  # external tokenizer: not ported
+    dataset: str = "synthetic"  # minerl / video: not ported
+    mlr_data_dir: str = ""  # MineRL / video data: not ported
+    image_size: int = 64
+
+    S: int = 32
+    H: int = 16
+    W: int = 16
+
+    single_batch: bool = False
+    eval_interval: int = 1000
+    num_eval_iterations: int = 100
+    checkpoint_interval: int = 25_000
+    sampling_type: str = "neighbors"  # uniform|neighbors
+    p_max_uniform: float = 0.1
+    uniform_noise: bool = False
+    log_interval: int = 10
+    # "deferred" or "sync": the port reads each step's stats on the host,
+    # so both modes log the step's own values (JAX's "sync" behaviour)
+    log_fence: str = "deferred"
+    histogram_interval: int = 50  # sampler-weight histograms: not ported
+    timing_report: str = ""  # not ported
+    probe_interval: int = 200  # timing-report probes: not ported
+
+    buffer_size: int = 75_000
+    max_segment_length: int = 1000
+    skip_frames: int = 2
+    data_pipeline: str = "native"  # "grain" is not ported
+    data_workers: int = 0  # grain worker processes: not ported
+
+    dim: int = 512
+    mlp_dim: int = 1024
+    heads: int = 4
+    depth: int = 8
+    num_context: int = 512
+    change_batch_interval: int = 4
+    steps_per_dispatch: int = 1  # > 1 not ported
+    # dense-attention backend: auto | flash | xla (models.attention.
+    # DenseAttention); auto takes the flash kernels on the GPU from 1024
+    # tokens on
+    attn_backend: str = "auto"
+
+    moe_experts: int = 0  # > 0 not ported
+    moe_capacity_factor: float = 1.25  # MoE: not ported
+    moe_aux_weight: float = 1e-2  # MoE: not ported
+
+    n_model: int = 1  # > 1 not ported
+    fsdp: bool = False  # not ported
+    n_pipe: int = 1  # > 1 not ported
+    n_micro: int = 4  # pipeline microbatches: not ported
+    wandb: bool = False  # not ported
+    project: str = "sparse_diffusion"
+    tags: str = ""
+    name: str = "sparse_diffusion"
+    output_dir: str = "outputs/sparse_diffusion"
+
+
+# flags kept for parity with the JAX CLI whose features are not ported:
+# nothing reads them, so a value other than the default raises
+_UNPORTED_FIELDS = {
+    "mlr_data_dir": ("the MineRL / video datasets", "A.8"),
+    "data_workers": ("grain worker processes", "A.8"),
+    "histogram_interval": ("sampler-weight histograms (the metric logger)", "A.8"),
+    "probe_interval": ("the timing report's device probes", "A.8"),
+    "moe_capacity_factor": ("mixture-of-experts FFNs", "A.5"),
+    "moe_aux_weight": ("mixture-of-experts FFNs", "A.5"),
+    "n_micro": ("pipeline parallelism", "A.9"),
+}
+
+
+def check_supported(cfg: SparseDiffusionConfig) -> None:
+    """Raise NotImplementedError for options of features not ported, and
+    ValueError for values the JAX CLI does not take either."""
+    check_defaults(cfg, _UNPORTED_FIELDS)
+    if cfg.log_fence not in ("deferred", "sync"):
+        raise ValueError(
+            f"--log_fence must be 'deferred' or 'sync', got {cfg.log_fence!r}")
+    if cfg.sampling_type not in ("uniform", "neighbors"):
+        raise ValueError(
+            f"--sampling_type must be 'uniform' or 'neighbors', got "
+            f"{cfg.sampling_type!r}")
+    if cfg.dataset != "synthetic":
+        raise unported(f"--dataset {cfg.dataset}", "A.8")
+    if cfg.tokenizer:
+        raise unported("--tokenizer (external tokenizers)", "A.8")
+    if cfg.data_pipeline != "native":
+        raise unported(f"--data_pipeline {cfg.data_pipeline}", "A.8")
+    if cfg.steps_per_dispatch > 1:
+        raise unported("--steps_per_dispatch > 1", "A.8")
+    if cfg.timing_report:
+        raise unported("--timing_report", "A.8")
+    if cfg.wandb:
+        raise unported("--wandb (the metric logger)", "A.8")
+    if cfg.moe_experts > 0:
+        raise unported("--moe_experts (mixture-of-experts FFNs)", "A.5")
+    if cfg.n_model > 1 or cfg.n_pipe > 1 or cfg.fsdp:
+        raise unported("--n_model / --n_pipe / --fsdp parallelism", "A.9")
+
+
+def build_sampler(cfg: SparseDiffusionConfig) -> BufferedTrajectorySampler:
+    """The JAX trainer's synthetic trajectories in its buffered sampler
+    (cli/sparse_diffusion.py:247-274): (B, S, H, W, 3) uint8 clips."""
+    src = SyntheticTrajectorySource(
+        num_trajectories=16,
+        traj_frames=max(3 * cfg.S * (cfg.skip_frames + 1), 200),
+        frame_size=cfg.image_size,
+    )
+    return BufferedTrajectorySampler(
+        src, buffer_size=cfg.buffer_size,
+        max_segment_length=cfg.max_segment_length, traj_len=cfg.S,
+        skip_frames=cfg.skip_frames, seed=cfg.manual_seed,
+    )
+
+
+def make_model(
+    cfg: SparseDiffusionConfig, num_embeddings: int, device=None
+) -> VqSparseDiffusionModel:
+    """The denoiser with f32 (master) parameters, in train mode."""
+    model = VqSparseDiffusionModel(
+        shape=(cfg.S, cfg.H, cfg.W),
+        dim=cfg.dim,
+        num_classes=num_embeddings,
+        depth=cfg.depth,
+        dim_head=cfg.dim // cfg.heads,
+        mlp_dim=cfg.mlp_dim,
+        heads=cfg.heads,
+        attn_backend=cfg.attn_backend,
+        moe_experts=cfg.moe_experts,
+        device=device,
+    )
+    return model.train()
+
+
+def encode_batch(tok: VQAutoEncoder, frames: torch.Tensor,
+                 shape: Tuple[int, int, int]) -> torch.Tensor:
+    """(B, S, H, W, C) uint8 frames -> (B, S, h, w) tokens (int64)."""
+    b, s, hh, ww, c = frames.shape
+    if c != tok.in_channels:
+        raise ValueError(
+            f"data has {c} channels but the tokenizer was trained with "
+            f"in_channels={tok.in_channels} (check --decoder_model vs "
+            "--dataset)")
+    z = tok.encode(frames.reshape(b * s, hh, ww, c).to(torch.float32) / 255.0)
+    z = z.reshape(b, s, *z.shape[1:]).long()
+    if tuple(z.shape[1:]) != tuple(shape):
+        raise ValueError(
+            f"the tokenizer gives {tuple(z.shape[1:])} token volumes, the "
+            f"config says (S, H, W) = {tuple(shape)}")
+    return z
+
+
+@torch.no_grad()
+def decode_volume(tok: VQAutoEncoder, volume: torch.Tensor,
+                  decode_n: int = 16) -> np.ndarray:
+    """Chunked decode of a (B, S, h, w) token volume to (B, S, H, W, C)
+    frames, mask tokens clamped to 0 (sparse_diffusion.py:118-136)."""
+    volume = torch.where(volume >= tok.num_embeddings, 0, volume)
+    b, s, h, w = volume.shape
+    flat = volume.reshape(b * s, h, w)
+    frames = np.concatenate([
+        tok.decode(flat[i : i + decode_n]).float().cpu().numpy()
+        for i in range(0, flat.shape[0], decode_n)
+    ])
+    return frames.reshape(b, s, *frames.shape[1:])
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """The random numbers of one step (JAX draws them from its step key)."""
+
+    gumbel: torch.Tensor  # (B, num_buckets) sampler bucket Gumbel noise
+    # (B,) the sampler's jitter uniforms, or the times themselves with
+    # uniform_noise
+    jitter: torch.Tensor
+    offset_uniform: torch.Tensor  # (B,) window offsets ("neighbors")
+    position_uniform: torch.Tensor  # (B, volume) position sort keys
+    mask_uniform: torch.Tensor  # (B, N) corruption mask uniforms
+    resample_uniform: torch.Tensor  # (B, N) corruption resample uniforms
+    uniform_classes: torch.Tensor  # (B, N) resampled class ids
+
+
+def draw_step(
+    generator: torch.Generator, b: int, n: int, volume: int,
+    num_buckets: int, num_classes: int,
+) -> StepDraws:
+    """One step's draws for a batch of ``b`` volumes of ``volume`` tokens
+    and ``n`` context tokens, from ``generator`` (on its device)."""
+    dev = generator.device
+    tiny = torch.finfo(torch.float32).tiny
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    return StepDraws(
+        gumbel=-torch.log(-torch.log(rand(b, num_buckets).clamp_min(tiny))),
+        jitter=rand(b),
+        offset_uniform=rand(b),
+        position_uniform=rand(b, volume),
+        mask_uniform=rand(b, n),
+        resample_uniform=rand(b, n),
+        uniform_classes=torch.randint(
+            0, num_classes, (b, n), generator=generator, device=dev),
+    )
+
+
+def train_step(
+    state: TrainState,
+    batch_z: torch.Tensor,
+    cfg: SparseDiffusionConfig,
+    draws: StepDraws,
+) -> Tuple[float, float, bool]:
+    """One optimizer step (JAX ``step_body``, cli/sparse_diffusion.py:
+    400-501) on a (B, S, H, W) token batch; updates ``state`` in place and
+    returns (loss, grad norm, ok) read on the host."""
+    model = state.model
+    b = batch_z.shape[0]
+    k = model.num_classes
+    shape = model.shape
+    volume = shape[0] * shape[1] * shape[2]
+    if cfg.uniform_noise:
+        r = uniform_sample(b, uniforms=draws.jitter)
+    else:
+        r = loss_aware_sample(state.sampler, b, gumbel=draws.gumbel,
+                              jitter=draws.jitter)
+    if cfg.sampling_type == "uniform":
+        indices = sample_flat_positions(
+            b, cfg.num_context, volume, uniforms=draws.position_uniform)
+    else:
+        indices = sample_time_dependent(
+            b, cfg.num_context, shape, r, offset_uniform=draws.offset_uniform,
+            uniforms=draws.position_uniform)
+    target = torch.gather(batch_z.reshape(b, -1), 1, indices)
+    corrupted, _ = corrupt_tokens(
+        target, r, num_classes=k, mask_token=k,
+        p_max_uniform=cfg.p_max_uniform,
+        mask_uniform=draws.mask_uniform,
+        resample_uniform=draws.resample_uniform,
+        uniform_classes=draws.uniform_classes,
+    )
+    # the uniform sampler keeps no state (JAX skips its update)
+    return ce_step(state, (corrupted, indices), target,
+                   None if cfg.uniform_noise else r, cfg)
+
+
+def run_eval(
+    model: VqSparseDiffusionModel,
+    weights: Optional[Dict[str, torch.Tensor]],
+    tok: VQAutoEncoder,
+    cfg: SparseDiffusionConfig,
+    step: int,
+    tag: str,
+) -> Tuple[str, torch.Tensor, np.ndarray]:
+    """The JAX ``run_eval`` (cli/sparse_diffusion.py:533-560): sample
+    ``eval_batch_size`` volumes with ``num_eval_iterations`` sweeps of the
+    model (with ``weights``, e.g. the EMA's, in place of its own when
+    given; f32, eval mode), decode them and write the PNG grid (and, with
+    ``save_frames``, one grid per frame). Returns (the grid's path, the
+    token volume, the frames)."""
+    was_training = model.training
+    model.eval()
+    try:
+        if weights is None:
+            logits_fn = model
+        else:
+            def logits_fn(toks, idx):
+                return torch.func.functional_call(model, weights, (toks, idx))
+        vol = sparse_denoise_volume(
+            logits_fn,
+            batch_size=cfg.eval_batch_size,
+            shape=model.shape,
+            num_classes=model.num_classes,
+            mask_token=model.num_classes,
+            num_context=cfg.num_context,
+            num_iterations=cfg.num_eval_iterations,
+            sampling_type=cfg.sampling_type,
+            generator=torch.Generator(device=model.device).manual_seed(step),
+        )
+    finally:
+        model.train(was_training)
+    frames = decode_volume(tok, vol)
+    path = os.path.join(cfg.output_dir, f"{cfg.name}_eval_{step:07d}_{tag}.png")
+    save_image(make_grid(frames.reshape(-1, *frames.shape[2:]), nrow=cfg.S), path)
+    if cfg.save_frames:
+        for i in range(frames.shape[1]):
+            save_image(make_grid(frames[:, i]), os.path.join(
+                cfg.output_dir, f"{cfg.name}_{tag}_frame_{i:03d}.png"))
+    print("eval artifact:", path)
+    return path, vol, frames
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: TrainState
+    # per step: (step, loss, grad_norm, ok, host clock after the step)
+    history: List[Tuple[int, float, float, bool, float]]
+    rejected: int
+    # per evaluation: (step, tag, PNG path, wall seconds)
+    evals: List[Tuple[int, str, str, float]]
+
+
+def train(cfg: SparseDiffusionConfig) -> TrainResult:
+    """Train as the JAX ``train`` does; returns the final state, each
+    step's (loss, grad norm, ok) and the evaluations written."""
+    check_supported(cfg)
+    device = platform_device(cfg.platform)
+    if not cfg.decoder_model:
+        raise ValueError("--decoder_model (tokenizer checkpoint) is required")
+    if cfg.checkpoint and cfg.init_from:
+        raise ValueError("--checkpoint (full resume) and --init_from "
+                         "(weights-only) are mutually exclusive")
+    torch.manual_seed(cfg.manual_seed)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+
+    tok, _ = load_tokenizer(cfg.decoder_model, device)
+    num_embeddings = tok.num_embeddings
+    shape = (cfg.S, cfg.H, cfg.W)
+    volume = cfg.S * cfg.H * cfg.W
+
+    model = make_model(cfg, num_embeddings, device)
+    print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
+    state = init_state(cfg, model)
+    lr_of = host_schedule(state.optimizer.schedule)
+    if cfg.init_from:
+        restored, at_step, _ = restore_checkpoint(cfg.init_from)
+        state.load_weights(restored)
+        print(f"warm start from {cfg.init_from} (step {at_step} weights; "
+              "fresh optimizer, step 0)")
+    if cfg.checkpoint:
+        restored, at_step, _ = restore_checkpoint(cfg.checkpoint)
+        state.load_state_dict(restored, at_step)
+        print(f"resumed from {cfg.checkpoint} at step {at_step}")
+    start_step = state.step
+
+    config = config_to_dict(cfg)
+    gen = torch.Generator(device=device).manual_seed(cfg.manual_seed)
+    n_buckets = state.sampler.weights.shape[0]
+    sampler = build_sampler(cfg)
+    batches = PrefetchIterator(
+        lambda: sampler.sample_batch(cfg.batch_size), depth=2, device=device)
+    logger = MetricLogger(cfg.output_dir, cfg.name)
+    saver = AsyncCheckpointSaver()
+    # the port reads every step's ok flag, so the guard counts steps (the
+    # JAX trainer samples the flag at log points)
+    guard = CheckpointGuard(checkpoint_restorer(saver, state, cfg))
+    history: List[Tuple[int, float, float, bool, float]] = []
+    evals: List[Tuple[int, str, str, float]] = []
+    rejected = 0
+    batch_z = None
+    t0 = time.time()
+    try:
+        while state.step < cfg.max_steps:
+            # a fresh batch at steps 0, k, 2k, ... (k = change_batch_interval;
+            # JAX's test (step + 1) % k == 1, which with k = 1 never refreshes)
+            if batch_z is None or (
+                    not cfg.single_batch
+                    and (state.step + 1) % cfg.change_batch_interval == 1):
+                batch_z = encode_batch(tok, next(batches), shape)
+                if cfg.single_batch and state.step == 0:
+                    gt = decode_volume(tok, batch_z)
+                    save_image(make_grid(gt.reshape(-1, *gt.shape[2:]), nrow=cfg.S),
+                               os.path.join(cfg.output_dir, "gt.png"))
+            draws = draw_step(gen, cfg.batch_size, cfg.num_context, volume,
+                              n_buckets, num_embeddings)
+            loss, gn, ok = train_step(state, batch_z, cfg, draws)
+            step = state.step
+            history.append((step, loss, gn, ok, time.perf_counter()))
+            accepted = ok or not cfg.nan_guard
+            if not accepted:
+                rejected += 1
+                print(f"{step}: step REJECTED (non-finite loss/grads)")
+            guard.record(accepted, step)
+            if step % cfg.log_interval == 0 or step == start_step + 1:
+                dt, t0 = time.time() - t0, time.time()
+                m = {"loss": loss, "grad_norm": gn, "lr": lr_of(step),
+                     "steps_per_sec": cfg.log_interval / max(dt, 1e-9)}
+                logger.log(step, **m)
+                print(f"{step}: loss {loss:.3e} lr {m['lr']:.3e} "
+                      f"grad_norm {gn:.3e}")
+            if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
+                path = saver.save(cfg.output_dir, step, state.state_dict(), config)
+                print("checkpoint:", path)
+            if cfg.eval_interval and step % cfg.eval_interval == 0:
+                for tag, weights in (("base", None), ("ema", state.ema)):
+                    if tag == "ema" and weights is None:
+                        continue
+                    te = time.perf_counter()
+                    path, _, _ = run_eval(model, weights, tok, cfg, step, tag)
+                    evals.append((step, tag, path, time.perf_counter() - te))
+    finally:
+        try:
+            saver.wait()  # the last save must land before exit
+        finally:
+            batches.close()
+            sampler.close()
+            logger.close()
+    return TrainResult(state, history, rejected, evals)
+
+
+def main(argv=None):
+    cfg = dataclass_cli(SparseDiffusionConfig, argv)
+    print("Config:", cfg)
+    train(cfg)
+
+
+if __name__ == "__main__":
+    main()

@@ -276,7 +276,9 @@ class TrainState:
     ones included (the checkpoint's step); the optimizer counts the
     updates it applied (the schedule's step)."""
 
-    model: VqVideoDiffusionModel  # f32 master parameters
+    # f32 master parameters (this trainer's denoiser, or the sparse one of
+    # cli.sparse_diffusion, which shares this state and ce_step)
+    model: torch.nn.Module
     optimizer: ScheduledOptimizer
     ema: Optional[Dict[str, torch.Tensor]]
     sampler: LossAwareSamplerState
@@ -300,6 +302,17 @@ class TrainState:
         self.sampler = LossAwareSamplerState.from_state_dict(
             sd["sampler"], self.model.device)
         self.step = step
+
+    @torch.no_grad()
+    def load_weights(self, sd: Dict) -> None:
+        """A weights-only warm start (``--init_from``): the params, and the
+        EMA from the checkpoint's EMA (or its params when it has none); the
+        optimizer, sampler and step stay fresh."""
+        self.model.load_state_dict(sd["params"], strict=True)
+        if self.ema is not None:
+            src = sd.get("ema") or sd["params"]
+            for k, v in self.ema.items():
+                v.copy_(src[k])
 
 
 def init_state(cfg: VideoDiffusionConfig, model: VqVideoDiffusionModel) -> TrainState:
@@ -338,6 +351,23 @@ def train_step(
     batch_z = tokens.clone()
     batch_z[:, -1] = corrupted.reshape(target.shape)
 
+    return ce_step(state, (batch_z,), target, r, cfg)
+
+
+def ce_step(
+    state: TrainState,
+    inputs: Tuple[torch.Tensor, ...],
+    target: torch.Tensor,
+    r: Optional[torch.Tensor],
+    cfg,
+) -> Tuple[float, float, bool]:
+    """The part of a step the diffusion trainers share: the model's
+    forward on ``inputs`` (bf16 on the f32 masters with ``cfg.bf16``),
+    cross-entropy against ``target`` (B, ...), backward, the global grad
+    norm, the step's one host read, then the guard: an accepted step
+    updates the sampler with the per-sample losses at times ``r`` (None:
+    no sampler update), applies AdamW and the EMA. Returns (loss, grad
+    norm, ok)."""
     model = state.model
     params = dict(model.named_parameters())
     state.optimizer.zero_grad()
@@ -345,11 +375,12 @@ def train_step(
         # a differentiable cast: the gradients land on the f32 masters
         low = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                for n, p in params.items()}
-        logits = torch.func.functional_call(model, low, (batch_z,))
+        logits = torch.func.functional_call(model, low, inputs)
     else:
-        logits = model(batch_z)
+        logits = model(*inputs)
     ce = F.cross_entropy(
-        logits.float().reshape(-1, k), target.reshape(-1), reduction="none")
+        logits.float().reshape(-1, logits.shape[-1]), target.reshape(-1),
+        reduction="none")
     loss = ce.mean()
     loss.backward()
     grads = [p.grad for p in params.values() if p.grad is not None]
@@ -360,8 +391,10 @@ def train_step(
         [loss.detach(), gn, ok.to(torch.float32)]).tolist()
     ok_v = ok_v > 0.5
     if ok_v or not cfg.nan_guard:
-        per_sample = torch.nan_to_num(ce.detach().reshape(b, -1).mean(1))
-        state.sampler = loss_aware_update(state.sampler, r, per_sample)
+        if r is not None:
+            per_sample = ce.detach().reshape(target.shape[0], -1).mean(1)
+            state.sampler = loss_aware_update(
+                state.sampler, r, torch.nan_to_num(per_sample))
         if not ok_v:  # finite gradients are unchanged by nan_to_num
             for g in grads:
                 g.nan_to_num_()
@@ -370,6 +403,24 @@ def train_step(
             ema_update(state.ema, params, cfg.ema_decay)
     state.step += 1
     return loss_v, gn_v, ok_v
+
+
+def checkpoint_restorer(saver: AsyncCheckpointSaver, state: TrainState, cfg):
+    """The guard's escalation for the diffusion trainers: reload the newest
+    complete checkpoint under ``cfg.output_dir`` (or ``cfg.checkpoint``)
+    into ``state``; returns its path, or None when there is none."""
+
+    def restore_latest() -> Optional[str]:
+        saver.wait()  # an in-flight save must land first
+        path = latest_checkpoint(cfg.output_dir) or cfg.checkpoint
+        if not path:
+            return None
+        restored, at_step, _ = restore_checkpoint(path)
+        state.load_state_dict(restored, at_step)
+        print(f"[guard] restored {path} (step {at_step})")
+        return path
+
+    return restore_latest
 
 
 @dataclasses.dataclass
@@ -416,12 +467,7 @@ def train(cfg: VideoDiffusionConfig) -> TrainResult:
     state = init_state(cfg, model)
     if cfg.init_from:
         restored, at_step, _ = restore_checkpoint(cfg.init_from)
-        with torch.no_grad():
-            model.load_state_dict(restored["params"], strict=True)
-            if state.ema is not None:
-                src = restored.get("ema") or restored["params"]
-                for k, v in state.ema.items():
-                    v.copy_(src[k])
+        state.load_weights(restored)
         print(f"warm start from {cfg.init_from} (step {at_step} weights; "
               "fresh optimizer, step 0)")
     if cfg.checkpoint:
@@ -444,21 +490,9 @@ def train(cfg: VideoDiffusionConfig) -> TrainResult:
     batches = PrefetchIterator(
         lambda: clip_fn(cfg.batch_size), depth=2, device=device)
     saver = AsyncCheckpointSaver()
-
-    def restore_latest():
-        """Reload the newest on-disk checkpoint (guard escalation)."""
-        saver.wait()  # an in-flight save must land first
-        path = latest_checkpoint(cfg.output_dir) or cfg.checkpoint
-        if not path:
-            return None
-        restored, at_step, _ = restore_checkpoint(path)
-        state.load_state_dict(restored, at_step)
-        print(f"[guard] restored {path} (step {at_step})")
-        return path
-
     # the port reads every step's ok flag, so the guard counts steps (the
     # JAX trainer samples the flag at log points)
-    guard = CheckpointGuard(restore_latest)
+    guard = CheckpointGuard(checkpoint_restorer(saver, state, cfg))
     history: List[Tuple[int, float, float, bool, float]] = []
     rejected = 0
     try:

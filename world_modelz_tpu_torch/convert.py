@@ -12,6 +12,8 @@ Layout changes:
 - flax BatchNorm scale/bias + batch_stats mean/var -> BN weight/bias/
   running_mean/running_var (+ a zero ``num_batches_tracked``)
 - VQ codebook (L, K, D)                -> ``vq.embedding`` (L, K, D)
+- flax's auto-named dense stack (``LayerNorm_{2i}``, ``DenseAttention_{i}``,
+  ``LayerNorm_{2i+1}``, ``FeedForward_{i}``) -> ``transformer.layers.{i}``
 
 The two VQ statistics outside the reference layout (``activation_count``,
 ``accumulated_error``) go beside the state_dict: ``tokenizer_vq_stats``.
@@ -83,6 +85,38 @@ def video_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
         i += 1
     if i == 0:
         raise KeyError("no attn_norm_* layers in params['transformer']")
+    _linear(sd, "logit_proj", params["logit_proj"])
+    return sd
+
+
+def sparse_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``VqSparseDiffusionModel`` params -> ``models.video.
+    VqSparseDiffusionModel`` state_dict (the inverse of the JAX package's
+    ``utils/torch_import.py:sparse_params_from_torch``). flax names the
+    dense stack's modules in creation order: layer i is ``LayerNorm_{2i}``,
+    ``DenseAttention_{i}``, ``LayerNorm_{2i+1}``, ``FeedForward_{i}``."""
+    tr = params["transformer"]
+    if any(name.startswith("MoEFeedForward") for name in tr):
+        raise NotImplementedError(
+            "mixture-of-experts FFNs are not ported to world_modelz_tpu_torch "
+            "yet (ROADMAP A.5)")
+    sd: StateDict = {}
+    for name in ("pos_emb_s", "pos_emb_h", "pos_emb_w", "embedding"):
+        sd[f"{name}.weight"] = _t(params[name]["embedding"])
+    i = 0
+    while f"DenseAttention_{i}" in tr:
+        base = f"transformer.layers.{i}"
+        _layernorm(sd, f"{base}.0.norm", tr[f"LayerNorm_{2 * i}"])
+        attn = tr[f"DenseAttention_{i}"]
+        _linear(sd, f"{base}.0.fn.to_qkv", attn["to_qkv"])
+        if "to_out" in attn:
+            _linear(sd, f"{base}.0.fn.to_out.0", attn["to_out"])
+        _layernorm(sd, f"{base}.1.norm", tr[f"LayerNorm_{2 * i + 1}"])
+        _linear(sd, f"{base}.1.fn.net.0", tr[f"FeedForward_{i}"]["Dense_0"])
+        _linear(sd, f"{base}.1.fn.net.3", tr[f"FeedForward_{i}"]["Dense_1"])
+        i += 1
+    if i == 0:
+        raise KeyError("no DenseAttention_* layers in params['transformer']")
     _linear(sd, "logit_proj", params["logit_proj"])
     return sd
 

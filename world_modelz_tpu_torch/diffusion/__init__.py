@@ -1,4 +1,5 @@
-"""Masked discrete diffusion: corruption and sampling."""
+"""Masked discrete diffusion: corruption and sampling, and the sparse
+space-time position samplers and volume sweep."""
 
 from world_modelz_tpu_torch.diffusion.masked import (
     corrupt_tokens,
@@ -8,6 +9,12 @@ from world_modelz_tpu_torch.diffusion.masked import (
     unmask_frame,
     unmask_step,
 )
+from world_modelz_tpu_torch.diffusion.sparse import (
+    GeneratorDraws,
+    sample_flat_positions,
+    sample_time_dependent,
+    sparse_denoise_volume,
+)
 
 __all__ = [
     "corrupt_tokens",
@@ -16,4 +23,8 @@ __all__ = [
     "unmask_frame",
     "rollout_frames",
     "generator_noise",
+    "sample_flat_positions",
+    "sample_time_dependent",
+    "sparse_denoise_volume",
+    "GeneratorDraws",
 ]

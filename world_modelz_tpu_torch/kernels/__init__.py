@@ -2,11 +2,18 @@
 
 Each wrapper launches its kernel for a CUDA tensor, takes its plain PyTorch
 version for a CPU tensor, and counts its launches in ``LAUNCHES``.
-``local3d_attention`` is the differentiable attention: the forward kernel
-with the split backward pair as its gradient.
+``local3d_attention`` and ``flash_attention`` are the differentiable
+attentions: each forward kernel with its split backward pair as its
+gradient.
 """
 
 from world_modelz_tpu_torch.kernels._build import LAUNCHES, load_library
+from world_modelz_tpu_torch.kernels.dense_attention import (
+    flash_attention,
+    flash_attention_fwd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+)
 from world_modelz_tpu_torch.kernels.local3d import (
     local3d_attention,
     local3d_attention_fwd,
@@ -21,6 +28,10 @@ from world_modelz_tpu_torch.kernels.vq_kernels import (
 __all__ = [
     "LAUNCHES",
     "load_library",
+    "flash_attention",
+    "flash_attention_fwd",
+    "flash_bwd_dq",
+    "flash_bwd_dkv",
     "local3d_attention",
     "local3d_attention_fwd",
     "local3d_bwd_dq",

@@ -10,7 +10,9 @@ as it is. Nothing is built when a module is imported: the first kernel
 launch (or an explicit ``load_library()``) builds. A failed build raises.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. ``on_cpu``, ``stream`` and ``check``
+are the wrappers' shared plumbing: the CPU-or-one-CUDA-device rule, the
+stream to launch on, and the launch status check.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import tempfile
 import threading
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -43,7 +47,7 @@ _lib: Optional[ctypes.CDLL] = None
 # what the build did: seconds, library path, compiler output (ptxas -v)
 BUILD_INFO: Dict[str, object] = {}
 
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, dtype, stream
     "wmz_local3d_fwd": ([_VP] * 4 + [_INT] * 10 + [_VP], _INT),
@@ -59,6 +63,15 @@ _SIGNATURES = {
     # cnt, err, dw, N, K, D, stream
     "wmz_vq_train_stats": ([_VP] * 13 + [_INT] * 3 + [_VP], _INT),
     "wmz_vq_train_splits": ([_INT], _INT),
+    # q, k, v, out, lse, strides (int64 [9]: b, h, n of q, k, v), B, H, N,
+    # D, scale, dtype, stream
+    "wmz_flash_fwd": ([_VP] * 6 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
+    # q, k, v, o, g, lse, dq, delta, strides (int64 [15]: q, k, v, o, g),
+    # B, H, N, D, scale, dtype, stream
+    "wmz_flash_bwd_dq": ([_VP] * 9 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
+    # q, k, v, g, lse, delta, dk, dv, strides (int64 [12]: q, k, v, g),
+    # B, H, N, D, scale, dtype, stream
+    "wmz_flash_bwd_dkv": ([_VP] * 9 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
     "wmz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 
@@ -158,6 +171,25 @@ def load_library() -> ctypes.CDLL:
         )
         _lib = lib
         return lib
+
+
+def on_cpu(what: str, *tensors) -> bool:
+    """True when every operand lies on the CPU (the wrapper takes its plain
+    version); False when all share one CUDA device (it launches its
+    kernel); raises otherwise. ``what`` names the operands in the error."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or tensors[0].device.type != "cuda":
+        raise ValueError(
+            f"{what} operands must share one CUDA device (or all lie on the "
+            f"CPU), got {sorted(map(str, devices))}")
+    return False
+
+
+def stream(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(status: int, what: str) -> None:

@@ -15,25 +15,17 @@ from typing import Tuple
 
 import torch
 
-from world_modelz_tpu_torch.kernels._build import LAUNCHES, check, load_library
+from world_modelz_tpu_torch.kernels._build import (
+    LAUNCHES,
+    check,
+    load_library,
+    on_cpu,
+    stream,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 Extents = Tuple[int, int, int]
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every operand lies on the CPU (take the plain version);
-    False when all share one CUDA device; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or tensors[0].device.type != "cuda":
-        raise ValueError(
-            f"local3d operands must share one CUDA device (or all lie on the "
-            f"CPU), got {sorted(map(str, devices))}"
-        )
-    return False
 
 
 def _check_layout(q: torch.Tensor, heads: int, *same: torch.Tensor) -> None:
@@ -77,10 +69,6 @@ def _kernel_args(extents: Extents, heads: int, tensors, stats=()):
     return b, s, h, w, heads, dh, es, eh, ew, _DTYPES[q.dtype]
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def local3d_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -100,7 +88,7 @@ def local3d_attention_fwd(
       on CUDA: training goes through ``local3d_attention``.
     """
     _check_layout(q, heads, k, v)
-    if _on_cpu(q, k, v):
+    if on_cpu("local3d", q, k, v):
         from world_modelz_tpu_torch.models.attention import local3d_attention as plain
 
         return plain(q, k, v, extents, heads)
@@ -112,7 +100,7 @@ def local3d_attention_fwd(
     LAUNCHES["local3d_fwd"] += 1
     status = lib.wmz_local3d_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
-        _stream(q),
+        stream(q),
     )
     check(status, "local3d_fwd")
     return out
@@ -133,7 +121,7 @@ def local3d_bwd_dq(
     are (B, S, H, W, heads) float32.
     """
     _check_layout(q, heads, k, v, g)
-    if _on_cpu(q, k, v, g):
+    if on_cpu("local3d", q, k, v, g):
         from world_modelz_tpu_torch.models.attention import local3d_attention_bwd_dq
 
         return local3d_attention_bwd_dq(q, k, v, g, extents, heads)
@@ -147,7 +135,7 @@ def local3d_bwd_dq(
     LAUNCHES["local3d_bwd_dq"] += 1
     status = lib.wmz_local3d_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), *args, _stream(q),
+        lse.data_ptr(), delta.data_ptr(), *args, stream(q),
     )
     check(status, "local3d_bwd_dq")
     return dq, lse, delta
@@ -172,7 +160,7 @@ def local3d_bwd_dkv(
             f"lse and delta must be {tuple(stat_shape)}, got "
             f"{tuple(lse.shape)} and {tuple(delta.shape)}"
         )
-    if _on_cpu(q, k, v, g, lse, delta):
+    if on_cpu("local3d", q, k, v, g, lse, delta):
         from world_modelz_tpu_torch.models.attention import local3d_attention_bwd_dkv
 
         return local3d_attention_bwd_dkv(q, k, v, g, lse, delta, extents, heads)
@@ -186,7 +174,7 @@ def local3d_bwd_dkv(
     status = lib.wmz_local3d_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *args, _stream(q),
+        *args, stream(q),
     )
     check(status, "local3d_bwd_dkv")
     return dk, dv

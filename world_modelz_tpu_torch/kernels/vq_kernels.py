@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from world_modelz_tpu_torch.kernels._build import LAUNCHES, check, load_library
+from world_modelz_tpu_torch.kernels._build import LAUNCHES, check, load_library, stream
 from world_modelz_tpu_torch.ops.vq import vq_encode, vq_train_stats_reference
 
 MAX_D = 64  # the kernel stages x and codebook chunks for D <= 64
@@ -89,7 +89,7 @@ def vq_encode_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     status = lib.wmz_vq_encode(
         x.data_ptr(), codebook.data_ptr(), e_t.data_ptr(), e_sq.data_ptr(),
         idx.data_ptr(), n, k, d, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        stream(x),
     )
     check(status, "vq_encode")
     return idx
@@ -139,7 +139,7 @@ def vq_train_stats(
         idx.data_ptr(), q.data_ptr(), err_row.data_ptr(), part_dw.data_ptr(),
         part_cnt.data_ptr(), part_err.data_ptr(), cnt.data_ptr(),
         err.data_ptr(), dw.data_ptr(), n, k, d,
-        torch.cuda.current_stream(dev).cuda_stream,
+        stream(x),
     )
     check(status, "vq_train_stats")
     return idx, q, cnt, err, dw

@@ -1,4 +1,5 @@
-"""Model definitions: tokenizer convs, local-3D attention, denoiser."""
+"""Model definitions: tokenizer convs, local-3D and dense attention
+transformers, the denoisers."""
 
 from world_modelz_tpu_torch.models.conv import (
     Residual,
@@ -11,7 +12,10 @@ from world_modelz_tpu_torch.models.tokenizer import (
     VQAutoEncoder,
     tokenizer_inference_cast,
 )
-from world_modelz_tpu_torch.models.video import VqVideoDiffusionModel
+from world_modelz_tpu_torch.models.video import (
+    VqSparseDiffusionModel,
+    VqVideoDiffusionModel,
+)
 
 __all__ = [
     "Residual",
@@ -22,4 +26,5 @@ __all__ = [
     "VQAutoEncoder",
     "tokenizer_inference_cast",
     "VqVideoDiffusionModel",
+    "VqSparseDiffusionModel",
 ]

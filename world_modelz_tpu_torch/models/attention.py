@@ -1,10 +1,20 @@
-"""NÜWA-style local 3D attention transformer.
+"""Transformer backbones: NÜWA-style local 3D attention and the dense
+pre-norm transformer.
 
 Port of ``world_modelz_tpu.models.attention`` (reference:
 vq-video-diffusion/local_3d_attention.py:34-163): every (s, h, w) token of a
 (B, S, H, W) token grid attends to its (2e_s+1)(2e_h+1)(2e_w+1) space-time
 neighbourhood, with border masking and factorized learned s/h/w position
 embeddings.
+
+The dense stack (reference: minecraft/transformer.py:34-80) is
+``DenseAttention`` / ``DenseTransformer``: fused QKV, per-head scaled
+dot-product over all N tokens. ``dense_attention`` is the JAX package's
+``backend="xla"`` branch; ``dense_attention_fwd``,
+``dense_attention_bwd_dq`` and ``dense_attention_bwd_dkv`` are the plain
+versions of the three flash-attention kernels of
+``kernels/dense_attention.py`` (forward with its log-sum-exp, and the split
+backward pair).
 
 ``local3d_attention`` is the plain version of the CUDA forward kernel
 (``kernels/local3d.py``), written as the JAX package writes it: keys and
@@ -27,11 +37,16 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from world_modelz_tpu_torch.kernels import dense_attention as dense_kernels
 from world_modelz_tpu_torch.kernels import local3d as local3d_kernels
 
 NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
+# DenseAttention's "auto" backend takes the flash kernel from this many
+# tokens on (models/attention.py:200-205 of the JAX package)
+FLASH_MIN_TOKENS = 1024
 
 
 class FeedForward(nn.Module):
@@ -373,5 +388,218 @@ class Local3dAttentionTransformer(nn.Module):
         x = x + self.get_pos_embedding(s, h, w)[None]
         for attn, ff in self.layers:
             x = attn(x, q=x) + x
+            x = ff(x) + x
+        return x
+
+
+# ---------------------------------------------------------------------------
+# Dense attention
+# ---------------------------------------------------------------------------
+
+
+def dense_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    dropout: float = 0.0,
+) -> torch.Tensor:
+    """The JAX package's ``backend="xla"`` branch (attention.py:217-226):
+    f32 scores, softmax, weights cast to v's dtype (after dropout with
+    probability ``dropout``), product with v.
+
+    Args:
+      q, k, v: (B, H, N, D).
+
+    Returns:
+      (B, H, N, D) in v's dtype.
+    """
+    scores = torch.einsum("bhnd,bhmd->bhnm", _f32(q), _f32(k)) * scale
+    attn = torch.softmax(scores, dim=-1)
+    if dropout > 0.0:
+        attn = F.dropout(attn, dropout)
+    return torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v)
+
+
+def _probs(q, k, lse, scale):
+    """exp(scale * q k^T - lse): the attention weights rebuilt from the
+    forward's log-sum-exp, f32 (or wider)."""
+    scores = torch.einsum("bhnd,bhmd->bhnm", _f32(q), _f32(k)) * scale
+    return torch.exp(scores - lse[..., None])
+
+
+def dense_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: softmax(scale * q k^T) v with
+    every product and the softmax in f32.
+
+    Args:
+      q, k, v: (B, H, N, D).
+
+    Returns:
+      out (B, H, N, D) in q's dtype, and lse (B, H, N) f32 (float64 for
+      float64 inputs): the log-sum-exp of each query's scaled scores.
+    """
+    scores = torch.einsum("bhnd,bhmd->bhnm", _f32(q), _f32(k)) * scale
+    lse = torch.logsumexp(scores, dim=-1)
+    out = torch.einsum(
+        "bhnm,bhmd->bhnd", torch.exp(scores - lse[..., None]), _f32(v))
+    return out.to(q.dtype), lse
+
+
+def dense_attention_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    g: torch.Tensor,
+    lse: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass 1 (plain version of the query-centric kernel):
+
+      delta = rowsum(g * o),  P = exp(scale * q k^T - lse),
+      dq = scale * (P * (g v^T - delta)) k.
+
+    Args:
+      q, k, v, o (the forward's output), g (its cotangent): (B, H, N, D);
+      lse: the forward's (B, H, N) f32 log-sum-exp.
+
+    Returns:
+      dq in q's dtype, and delta (B, H, N) f32. All arithmetic in f32 or
+      wider.
+    """
+    delta = (_f32(g) * _f32(o)).sum(-1)
+    p = _probs(q, k, lse, scale)
+    dp = torch.einsum("bhnd,bhmd->bhnm", _f32(g), _f32(v))
+    dq = torch.einsum("bhnm,bhmd->bhnd", p * (dp - delta[..., None]), _f32(k))
+    return (dq * scale).to(q.dtype), delta
+
+
+def dense_attention_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass 2 (plain version of the key-centric kernel), with P
+    rebuilt from lse:
+
+      dv = P^T g,  dk = scale * (P * (g v^T - delta))^T q.
+
+    Returns:
+      (dk, dv) in k's and v's dtypes. All arithmetic in f32 or wider.
+    """
+    p = _probs(q, k, lse, scale)
+    dp = torch.einsum("bhnd,bhmd->bhnm", _f32(g), _f32(v))
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("bhnm,bhnd->bhmd", p, _f32(g))
+    dk = torch.einsum("bhnm,bhnd->bhmd", ds, _f32(q)) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+class DenseAttention(nn.Module):
+    """Fused-QKV multi-head self-attention (transformer.py:34-64).
+
+    ``to_qkv`` is one bias-free Linear to 3 * heads * dim_head, split q | k
+    | v and then heads-major; ``to_out`` (with a bias) runs unless ``heads
+    == 1 and dim_head == dim``. ``backend`` follows the JAX package with
+    the GPU in the TPU's place:
+    - ``"auto"``: the flash kernels on a CUDA tensor when N >= 1024 and
+      dropout is 0, else the plain ``dense_attention`` (JAX's own ``xla``
+      routing);
+    - ``"flash"``: the autograd Function ``kernels.dense_attention.
+      flash_attention`` (the kernels on CUDA, their plain versions on the
+      CPU); raises with dropout > 0;
+    - ``"xla"``: the plain ``dense_attention``.
+    The dropout on the attention weights and after ``to_out`` follows
+    ``module.train()``.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        heads: int = 8,
+        dim_head: int = 64,
+        dropout: float = 0.0,
+        backend: str = "auto",
+    ):
+        super().__init__()
+        if backend not in ("auto", "flash", "xla"):
+            raise ValueError(
+                f"backend must be 'auto', 'flash' or 'xla', got {backend!r}")
+        if backend == "flash" and dropout > 0.0:
+            raise ValueError(
+                "backend='flash' cannot apply attention-weight dropout")
+        self.heads, self.dim_head = heads, dim_head
+        self.dropout, self.backend = dropout, backend
+        inner = heads * dim_head
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.to_out = None
+        if not (heads == 1 and dim_head == dim):
+            self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+
+    def uses_flash(self, x: torch.Tensor) -> bool:
+        """Whether a forward on ``x`` (B, N, dim) goes through the flash
+        Function."""
+        if self.backend == "flash":
+            return True
+        return (self.backend == "auto" and x.is_cuda and self.dropout == 0.0
+                and x.shape[1] >= FLASH_MIN_TOKENS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: normed (B, N, dim) -> (B, N, dim)."""
+        b, n, _ = x.shape
+        # (B, H, N, D) views of the fused projection: no copies
+        q, k, v = (
+            t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+            for t in self.to_qkv(x).chunk(3, dim=-1)
+        )
+        scale = self.dim_head**-0.5
+        if self.uses_flash(x):
+            out = dense_kernels.flash_attention(q, k, v, scale)
+        else:
+            out = dense_attention(
+                q, k, v, scale, self.dropout if self.training else 0.0)
+        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        if self.to_out is not None:
+            out = self.to_out(out)
+        return out
+
+
+class DenseTransformer(nn.Module):
+    """Pre-norm residual stack of DenseAttention / FeedForward blocks
+    (transformer.py:67-80), LayerNorm eps 1e-6. Submodules are named as
+    the reference state_dict (``layers.{i}.0.fn.to_qkv`` ...)."""
+
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        heads: int,
+        dim_head: int,
+        mlp_dim: int,
+        dropout: float = 0.0,
+        attn_backend: str = "auto",
+    ):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.ModuleList([
+                PreNorm(dim, DenseAttention(
+                    dim, heads=heads, dim_head=dim_head, dropout=dropout,
+                    backend=attn_backend,
+                )),
+                PreNorm(dim, FeedForward(dim, mlp_dim, dropout=dropout)),
+            ])
+            for _ in range(depth)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for attn, ff in self.layers:
+            x = attn(x) + x
             x = ff(x) + x
         return x

@@ -1,9 +1,14 @@
-"""Next-frame masked-diffusion denoiser.
+"""Denoiser heads for masked discrete video diffusion.
 
-Port of ``world_modelz_tpu.models.video.VqVideoDiffusionModel``
-(reference: minecraft/main2.py:26-37): a local-3D-attention transformer over
-(n_past + 1)-frame token grids with one extra embedding row for the mask
-class; logits are predicted for the last frame only.
+Port of ``world_modelz_tpu.models.video``:
+- ``VqVideoDiffusionModel`` (reference: minecraft/main2.py:26-37): a
+  local-3D-attention transformer over (n_past + 1)-frame token grids with
+  one extra embedding row for the mask class; logits are predicted for the
+  last frame only.
+- ``VqSparseDiffusionModel`` (reference: minecraft/sparse_diffusion.py:
+  75-111): a dense transformer over an arbitrary subset of space-time token
+  positions, located by factorized 3D position embeddings decoded from flat
+  indices.
 """
 
 from __future__ import annotations
@@ -14,7 +19,10 @@ import torch
 from torch import nn
 
 from world_modelz_tpu_torch._device import DeviceLike, resolve_device
-from world_modelz_tpu_torch.models.attention import Local3dAttentionTransformer
+from world_modelz_tpu_torch.models.attention import (
+    DenseTransformer,
+    Local3dAttentionTransformer,
+)
 
 
 class VqVideoDiffusionModel(nn.Module):
@@ -68,3 +76,71 @@ class VqVideoDiffusionModel(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.transformer(tokens)
         return self.logit_proj(x[:, -1])  # (B, H, W, num_classes)
+
+
+class VqSparseDiffusionModel(nn.Module):
+    """Sparse space-time denoiser.
+
+    Input: tokens (B, N) int in [0, num_classes] (num_classes is the mask
+    token) and their flat positions (B, N) into the S * H * W volume.
+    Output: (B, N, num_classes) logits in the parameters' dtype.
+
+    ``device=None`` means ``"cuda"`` (raises without a GPU). The model
+    starts in eval mode; a trainer calls ``.train()``. Parameter names are
+    the reference state_dict's (``utils/torch_import.py:
+    sparse_params_from_torch`` of the JAX package reads them), so
+    ``convert.sparse_state_dict_from_params`` loads with ``strict=True``.
+    """
+
+    def __init__(
+        self,
+        shape: Tuple[int, int, int],
+        dim: int,
+        num_classes: int,
+        depth: int,
+        dim_head: int,
+        mlp_dim: int,
+        heads: int = 1,
+        dropout: float = 0.0,
+        attn_backend: str = "auto",
+        moe_experts: int = 0,
+        *,
+        device: DeviceLike = None,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if moe_experts > 0:
+            raise NotImplementedError(
+                "mixture-of-experts FFNs (moe_experts > 0, parallel/moe.py) "
+                "are not ported to world_modelz_tpu_torch yet (ROADMAP A.5)")
+        dev = resolve_device(device)
+        self.shape = tuple(int(x) for x in shape)
+        self.num_classes = num_classes
+        s, h, w = self.shape
+        self.pos_emb_s = nn.Embedding(s, dim)
+        self.pos_emb_h = nn.Embedding(h, dim)
+        self.pos_emb_w = nn.Embedding(w, dim)
+        self.embedding = nn.Embedding(num_classes + 1, dim)  # + mask class
+        self.transformer = DenseTransformer(
+            dim, depth, heads=heads, dim_head=dim_head, mlp_dim=mlp_dim,
+            dropout=dropout, attn_backend=attn_backend,
+        )
+        self.logit_proj = nn.Linear(dim, num_classes)
+        self.to(device=dev, dtype=dtype)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.logit_proj.weight.device
+
+    def pos_embedding_3d(self, indices: torch.Tensor) -> torch.Tensor:
+        """Flat volume indices -> the sum of their s, h, w embeddings
+        (sparse_diffusion.py:100-105)."""
+        _, h, w = self.shape
+        return (self.pos_emb_s(indices // (h * w))
+                + self.pos_emb_h((indices // w) % h)
+                + self.pos_emb_w(indices % w))
+
+    def forward(self, tokens: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        x = self.embedding(tokens.long()) + self.pos_embedding_3d(indices.long())
+        return self.logit_proj(self.transformer(x))

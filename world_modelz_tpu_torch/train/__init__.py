@@ -21,6 +21,7 @@ from world_modelz_tpu_torch.train.importance import (
     loss_aware_update,
     loss_aware_warmed_up,
     loss_aware_weights,
+    uniform_sample,
 )
 from world_modelz_tpu_torch.train.optim import (
     ScheduledOptimizer,
@@ -45,6 +46,7 @@ __all__ = [
     "loss_aware_update",
     "loss_aware_warmed_up",
     "loss_aware_weights",
+    "uniform_sample",
     "make_optimizer",
     "ScheduledOptimizer",
     "global_grad_norm",

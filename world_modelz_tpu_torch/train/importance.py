@@ -1,4 +1,5 @@
-"""Loss-aware diffusion-time importance sampling as explicit state.
+"""Loss-aware diffusion-time importance sampling as explicit state, and the
+uniform null sampler.
 
 Port of ``world_modelz_tpu.train.importance`` (reference:
 minecraft/importance_sampling.py:5-67): a 100-bucket histogram of
@@ -136,3 +137,17 @@ def loss_aware_update(
         weights=weights.to(torch.float32),
         counts=state.counts + per_bucket.to(torch.int32),
     )
+
+
+def uniform_sample(
+    batch_size: int,
+    *,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> torch.Tensor:
+    """Null-object sampler (importance_sampling.py:50-57): diffusion times
+    r ~ U[0, 1), ``uniforms`` when given, else drawn from ``generator``."""
+    if uniforms is not None:
+        return uniforms.reshape(batch_size)
+    return torch.rand((batch_size,), generator=generator, device=device)
