@@ -9,8 +9,10 @@ denoisers' parameter gradients through the backward kernels), drives the serving
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
 ``serve/m3_g8`` configuration, drives the masked-diffusion trainer
 (``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
-steps, drives the tokenizer trainer (``cli.train_vqae.train``) at
-``train_vqae/mnist_b96`` for 200 steps, and drives the sparse space-time
+steps, drives both again with the whole-block fused attention
+(``backend="fused"``, the ``local3d_block`` kernel), drives the tokenizer
+trainer (``cli.train_vqae.train``) at ``train_vqae/mnist_b96`` for 200
+steps, and drives the sparse space-time
 trainer (``cli.sparse_diffusion.train``) at ``train_sparse/s16_n1024_b16``
 for 60 steps with its evaluation sweep, all with random seeded weights.
 
@@ -100,6 +102,18 @@ SPARSE_TRAIN = dict(
     num_eval_iterations=100,
 )
 
+# the fused block's check (check_local3d_block): name, (B, S, H, W), dim,
+# heads, dim_head, extents, dtypes; the serving and training shapes of the
+# m3 denoiser, benchmarks/perf_ledger.py's attn_block/m3 (6 x 16 x 16),
+# two heads with an asymmetric window, and a width not a multiple of 64
+BLOCK_CASES = [
+    ("serving", (8, SEQ, GRID, GRID), 384, 1, 128, (3, 1, 1), ("float32", "bfloat16")),
+    ("train_m3_b64", (64, SEQ, GRID, GRID), 384, 1, 128, (3, 1, 1), ("bfloat16",)),
+    ("attn_block_m3", (8, 6, 16, 16), 384, 1, 128, (3, 1, 1), ("bfloat16",)),
+    ("multihead", (8, SEQ, GRID, GRID), 384, 2, 64, (1, 2, 1), ("float32", "bfloat16")),
+    ("dim200", (8, SEQ, GRID, GRID), 200, 1, 128, (3, 1, 1), ("float32", "bfloat16")),
+]
+
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
 BF16_TOL = 2e-2  # bf16 output rounding (2^-8 relative) of O(1) values
 # backward kernels vs plain, times max(1, max |grad|): f32 sums in another
@@ -116,6 +130,11 @@ GRAD_FLOOR = 1e-2
 PROFILE_AGREE = 0.05
 PROFILE_GAP_US = 2.0
 LOGIT_TOL = 1e-3  # 20 f32 layers, cuBLAS vs CPU BLAS summation order
+# bf16 logits of the fused and the unfused denoiser on the card, times
+# max(1, max |f32 logits|): 20 bf16 layers round at different points (the
+# fused block rounds P before V and sums its products in another order),
+# each rounding 2^-8 relative
+BLOCK_BF16_LOGIT_TOL = 5e-2
 PIXEL_RTOL = 1e-4  # f32 convolutions, cuDNN vs CPU, relative to max |pixel|
 VQ_GAP = 1e-3  # rows whose two nearest codes differ by more must agree
 # vq_train_stats vs float64 sums over the kernel's own indices: the
@@ -361,6 +380,128 @@ def check_local3d(torch, dev):
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms)
     return serving
+
+
+def block_operands(torch, gen, dev, b, s, h, w, dim, heads, dh, dtype):
+    """x_kv, q_in and the six weights and biases of one fused attention
+    block, in nn.Linear's layout, scaled as nn.Linear's initialisation
+    scales them (fan_in^-1/2) so that activations stay O(1)."""
+    inner = heads * dh
+
+    def rand(*shape, fan_in=1):
+        return (torch.randn(shape, generator=gen, device=dev) * fan_in**-0.5).to(dtype)
+
+    x_kv, q_in = rand(b, s, h, w, dim), rand(b, s, h, w, dim)
+    wk, wv, wq = (rand(inner, dim, fan_in=dim) for _ in range(3))
+    bv = rand(inner, fan_in=dim)
+    wo, bo = rand(dim, inner, fan_in=inner), rand(dim, fan_in=inner)
+    return x_kv, q_in, wk, wv, bv, wq, wo, bo
+
+
+def check_local3d_block(torch, dev, cases=None):
+    """The fused block kernel (``local3d_block_fwd``) against its plain
+    version at the serving (f32, bf16), training, attn_block/m3,
+    multi-head and dim-200 shapes; two launches bitwise equal; in f32, the
+    Function's gradients of all eight operands against autograd through
+    the plain composition. Times the kernel beside the port's unfused
+    attention-only route on the same inputs. Returns the serving-shape
+    bf16 record."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.kernels import (
+        load_library,
+        local3d_attention_fwd,
+        local3d_block_fwd,
+        local3d_block_reference,
+    )
+
+    lib = load_library()
+    cases = BLOCK_CASES if cases is None else cases
+    gen = torch.Generator(device=dev).manual_seed(14)
+    serving = None
+    for name, (b, s, h, w), dim, heads, dh, ext, dtypes in cases:
+        for dtype in (getattr(torch, d) for d in dtypes):
+            ops = block_operands(torch, gen, dev, b, s, h, w, dim, heads, dh, dtype)
+            out = local3d_block_fwd(*ops, ext, heads)
+            again = local3d_block_fwd(*ops, ext, heads)
+            plain = local3d_block_reference(*ops, ext, heads)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"local3d_block {name} {dtype}: two launches differ")
+            tname = str(dtype).replace("torch.", "")
+            err = float((out.float() - plain.float()).abs().max())
+            lim = (F32_TOL if dtype == torch.float32 else BF16_TOL) * max(
+                1.0, float(plain.float().abs().max()))
+            if not err <= lim:
+                raise AssertionError(
+                    f"local3d_block {name} {tname}: max abs err {err} > {lim}")
+            grad_note = ""
+            if dtype == torch.float32:
+                grad_note = " " + check_block_grads(
+                    torch, gen, ops, ext, heads, f"local3d_block {name}")
+
+            def unfused():  # the attention-only route: cuBLAS + local3d_fwd
+                x_kv, q_in, wk, wv, bv, wq, wo, bo = ops
+                a = local3d_attention_fwd(F.linear(q_in, wq), F.linear(x_kv, wk),
+                                          F.linear(x_kv, wv, bv), ext, heads)
+                return F.linear(a, wo, bo)
+
+            kernel = lambda: local3d_block_fwd(*ops, ext, heads)  # noqa: E731
+            ms = device_ms(torch, kernel, 50)
+            b2b = cuda_ms(torch, kernel, 100)
+            plain_ms = device_ms(
+                torch, lambda: local3d_block_reference(*ops, ext, heads), 5)
+            unfused_ms = device_ms(torch, unfused, 50)
+            rows, inner = b * s * h * w, heads * dh
+            isz = ops[0].element_size()
+            nbytes = (3 * rows * dim + sum(t.numel() for t in ops[2:])) * isz
+            ops_n = (2 * rows * inner * 4 * dim
+                     + 4 * dh * heads * b * window_pairs(s, h, w, ext))
+            bound_ms, bound_by = bound(nbytes, ops_n, tname)
+            grid = lib.wmz_local3d_block_grid(dh, 0 if dtype == torch.float32 else 1)
+            log(f"local3d_block {name} {tname} (B, S, H, W)={(b, s, h, w)} dim={dim} "
+                f"heads={heads}x{dh} extents={ext}: max_abs_err={err:.3g} (tol "
+                f"{lim:.3g}); repeat bitwise;{grad_note} kernel_ms={ms:.5f} "
+                f"back_to_back_ms={b2b:.5f} plain_ms={plain_ms:.5f} "
+                f"unfused_ms={unfused_ms:.5f} (cuBLAS projections + local3d_fwd) "
+                f"library_ms=null bound_us={bound_ms * 1e3:.4f} ({bound_by}); "
+                f"cooperative grid cap {grid} blocks of 256")
+            if name == "serving" and dtype == torch.bfloat16:
+                serving = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=None)
+            del ops, out, again, plain
+        torch.cuda.empty_cache()
+    return serving
+
+
+def check_block_grads(torch, gen, ops, ext, heads, label):
+    """Gradients of all eight operands of the fused Function (f32) against
+    autograd through the plain composition, each within BWD_F32_TOL x
+    max(1, max |its gradient|); returns a log fragment."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.kernels import local3d_block
+    from world_modelz_tpu_torch.models.attention import local3d_attention
+
+    leaves = [t.detach().clone().requires_grad_() for t in ops]
+    ref_leaves = [t.detach().clone().requires_grad_() for t in ops]
+    out = local3d_block(*leaves, ext, heads)
+    g = torch.randn(out.shape, generator=gen, device=out.device)
+    got = torch.autograd.grad(out, leaves, g)
+    x_kv, q_in, wk, wv, bv, wq, wo, bo = ref_leaves
+    a = local3d_attention(F.linear(q_in, wq), F.linear(x_kv, wk),
+                          F.linear(x_kv, wv, bv), ext, heads)
+    want = torch.autograd.grad(F.linear(a, wo, bo), ref_leaves, g)
+    worst = 0.0
+    for name, gg, ww in zip(("x_kv", "q_in", "wk", "wv", "bv", "wq", "wo", "bo"),
+                            got, want):
+        err = float((gg - ww).abs().max())
+        lim = BWD_F32_TOL * max(1.0, float(ww.abs().max()))
+        worst = max(worst, err / lim)
+        if not err <= lim:
+            raise AssertionError(f"{label} d{name}: max abs err {err} > {lim}")
+    return f"gradients of 8 operands within {worst:.3g} of their limits;"
 
 
 def window_mask(torch, dev, s, h, w, extents):
@@ -758,15 +899,18 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
 
 
 def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
-                       batch=2):
-    """The denoiser in f32 and the tokenizer on the card (kernel path)
-    against the same weights on the CPU (plain path)."""
+                       batch=2, backend="auto"):
+    """The denoiser in f32 with attention ``backend`` on the card (kernel
+    path) against the same weights on the CPU (plain path), and, unless
+    ``tokenizer`` is None, the tokenizer. For another backend than "auto",
+    also its bf16 logits on the card against the "auto" model's in bf16
+    (BLOCK_BF16_LOGIT_TOL)."""
     from world_modelz_tpu_torch.models import VQAutoEncoder, VqVideoDiffusionModel
     from world_modelz_tpu_torch.ops.vq import codebook_distances
 
     torch.manual_seed(0)
-    cpu = VqVideoDiffusionModel(**denoiser, device="cpu")
-    card = VqVideoDiffusionModel(**denoiser, device=dev)
+    cpu = VqVideoDiffusionModel(**denoiser, backend=backend, device="cpu")
+    card = VqVideoDiffusionModel(**denoiser, backend=backend, device=dev)
     card.load_state_dict(cpu.state_dict())
     k = denoiser["num_classes"]
     s, h, w = denoiser["data_shape"]
@@ -777,10 +921,30 @@ def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
         want = cpu(tokens)
         got = card(tokens.to(dev)).cpu()
     err = float((got - want).abs().max())
-    log(f"denoiser f32 logits {tuple(got.shape)}: max_abs_err={err:.3g} "
+    log(f"denoiser ({backend}) f32 logits {tuple(got.shape)}: max_abs_err={err:.3g} "
         f"(tol {LOGIT_TOL}, logits span {float(want.abs().max()):.3g})")
     if not err <= LOGIT_TOL:
-        raise AssertionError(f"denoiser logits differ by {err}")
+        raise AssertionError(f"denoiser ({backend}) logits differ by {err}")
+    if backend != "auto":
+        low = {}
+        for name in ("auto", backend):
+            m = VqVideoDiffusionModel(**denoiser, backend=name, device=dev,
+                                      dtype=torch.bfloat16)
+            m.load_state_dict(cpu.state_dict())
+            with torch.no_grad():
+                low[name] = m(tokens.to(dev)).float().cpu()
+            del m
+        span = max(1.0, float(want.abs().max()))
+        diff = float((low[backend] - low["auto"]).abs().max())
+        log(f"denoiser bf16 logits on the card, {backend} vs auto: max_abs_err="
+            f"{diff:.3g} (tol {BLOCK_BF16_LOGIT_TOL} x {span:.3g}); each vs the "
+            f"f32 CPU logits: {backend} "
+            f"{float((low[backend] - want).abs().max()):.3g}, auto "
+            f"{float((low['auto'] - want).abs().max()):.3g}")
+        if not diff <= BLOCK_BF16_LOGIT_TOL * span:
+            raise AssertionError(f"bf16 logits of {backend} and auto differ by {diff}")
+    if tokenizer is None:
+        return
 
     torch.manual_seed(1)
     tcpu = VQAutoEncoder(**tokenizer, device="cpu")
@@ -816,18 +980,20 @@ def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
         raise AssertionError(f"decoded pixels differ by {perr}")
 
 
-def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2):
+def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2,
+                      backend="auto"):
     """The denoiser's parameter gradients of a cross-entropy loss on the
-    card (f32, TF32 off, through the backward kernels) against the same
-    weights on the CPU (plain versions). Every to_q / to_k / to_v weight
-    must get a non-zero gradient."""
+    card (f32, TF32 off, attention ``backend``, through the backward
+    kernels) against the same weights on the CPU (plain versions). Every
+    to_q / to_k / to_v (and to_out, where the model has it) weight must get
+    a non-zero gradient."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.models import VqVideoDiffusionModel
 
     torch.manual_seed(4)
-    cpu = VqVideoDiffusionModel(**denoiser, device="cpu").train()
-    card = VqVideoDiffusionModel(**denoiser, device=dev).train()
+    cpu = VqVideoDiffusionModel(**denoiser, backend=backend, device="cpu").train()
+    card = VqVideoDiffusionModel(**denoiser, backend=backend, device=dev).train()
     card.load_state_dict(cpu.state_dict())
     k = denoiser["num_classes"]
     s, h, w = denoiser["data_shape"]
@@ -842,7 +1008,10 @@ def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2):
         F.cross_entropy(logits.reshape(-1, k), target.to(d).reshape(-1)).backward()
     ran = {key: launches[key] - before.get(key, 0) for key in launches}
     depth = denoiser["depth"]
-    for key in ("local3d_fwd", "local3d_bwd_dq", "local3d_bwd_dkv"):
+    # the fused forward, then the unfused forward its backward rebuilds
+    keys = ("local3d_fwd", "local3d_bwd_dq", "local3d_bwd_dkv") + (
+        ("local3d_block",) if backend == "fused" else ())
+    for key in keys:
         if dev.type == "cuda" and ran.get(key, 0) != depth:
             raise AssertionError(f"{key} ran {ran.get(key, 0)} times, not {depth}")
     want = dict(cpu.named_parameters())
@@ -856,17 +1025,19 @@ def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2):
         mag = float(ref.abs().max())
         rows[name] = (mag, float((p.grad.cpu() - ref).abs().max()),
                       GRAD_TOL * max(mag, GRAD_FLOOR * scale))
-        if name.endswith(("to_q.weight", "to_k.weight", "to_v.weight")) and not bool(
-                p.grad.abs().max() > 0):
+        if name.endswith(("to_q.weight", "to_k.weight", "to_v.weight",
+                          "to_out.0.weight")) and not bool(p.grad.abs().max() > 0):
             raise AssertionError(f"{name} has an all-zero gradient on the card")
     worst = max(rows, key=lambda n: rows[n][1] / rows[n][2])
-    log(f"denoiser gradients f32 card vs CPU ({len(rows)} tensors, {depth} "
-        f"layers of local3d fwd/dq/dkv; limit {GRAD_TOL} x max(max|its "
+    projs = ("to_q", "to_k", "to_v") + (
+        ("to_out.0",) if any(n.endswith("to_out.0.weight") for n in rows) else ())
+    log(f"denoiser ({backend}) gradients f32 card vs CPU ({len(rows)} tensors, "
+        f"{depth} layers of {' + '.join(keys)}; limit {GRAD_TOL} x max(max|its "
         f"grad|, {GRAD_FLOOR} x {scale:.3g})): worst err/limit "
         f"{rows[worst][1] / rows[worst][2]:.3g} in {worst} (err "
         f"{rows[worst][1]:.3g}, max|grad| {rows[worst][0]:.3g}); every "
-        f"to_q/to_k/to_v weight has a non-zero gradient")
-    for proj in ("to_q", "to_k", "to_v"):
+        f"{'/'.join(projs)} weight has a non-zero gradient")
+    for proj in projs:
         names = [n for n in rows if n.endswith(f"{proj}.weight")]
         big = max(names, key=lambda n: rows[n][0])
         small = min(names, key=lambda n: rows[n][0])
@@ -881,10 +1052,11 @@ def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2):
 
 
 def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
-                   root=os.path.join(HERE, "build", "smoke")):
-    """The trainer at full width (``cli.video_diffusion.train``) from a
-    seeded tokenizer checkpoint (random convs, a codebook of their
-    latents). Returns the launch counts of the run."""
+                   root=os.path.join(HERE, "build", "smoke"), backend="auto"):
+    """The trainer at full width (``cli.video_diffusion.train``) with the
+    denoiser's attention ``backend``, from a seeded tokenizer checkpoint
+    (random convs, a codebook of their latents). Returns the launch counts
+    of the run."""
     import shutil
 
     import numpy as np
@@ -926,12 +1098,12 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
     try:
         launches.clear()
         t0 = time.perf_counter()
-        result = run_train(cfg)
+        result = run_train(cfg, backend=backend)
         wall = time.perf_counter() - t0
         counts = dict(launches)
         peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
         if on_card:
-            profile_training(torch, dev, cfg, result, tokenizer)
+            profile_training(torch, dev, cfg, result, tokenizer, backend)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     steps = cfg.max_steps
@@ -947,9 +1119,11 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
             cfg.output_dir, f"step_{steps:07d}"):
         raise AssertionError("the final checkpoint did not land")
     # per step: every layer's forward and both backward passes, one encode;
-    # plus the token-grid probe's encode before the first step
+    # plus the token-grid probe's encode before the first step. The fused
+    # forward's backward reruns the unfused forward (local3d_fwd).
     want = {"local3d_fwd": cfg.depth * steps, "local3d_bwd_dq": cfg.depth * steps,
-            "local3d_bwd_dkv": cfg.depth * steps, "vq_encode": steps + 1}
+            "local3d_bwd_dkv": cfg.depth * steps, "vq_encode": steps + 1,
+            "local3d_block": cfg.depth * steps if backend == "fused" else 0}
     for name, n in want.items() if on_card else ():
         if counts.get(name, 0) != n:
             raise AssertionError(
@@ -957,14 +1131,15 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
     t = {h[0]: h[4] for h in result.history}
     window = steps - 10  # steps 11..60: compile and warm-up excluded
     sps = window / (t[steps] - t[10])
-    log(f"training: train_step/m3_b64_g8_full, token grid {result.token_shape}, "
+    log(f"training ({backend}): train_step/m3_b64_g8_full, token grid {result.token_shape}, "
         f"{steps} steps in {wall:.3f} s; loss first-10 mean {first:.5f} -> "
         f"last-10 mean {last:.5f}; losses every 10: "
         + " ".join(f"{x:.4f}" for x in losses[::10]))
-    log(f"training: steps 11-{steps}: {sps:.4f} steps/s = "
+    fused = f"{cfg.depth} local3d_block, " if backend == "fused" else ""
+    log(f"training ({backend}): steps 11-{steps}: {sps:.4f} steps/s = "
         f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); "
         f"peak device memory {peak:.3f} GiB; rejected {result.rejected}; "
-        f"launches {counts} (per step: {cfg.depth} local3d_fwd, "
+        f"launches {counts} (per step: {fused}{cfg.depth} local3d_fwd, "
         f"{cfg.depth} local3d_bwd_dq, {cfg.depth} local3d_bwd_dkv, 1 "
         f"vq_encode; +1 vq_encode for the token-grid probe); TF32: matmul "
         f"off, cuDNN on (PyTorch's defaults); on {smi}")
@@ -995,7 +1170,7 @@ def profile_busy(torch, label, fn, wall_s, reps) -> None:
             f"{e.count:7d} x  {e.key[:90]}")
 
 
-def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
+def profile_training(torch, dev, cfg, result, tokenizer, backend, n=5) -> None:
     """``n`` more train steps on the trained state, unprofiled, for the wall
     per step, then one under torch.profiler (``profile_busy``). The batches
     are made and shipped beforehand, as the trainer's prefetch thread
@@ -1028,7 +1203,8 @@ def profile_training(torch, dev, cfg, result, tokenizer, n=5) -> None:
         one_step(frames)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n
-    profile_busy(torch, "one train step", lambda: one_step(batches[-1]), step_s, n)
+    profile_busy(torch, f"one train step ({backend})",
+                 lambda: one_step(batches[-1]), step_s, n)
 
 
 def check_tokenizer_train_step(torch, dev, launches, train=VQAE_TRAIN, batch=8):
@@ -1491,10 +1667,10 @@ def profile_sparse(torch, dev, cfg, result, tok, n=5, eval_iters=5) -> None:
 
 
 def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
-                  denoiser=DENOISER, service=SERVICE, img=IMG):
-    """The serving path at full width with a bf16 denoiser: 8 concurrent
-    seed clips, then one session with two generate() calls. Returns the
-    launch counts of that run."""
+                  denoiser=DENOISER, service=SERVICE, img=IMG, backend="auto"):
+    """The serving path at full width with a bf16 denoiser whose attention
+    runs ``backend``: 8 concurrent seed clips, then one session with two
+    generate() calls. Returns the launch counts of that run."""
     import numpy as np
 
     from world_modelz_tpu_torch.models import VQAutoEncoder, VqVideoDiffusionModel
@@ -1503,7 +1679,7 @@ def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
     device = None if dev.type == "cuda" else dev  # None: the CUDA default
     torch.manual_seed(2)
     tok = VQAutoEncoder(**tokenizer, device=device)
-    model = VqVideoDiffusionModel(**denoiser, device=device,
+    model = VqVideoDiffusionModel(**denoiser, backend=backend, device=device,
                                   dtype=torch.bfloat16)
     s = denoiser["data_shape"][0]
     clips = np.random.default_rng(0).uniform(
@@ -1526,7 +1702,8 @@ def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
         delta = {key: svc.stats[key] - before[key] for key in before}
         ctx = np.asarray(sess._ctx)
         if dev.type == "cuda":
-            profile_batch(torch, svc, clips[: service["batch_size"]], t_batch)
+            profile_batch(torch, svc, clips[: service["batch_size"]], t_batch,
+                          backend)
     finally:
         svc.close()
     frames = service["num_frames"]
@@ -1541,25 +1718,76 @@ def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
     if delta["batches"] != 3 or delta["requests"] != service["batch_size"] + 2:
         raise AssertionError(f"unexpected batching {delta}")
     per_batch = denoiser["depth"] * service["num_iterations"] * frames
-    want = {"local3d_fwd": per_batch * delta["batches"],
+    attn = "local3d_block" if backend == "fused" else "local3d_fwd"
+    other = "local3d_fwd" if backend == "fused" else "local3d_block"
+    want = {attn: per_batch * delta["batches"], other: 0,
             "vq_encode": delta["encode_calls"]}
-    for name, n in want.items():
-        if counts.get(name, 0) != n or n == 0:
+    if dev.type == "cuda" and min(want[attn], want["vq_encode"]) == 0:
+        raise AssertionError(f"no launches expected: {want}")
+    for name, n in want.items() if dev.type == "cuda" else ():
+        if counts.get(name, 0) != n:
             raise AssertionError(
                 f"{name} launched {counts.get(name, 0)} times, expected {n}")
     b = service["batch_size"]
-    log(f"serving: stats delta {delta}")
-    log(f"serving: {b} clips x {frames} frames in {t_batch:.3f} s = "
+    log(f"serving ({backend}): stats delta {delta}")
+    log(f"serving ({backend}): {b} clips x {frames} frames in {t_batch:.3f} s = "
         f"{b / t_batch:.4f} clips/s, {b * frames / t_batch:.3f} frames/s; "
         f"session 2 x {frames} frames in {t_sess:.3f} s = "
         f"{2 * frames / t_sess:.3f} frames/s")
-    log(f"serving: pixel range [{min(o.min() for o in outs):.4g}, "
+    log(f"serving ({backend}): pixel range [{min(o.min() for o in outs):.4g}, "
         f"{max(o.max() for o in outs):.4g}]; launches {counts} "
-        f"({per_batch} local3d_fwd per rollout batch)")
+        f"({per_batch} {attn} per rollout batch)")
     return counts
 
 
-def profile_batch(torch, svc, clips, t_batch: float) -> None:
+def compare_serving(torch, dev, tokenizer=TOKENIZER, denoiser=DENOISER,
+                    service=SERVICE, img=IMG, rounds=6) -> None:
+    """The unfused ("auto") and the fused attention served side by side in
+    one process: a RolloutService for each on the same weights, then
+    ``rounds`` rounds of one 8-clip rollout batch on each, in the order
+    auto, fused, fused, auto, ..., so that a drift of the host's speed
+    falls on both. Logs every batch's wall and each route's median."""
+    import numpy as np
+
+    from world_modelz_tpu_torch.models import VQAutoEncoder, VqVideoDiffusionModel
+    from world_modelz_tpu_torch.serve import RolloutService
+
+    device = None if dev.type == "cuda" else dev
+    torch.manual_seed(2)
+    tok = VQAutoEncoder(**tokenizer, device=device)
+    models = {b: VqVideoDiffusionModel(**denoiser, backend=b, device=device,
+                                       dtype=torch.bfloat16)
+              for b in ("auto", "fused")}
+    models["fused"].load_state_dict(models["auto"].state_dict())
+    s, b = denoiser["data_shape"][0], service["batch_size"]
+    clips = np.random.default_rng(0).uniform(
+        size=(b, s, img, img, tokenizer["in_channels"])).astype(np.float32)
+    services = {name: RolloutService(tok, m, device=device, **service)
+                for name, m in models.items()}
+    walls = {name: [] for name in services}
+    try:
+        for svc in services.values():
+            svc.submit(clips[0]).result(timeout=600)  # warm-up
+        for r in range(rounds):
+            for name in (("auto", "fused") if r % 2 == 0 else ("fused", "auto")):
+                t0 = time.perf_counter()
+                outs = [f.result(timeout=600)
+                        for f in [services[name].submit(c) for c in clips]]
+                walls[name].append(time.perf_counter() - t0)
+                if not all(np.isfinite(o).all() for o in outs):
+                    raise AssertionError(f"serving ({name}): pixels not finite")
+    finally:
+        for svc in services.values():
+            svc.close()
+    med = {name: float(np.median(w)) for name, w in walls.items()}
+    log(f"serving side by side (ABBA, {rounds} rounds of one {b}-clip batch): "
+        + "; ".join(f"{name} walls " + " ".join(f"{x:.3f}" for x in w)
+                    + f" s, median {med[name]:.3f} s = {b / med[name]:.4f} clips/s"
+                    for name, w in walls.items())
+        + f"; fused / auto median wall {med['fused'] / med['auto']:.4f}")
+
+
+def profile_batch(torch, svc, clips, t_batch: float, backend: str) -> None:
     """One more rollout batch under torch.profiler: device time by kernel,
     and the device's busy share of the unprofiled batch time ``t_batch``
     (kernels run in order on one stream, so their sum is the busy time)."""
@@ -1574,7 +1802,7 @@ def profile_batch(torch, svc, clips, t_batch: float) -> None:
     if busy_us == 0:
         log("profile: the profiler recorded no device time (not measured)")
         return
-    log(f"profile: one batch, device busy {busy_us / 1e3:.3f} ms of "
+    log(f"profile: one batch ({backend}), device busy {busy_us / 1e3:.3f} ms of "
         f"{t_batch * 1e3:.3f} ms unprofiled wall = "
         f"{busy_us / 1e6 / t_batch:.4f} busy share "
         f"({wall * 1e3:.3f} ms wall under the profiler); "
@@ -1628,21 +1856,31 @@ def main() -> int:
     bwd = check_local3d_bwd(torch, dev)
     c = check_vq_train(torch, dev)
     flash = check_flash(torch, dev)
+    block = check_local3d_block(torch, dev)
     check_slice_parity(torch, dev)
+    check_slice_parity(torch, dev, tokenizer=None, backend="fused")
     check_train_grads(torch, dev, _build.LAUNCHES)
+    check_train_grads(torch, dev, _build.LAUNCHES, backend="fused")
     check_tokenizer_train_step(torch, dev, _build.LAUNCHES)
     check_sparse_parity(torch, dev, _build.LAUNCHES)
     serving = drive_serving(torch, dev, _build.LAUNCHES)
     log(f"serving: measured on {smi}")
+    serving_fused = drive_serving(torch, dev, _build.LAUNCHES, backend="fused")
+    log(f"serving (fused): measured on {smi}")
+    compare_serving(torch, dev)
     training = drive_training(torch, dev, _build.LAUNCHES, smi)
+    training_fused = drive_training(
+        torch, dev, _build.LAUNCHES, smi, backend="fused",
+        root=os.path.join(HERE, "build", "smoke_fused"))
     tokenizer = drive_tokenizer_training(torch, dev, _build.LAUNCHES, smi)
     sparse = drive_sparse_training(torch, dev, _build.LAUNCHES, smi)
-    # launches of the four main paths, each counted in its own run
-    paths = (serving, training, tokenizer, sparse)
+    # launches of the six main paths, each counted in its own run
+    paths = (serving, serving_fused, training, training_fused, tokenizer, sparse)
     counts = {key: sum(p.get(key, 0) for p in paths)
               for key in set().union(*paths)}
-    log(f"launches: serving {serving}, training {training}, tokenizer "
-        f"training {tokenizer}, sparse training {sparse}")
+    log(f"launches: serving {serving}, fused serving {serving_fused}, training "
+        f"{training}, fused training {training_fused}, tokenizer training "
+        f"{tokenizer}, sparse training {sparse}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -1665,6 +1903,10 @@ def main() -> int:
              source="world_modelz_tpu_torch/csrc/vq_train.cu",
              replaces="world_modelz_tpu/kernels/vq_kernels.py:146",
              launches=counts["vq_train_stats"], **c),
+        dict(name="local3d_block", route="cuda",
+             source="world_modelz_tpu_torch/csrc/local3d_block.cu",
+             replaces="world_modelz_tpu/kernels/local3d_block.py:122",
+             launches=counts["local3d_block"], **block),
     ] + [
         dict(name=name, route="cuda",
              source=f"world_modelz_tpu_torch/csrc/{src}",

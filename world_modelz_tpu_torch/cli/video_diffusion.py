@@ -223,8 +223,10 @@ def make_model(
     token_shape: Tuple[int, int, int],
     num_embeddings: int,
     device=None,
+    backend: str = "auto",
 ) -> VqVideoDiffusionModel:
-    """The denoiser with f32 (master) parameters, in train mode."""
+    """The denoiser with f32 (master) parameters, in train mode, with the
+    attention ``backend`` (``Local3dAttention``'s)."""
     model = VqVideoDiffusionModel(
         data_shape=token_shape,
         dim=cfg.dim,
@@ -235,6 +237,7 @@ def make_model(
         dim_head=cfg.dim_head,
         heads=cfg.heads,
         dropout=cfg.dropout,
+        backend=backend,
         device=device,
     )
     return model.train()
@@ -432,9 +435,11 @@ class TrainResult:
     token_shape: Tuple[int, int, int]
 
 
-def train(cfg: VideoDiffusionConfig) -> TrainResult:
+def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     """Train as the JAX ``train`` does; returns the final state and each
-    step's (loss, grad norm, ok)."""
+    step's (loss, grad norm, ok). ``backend`` is the denoiser's attention
+    backend (``"fused"``: the whole block in one kernel); the JAX trainer
+    has no flag for it, so it is a keyword here, not a config field."""
     check_supported(cfg)
     device = platform_device(cfg.platform)
     if not cfg.decoder_model:
@@ -462,7 +467,7 @@ def train(cfg: VideoDiffusionConfig) -> TrainResult:
     token_shape = (s, int(z.shape[1]), int(z.shape[2]))
     print("token grid:", token_shape)
 
-    model = make_model(cfg, token_shape, num_embeddings, device)
+    model = make_model(cfg, token_shape, num_embeddings, device, backend)
     print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
     state = init_state(cfg, model)
     if cfg.init_from:

@@ -1,5 +1,6 @@
 // The tiling shared by the dense flash-attention kernels: the forward
-// (flash_fwd.cu) and the split backward pair (flash_bwd.cu).
+// (flash_fwd.cu) and the split backward pair (flash_bwd.cu); the fused
+// local-3D block (local3d_block.cu) runs its projections on it too.
 //
 // Operands are (B, H, N, D) tensors read through their strides (the last
 // dimension contiguous), so q, k and v may be head views of a fused QKV
@@ -82,17 +83,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// s[i][j] = sum_d A[ty*kRows + i][d] * B[tx + kTx*j][d] for two 64 x D tiles
+// s[i][j] += sum_d A[ty*kRows + i][d] * B[tx + kTx*j][d] for two 64 x D
+// tiles (a product whose depth is staged through shared memory in chunks)
 template <int D>
-__device__ __forceinline__ void tile_dots(const float* A, const float* B,
-                                          float s[kRows][kCols]) {
+__device__ __forceinline__ void tile_dots_acc(const float* A, const float* B,
+                                              float s[kRows][kCols]) {
   const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
   const float* a_row = A + ty * kRows * (D + 1);
   const float* b_row = B + tx * (D + 1);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 16
   for (int d = 0; d < D; ++d) {
     float a[kRows], bb[kCols];
@@ -105,6 +103,17 @@ __device__ __forceinline__ void tile_dots(const float* A, const float* B,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
   }
+}
+
+// s[i][j] = sum_d A[ty*kRows + i][d] * B[tx + kTx*j][d] for two 64 x D tiles
+template <int D>
+__device__ __forceinline__ void tile_dots(const float* A, const float* B,
+                                          float s[kRows][kCols]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+  tile_dots_acc<D>(A, B, s);
 }
 
 // acc[i][c] += sum_k P[ty*kRows + i][k] * M[k][tx + kTx*c]: a 64 x 64

@@ -1,5 +1,6 @@
 // The local-3D window and the warp layout shared by the forward kernel
-// (local3d_fwd.cu) and the backward pair (local3d_bwd.cu).
+// (local3d_fwd.cu), the backward pair (local3d_bwd.cu) and the attention
+// phase of the fused block (local3d_block.cu).
 //
 // Rows are the (b, s, h, w, head) positions of a (B, S, H, W, heads * dh)
 // tensor, head fastest: row r's elements start at r * dh. The window of row
@@ -53,13 +54,25 @@ __device__ __forceinline__ Window window_of(long long row, int S, int H, int W,
   return c;
 }
 
-// the row of the i-th element of the window, i < n
-__device__ __forceinline__ long long window_row(const Window& c, int i, int S,
-                                                int H, int W, int heads) {
+// the (b, s, h, w) position of the i-th element of the window, i < n
+__device__ __forceinline__ long long window_pos(const Window& c, int i, int S,
+                                                int H, int W) {
   const int ss = c.s0 + i / c.nhw;
   const int hh = c.h0 + (i % c.nhw) / c.nw;
   const int ww = c.w0 + i % c.nw;
-  return ((((long long)c.b * S + ss) * H + hh) * W + ww) * heads + c.head;
+  return (((long long)c.b * S + ss) * H + hh) * W + ww;
+}
+
+// the row of the i-th element of the window, i < n
+__device__ __forceinline__ long long window_row(const Window& c, int i, int S,
+                                                int H, int W, int heads) {
+  return window_pos(c, i, S, H, W) * heads + c.head;
+}
+
+// the (b, s, h, w) position of the centre row
+__device__ __forceinline__ long long centre_pos(const Window& c, int S, int H,
+                                                int W) {
+  return (((long long)c.b * S + c.s) * H + c.h) * W + c.w;
 }
 
 // sum over the kGroupLanes lanes of a group; all 32 lanes take part

@@ -4,7 +4,9 @@ Each wrapper launches its kernel for a CUDA tensor, takes its plain PyTorch
 version for a CPU tensor, and counts its launches in ``LAUNCHES``.
 ``local3d_attention`` and ``flash_attention`` are the differentiable
 attentions: each forward kernel with its split backward pair as its
-gradient.
+gradient. ``local3d_block`` is the whole attention block in one kernel
+(projections, windowed attention, output projection), differentiated
+through the unfused composition.
 """
 
 from world_modelz_tpu_torch.kernels._build import LAUNCHES, load_library
@@ -20,6 +22,12 @@ from world_modelz_tpu_torch.kernels.local3d import (
     local3d_bwd_dkv,
     local3d_bwd_dq,
 )
+from world_modelz_tpu_torch.kernels.local3d_block import (
+    block_supported,
+    local3d_block,
+    local3d_block_fwd,
+    local3d_block_reference,
+)
 from world_modelz_tpu_torch.kernels.vq_kernels import (
     vq_encode_nearest,
     vq_train_stats,
@@ -28,6 +36,10 @@ from world_modelz_tpu_torch.kernels.vq_kernels import (
 __all__ = [
     "LAUNCHES",
     "load_library",
+    "block_supported",
+    "local3d_block",
+    "local3d_block_fwd",
+    "local3d_block_reference",
     "flash_attention",
     "flash_attention_fwd",
     "flash_bwd_dq",

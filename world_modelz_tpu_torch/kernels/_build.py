@@ -57,6 +57,11 @@ _SIGNATURES = {
     # q, k, v, g, lse, delta, dk, dv, B, S, H, W, heads, dh, es, eh, ew,
     # dtype, stream
     "wmz_local3d_bwd_dkv": ([_VP] * 8 + [_INT] * 10 + [_VP], _INT),
+    # x, q_in, wk, wv, bv, wq, wo, bo, out, qkv, attn, B, S, H, W, heads,
+    # dh, dim, dim_q, out_dim, es, eh, ew, dtype, stream
+    "wmz_local3d_block": ([_VP] * 11 + [_INT] * 13 + [_VP], _INT),
+    # dh, dtype -> the cooperative grid's cap (blocks resident at once)
+    "wmz_local3d_block_grid": ([_INT] * 2, _INT),
     # x, codebook, e_t, e_sq, idx, N, K, D, x_dtype, stream
     "wmz_vq_encode": ([_VP] * 5 + [_INT] * 4 + [_VP], _INT),
     # x, codebook, e_t, e_sq, idx, q, err_row, part_dw, part_cnt, part_err,

@@ -25,9 +25,10 @@ plain versions of the two backward kernels, written as the JAX package's
 split backward (``_bwd_impl_split``) computes. CPU tensors and the tests
 use them; ``Local3dAttention`` goes through the autograd Function of
 ``kernels/local3d.py``, which on CUDA launches the kernels and on the CPU
-calls these three. Submodule names follow the reference state_dict layout
-(``transformer.layers.{i}.0.fn.to_q`` ...), so the weight bridge
-(``convert.py``) loads with ``strict=True``.
+calls these three; with ``backend="fused"`` it runs the whole block through
+``kernels/local3d_block.py`` instead. Submodule names follow the reference
+state_dict layout (``transformer.layers.{i}.0.fn.to_q`` ...), so the weight
+bridge (``convert.py``) loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ from torch import nn
 
 from world_modelz_tpu_torch.kernels import dense_attention as dense_kernels
 from world_modelz_tpu_torch.kernels import local3d as local3d_kernels
+from world_modelz_tpu_torch.kernels.local3d_block import (
+    block_supported,
+    local3d_block,
+)
 
 NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
 # DenseAttention's "auto" backend takes the flash kernel from this many
@@ -281,14 +286,27 @@ def local3d_attention_bwd_dkv(
     )
 
 
+LOCAL3D_BACKENDS = ("auto", "pallas", "xla", "fused")
+
+
 class Local3dAttention(nn.Module):
     """QKV projections around the windowed attention core
     (local_3d_attention.py:34-118). ``to_q`` and ``to_k`` have no bias,
     ``to_v`` and ``to_out`` do; ``to_out`` is absent when
-    ``heads == 1 and dim_head == dim``. The core is the autograd Function
-    ``kernels.local3d.local3d_attention``, so gradients reach ``to_q``,
-    ``to_k`` and ``to_v`` on CUDA as on the CPU. The dropout after
-    ``to_out`` follows ``module.train()``, as flax's ``train=True``."""
+    ``heads == 1 and dim_head == dim``. ``backend`` takes the JAX package's
+    values, with the GPU in the TPU's place:
+    - ``"auto"`` and ``"pallas"``: the projections, then the autograd
+      Function ``kernels.local3d.local3d_attention`` (the kernels on CUDA,
+      their plain versions on the CPU), so gradients reach ``to_q``,
+      ``to_k`` and ``to_v`` on CUDA as on the CPU;
+    - ``"xla"``: the plain ``local3d_attention``;
+    - ``"fused"``: the whole block in one kernel
+      (``kernels.local3d_block.local3d_block``), in the dtype that x and the
+      weights promote to; raises ``ValueError`` where the JAX package does
+      (no ``to_out``, or a shape ``block_supported`` turns away).
+    The parameters and the state_dict are the same for every backend. The
+    dropout after ``to_out`` follows ``module.train()``, as flax's
+    ``train=True``."""
 
     def __init__(
         self,
@@ -297,11 +315,15 @@ class Local3dAttention(nn.Module):
         heads: int = 8,
         dim_head: int = 64,
         dropout: float = 0.0,
+        backend: str = "auto",
     ):
         super().__init__()
+        if backend not in LOCAL3D_BACKENDS:
+            raise ValueError(
+                f"backend must be one of {LOCAL3D_BACKENDS}, got {backend!r}")
         inner = heads * dim_head
         self.extents = tuple(int(e) for e in extents)
-        self.heads = heads
+        self.heads, self.dim_head, self.backend = heads, dim_head, backend
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=True)
@@ -311,12 +333,35 @@ class Local3dAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """x: normed (B, S, H, W, dim) key/value input; q: query input."""
-        out = local3d_kernels.local3d_attention(
-            self.to_q(q), self.to_k(x), self.to_v(x), self.extents, self.heads
-        )
+        if self.backend == "fused":
+            return self._fused(x, q)
+        attend = (local3d_attention if self.backend == "xla"
+                  else local3d_kernels.local3d_attention)
+        out = attend(self.to_q(q), self.to_k(x), self.to_v(x), self.extents,
+                     self.heads)
         if self.to_out is not None:
             out = self.to_out(out)
         return out
+
+    def _fused(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        s, h, w, dim = x.shape[1:]
+        dt = torch.promote_types(x.dtype, self.to_k.weight.dtype)
+        itemsize = torch.empty((), dtype=dt).element_size()
+        if self.to_out is None or not block_supported(
+                s, h, w, self.extents, self.heads, self.dim_head, dim, dim,
+                itemsize):
+            raise ValueError(
+                f"fused local3d block kernel unsupported for grid {h}x{w} "
+                f"S={s} extents {self.extents} dtype "
+                f"{str(dt).replace('torch.', '')} (working set exceeds VMEM "
+                "or no output projection); use backend='pallas' or 'xla'")
+        proj = self.to_out[0]
+        out = local3d_block(
+            x.to(dt), q.to(dt), self.to_k.weight.to(dt),
+            self.to_v.weight.to(dt), self.to_v.bias.to(dt),
+            self.to_q.weight.to(dt), proj.weight.to(dt), proj.bias.to(dt),
+            self.extents, self.heads)
+        return self.to_out[1](out)
 
 
 class PreNorm(nn.Module):
@@ -338,6 +383,7 @@ class PreNorm(nn.Module):
 class Local3dAttentionTransformer(nn.Module):
     """Token embedding + factorized 3D position embedding + pre-norm stack of
     local-attention / MLP residual blocks (local_3d_attention.py:121-163).
+    ``backend`` is every ``Local3dAttention``'s.
 
     Input (B, S, H, W) int tokens; output (B, S, H, W, dim) features.
     """
@@ -353,6 +399,7 @@ class Local3dAttentionTransformer(nn.Module):
         dim_head: int,
         mlp_dim: int,
         dropout: float = 0.0,
+        backend: str = "auto",
     ):
         super().__init__()
         self.embedding = nn.Embedding(num_classes, dim)
@@ -363,7 +410,7 @@ class Local3dAttentionTransformer(nn.Module):
             nn.ModuleList([
                 PreNorm(dim, Local3dAttention(
                     dim, extents, heads=heads, dim_head=dim_head,
-                    dropout=dropout,
+                    dropout=dropout, backend=backend,
                 )),
                 PreNorm(dim, FeedForward(dim, mlp_dim, dropout=dropout)),
             ])

@@ -31,7 +31,9 @@ class VqVideoDiffusionModel(nn.Module):
     parameters' dtype.
 
     ``device=None`` means ``"cuda"`` (raises without a GPU); ``dtype`` is the
-    parameter dtype (the serving configuration runs bfloat16). The model
+    parameter dtype (the serving configuration runs bfloat16); ``backend``
+    is the attention's (``Local3dAttention``: ``"auto"``, ``"pallas"``,
+    ``"xla"`` or ``"fused"``, the whole block in one kernel). The model
     starts in eval mode, as serving uses it; a trainer calls ``.train()``
     (dropout on, flax's ``train=True``).
     """
@@ -47,6 +49,7 @@ class VqVideoDiffusionModel(nn.Module):
         mlp_dim: int,
         heads: int = 1,
         dropout: float = 0.0,
+        backend: str = "auto",
         *,
         device: DeviceLike = None,
         dtype: Optional[torch.dtype] = None,
@@ -64,6 +67,7 @@ class VqVideoDiffusionModel(nn.Module):
             dim_head=dim_head,
             mlp_dim=mlp_dim,
             dropout=dropout,
+            backend=backend,
         )
         self.logit_proj = nn.Linear(dim, num_classes)
         self.to(device=dev, dtype=dtype)
