@@ -120,6 +120,11 @@ BF16_TOL = 2e-2  # bf16 output rounding (2^-8 relative) of O(1) values
 # order; bf16 output rounding (2^-8) of the largest gradients
 BWD_F32_TOL = 1e-4
 BWD_BF16_TOL = 3e-2
+# the bf16 flash backward pair vs plain versions that round P and dS at the
+# same points: times max |grad| (one bf16 step of the largest gradient),
+# and at least this share of dq, dk and dv bitwise equal
+FLASH_BWD_BF16_TOL = 2.0**-7
+FLASH_BWD_BF16_EQUAL = 0.99
 STAT_TOL = 1e-4  # lse and delta (f32 in both), times max(1, max |stat|)
 # card vs CPU gradient of each parameter tensor, times max(max |its CPU
 # gradient|, GRAD_FLOOR x the largest gradient of any tensor)
@@ -779,11 +784,16 @@ def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
 def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
     """The three flash kernels against their plain versions at the sparse
     trainer's shape (B=16, H=8, N=1,024, D=64, bf16), the evaluation's (B=8,
-    f32, as the sweep runs the f32 masters), a ragged N and D=128 in f32.
-    q, k and v are the head views of one fused (B, N, 3 * H * D) tensor, as
-    DenseAttention hands them over. Each kernel is fed the same inputs as
-    its plain version (the kernels' own out, lse and delta), and must
-    repeat bitwise. Returns {kernel: record} at the training shape."""
+    f32, as the sweep runs the f32 masters), a ragged N, and D=128 in bf16
+    and f32. q, k and v are the head views of one fused (B, N, 3 * H * D)
+    tensor, as DenseAttention hands them over. Each kernel is fed the same
+    inputs as its plain version (the operands in their own dtype, so that
+    both round P and dS to bf16 at the same points, and the kernels' own
+    out, lse and delta), and must repeat bitwise. In bf16, dq, dk and dv
+    must lie within FLASH_BWD_BF16_TOL x max |x| and be at least
+    FLASH_BWD_BF16_EQUAL bitwise equal, which a kernel that rounds P or dS
+    elsewhere fails. Logs each kernel's TFLOP/s (4, 6 and 8 B H N^2 D
+    operations). Returns {kernel: record} at the training shape."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import (
@@ -801,6 +811,7 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         ("train", (16, 8, 1024, 64), torch.bfloat16),
         ("eval", (8, 8, 1024, 64), torch.float32),
         ("ragged", (16, 8, 1000, 64), torch.bfloat16),
+        ("d128_bf16", (8, 4, 1024, 128), torch.bfloat16),
         ("d128", (8, 4, 1024, 128), torch.float32),
     ]
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -816,36 +827,48 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         again = (*flash_attention_fwd(q, k, v, scale),
                  *flash_bwd_dq(q, k, v, out, g, lse, scale),
                  *flash_bwd_dkv(q, k, v, g, lse, delta, scale))
-        f32 = [t.float() for t in (q, k, v, out, g)]
-        p_out, p_lse = dense_attention_fwd(*f32[:3], scale)
-        p_dq, p_delta = dense_attention_bwd_dq(*f32, lse, scale)
-        p_dk, p_dv = dense_attention_bwd_dkv(*f32[:3], f32[4], lse, delta, scale)
+        p_out, p_lse = dense_attention_fwd(q, k, v, scale)
+        p_dq, p_delta = dense_attention_bwd_dq(q, k, v, out, g, lse, scale)
+        p_dk, p_dv = dense_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b_) for a, b_ in zip(
                 (out, lse, dq, delta, dk, dv), again)):
             raise AssertionError(f"flash {name}: two launches differ")
-        fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        bwd_tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
-        errs = {}
+        bf16 = dtype == torch.bfloat16
+        fwd_tol = BF16_TOL if bf16 else F32_TOL
+        bwd_tol = FLASH_BWD_BF16_TOL if bf16 else BWD_F32_TOL
+        errs, equal = {}, {}
         for label, got, want, tol in (
                 ("out", out, p_out, fwd_tol), ("lse", lse, p_lse, STAT_TOL),
                 ("dq", dq, p_dq, bwd_tol), ("delta", delta, p_delta, STAT_TOL),
                 ("dk", dk, p_dk, bwd_tol), ("dv", dv, p_dv, bwd_tol)):
-            err = float((got.float() - want).abs().max())
-            lim = tol * max(1.0, float(want.abs().max()))
+            err = float((got.float() - want.float()).abs().max())
+            scale_x = float(want.float().abs().max())
+            grad = label in ("dq", "dk", "dv")
+            lim = tol * (scale_x if bf16 and grad else max(1.0, scale_x))
             errs[label] = err
             if not err <= lim:
                 raise AssertionError(
                     f"flash {name} {dtype} {label}: max abs err {err} > {lim}")
+            if bf16 and grad:
+                equal[label] = float((got == want).float().mean())
+                if not equal[label] >= FLASH_BWD_BF16_EQUAL:
+                    raise AssertionError(
+                        f"flash {name} {dtype} {label}: {equal[label]:.4f} bitwise "
+                        f"equal < {FLASH_BWD_BF16_EQUAL}")
         del p_out, p_lse, p_dq, p_delta, p_dk, p_dv
         tname = str(dtype).replace("torch.", "")
         isz = qkv.element_size()
         elems = b * h * n * d
         work = b * h * n * n * d
+        ops = {"flash_fwd": 4 * work, "flash_bwd_dq": 6 * work,
+               "flash_bwd_dkv": 8 * work}
         bounds = {  # (bytes in and out, products), each input read once
-            "flash_fwd": bound(4 * elems * isz + b * h * n * 4, 4 * work, tname),
-            "flash_bwd_dq": bound(6 * elems * isz + 2 * b * h * n * 4, 6 * work, tname),
-            "flash_bwd_dkv": bound(6 * elems * isz + 2 * b * h * n * 4, 8 * work, tname),
+            "flash_fwd": bound(4 * elems * isz + b * h * n * 4, ops["flash_fwd"], tname),
+            "flash_bwd_dq": bound(6 * elems * isz + 2 * b * h * n * 4,
+                                  ops["flash_bwd_dq"], tname),
+            "flash_bwd_dkv": bound(6 * elems * isz + 2 * b * h * n * 4,
+                                   ops["flash_bwd_dkv"], tname),
         }
         ms = {
             "flash_fwd": device_ms(torch, lambda: flash_attention_fwd(q, k, v, scale), 20),
@@ -877,9 +900,12 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
                "flash_bwd_dkv": lib_all - lib_fwd}
         log(f"flash {name} {tname} (B, H, N, D)={(b, h, n, d)}: max_abs_err "
             + " ".join(f"{key}={val:.3g}" for key, val in errs.items())
-            + f" (tol fwd {fwd_tol}, bwd {bwd_tol}, stats {STAT_TOL}, x "
-            f"max(1, max|x|)); repeat bitwise | " + " ".join(
-                f"{key}: kernel_ms={ms[key]:.5f} plain_ms={plain_ms[key]:.5f} "
+            + f" (tol fwd {fwd_tol}, bwd {bwd_tol}, stats {STAT_TOL}, x max(1, "
+            f"max|x|){'; bf16 grads x max|x|' if bf16 else ''})"
+            + "".join(f" {key} {val:.4f} bitwise equal" for key, val in equal.items())
+            + "; repeat bitwise | " + " ".join(
+                f"{key}: kernel_ms={ms[key]:.5f} "
+                f"({ops[key] / ms[key] / 1e9:.2f} TFLOP/s) plain_ms={plain_ms[key]:.5f} "
                 f"bound_us={bounds[key][0] * 1e3:.4f} ({bounds[key][1]})"
                 for key in ms)
             + f" | fwd back_to_back_ms={b2b:.5f} | SDPA fwd library_ms="

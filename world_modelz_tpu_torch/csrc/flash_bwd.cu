@@ -12,39 +12,54 @@
 // (the forward's log-sum-exp) and delta are (B, H, N) f32; dq, dk, dv are
 // written (B, N, H, D)-contiguous in the input dtype. With s_ij = scale *
 // q_i . k_j and p_ij = e^{s_ij - lse_i} over the real keys j < N:
-//   pass 1, per query tile: delta_i = g_i . o_i, dq_i = scale * sum_j p_ij
-//     (g_i . v_j - delta_i) k_j;
+//   pass 1, per query tile: delta_i = g_i . o_i, dq_i = sum_j ds_ij k_j
+//     with ds_ij = scale * p_ij (g_i . v_j - delta_i);
 //   pass 2, per key tile, over every query tile: dv_j = sum_i p_ij g_i,
-//     dk_j = scale * sum_i p_ij (g_i . v_j - delta_i) q_i.
-// Queries and keys at or past N are masked, as the TPU wrapper's segment
-// ids mask its padding.
+//     dk_j = sum_i ds_ij q_i.
+// In bf16, p (for dv) and ds (for dq and dk) are rounded to bf16 before
+// their products, as the TPU kernels cast them to the operand dtype
+// (flash_attention.py:900, :918, :1258); every sum is f32. Queries and keys
+// at or past N are masked, as the TPU wrapper's segment ids mask its
+// padding.
 //
 // What bounds it on the H100. At the sparse trainer's shape (B=16, H=8,
 // N=1024, D=64, bf16) pass 1 reads q, k, v, o, g and lse and writes dq and
-// delta (~42 MB, ~13 us at 3.35 TB/s) against 6 B H N^2 D = 51.5 GFLOP (~52
-// us at the bf16 tensor-core peak); pass 2 reads q, k, v, g, lse, delta and
-// writes dk, dv (~50 MB, ~15 us) against 8 B H N^2 D = 68.7 GFLOP (~69 us):
-// both bound by operations.
+// delta (~102 MB, ~30 us at 3.35 TB/s) against 6 B H N^2 D = 51.5 GFLOP
+// (~52 us at the bf16 tensor-core peak); pass 2 reads q, k, v, g, lse,
+// delta and writes dk, dv (~102 MB) against 8 B H N^2 D = 68.7 GFLOP (~69
+// us): both bound by operations, so the products belong on the tensor
+// cores.
 //
-// Design. The tiling of flash_tile.cuh, as the forward: one block of 256
-// threads per (64-row tile, h, b), CUDA-core f32 FMAs over f32 tiles in
-// shared memory. Pass 1 holds its query tile and g tile, walks the key
-// tiles and accumulates dq in registers; pass 2 holds its key tile and v
-// tile, walks every query tile and accumulates dk and dv in registers, so
-// no block adds into another's output: no atomics, and two launches are
-// bitwise equal. P and dS go through shared memory into the products.
-// Tensor-core products are later work.
+// Design. bf16 (D = 64, 128): flash_mma.cuh's tiling. A block of 4 warps
+// owns 64 queries (pass 1) or 64 keys (pass 2) of one (b, h), 16 rows per
+// warp, and walks the other side's tiles with the next tile's cp.async
+// copies in flight while the current one is multiplied. Every product is
+// an mma.sync m16n8k16 with f32 sums in registers: S = Q K^T and dP = G
+// V^T, then P and dS in registers, rounded to bf16, as the A fragments of
+// dQ += dS K (pass 1) or dV += P^T G and dK += dS^T Q (pass 2); P and dS
+// never touch shared memory. Pass 2 walks 64 queries a step at D = 64 and
+// 32 at D = 128, so that its two 16 x D sums and the two score tiles fit
+// in registers. f32: flash_tile.cuh's CUDA-core tiling (one block of 256
+// threads per 64-row tile, f32 FMAs over f32 tiles in shared memory, P and
+// dS staged through shared memory), which keeps f32 arithmetic end to end.
+// Either way no block adds into another's output: no atomics, and two
+// launches are bitwise equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
 
 using namespace wmz::flash;
+namespace mma = wmz::mma;
+
+// ----------------------------------------------------------------- f32
+// The CUDA-core pair (flash_tile.cuh), instantiated for float.
 
 // Pass 1: dq and delta.
 template <typename T, int D>
@@ -199,6 +214,202 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// The tensor-core pair (flash_mma.cuh): kWarps warps own 16 kWarps rows of
+// one side; pass 2 walks 64 queries a step at D = 64 and 32 at D = 128.
+
+using mma::bf16;
+constexpr int kWarps = 4;
+template <int D>
+constexpr int dkv_cols() {
+  return D == 64 ? 64 : 32;
+}
+
+// Pass 1 on the tensor cores: dq and delta for 16 kWarps queries, walking
+// the keys 64 at a time.
+template <int D>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ g, const float* __restrict__ lse,
+                        bf16* __restrict__ dq, float* __restrict__ delta, Strides sq,
+                        Strides sk, Strides sv, Strides so, Strides sg, int H, int N,
+                        float scale) {
+  constexpr int kOwn = 16 * kWarps, kCols = 64, L = D + mma::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + kOwn * L;
+  bf16* KV = Gs + kOwn * L;  // two stages of (K, V), kCols rows each
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * H + h;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const bf16* gb = g + b * sg.b + h * sg.h;
+  const bf16* ob = o + b * so.b + h * so.h;
+
+  mma::load_rows_async<D, kOwn>(Qs, qb, sq.n, q0, N);
+  mma::load_rows_async<D, kOwn>(Gs, gb, sg.n, q0, N);
+  mma::load_rows_async<D, kCols>(KV, kb, sk.n, 0, N);
+  mma::load_rows_async<D, kCols>(KV + kCols * L, vb, sv.n, 0, N);
+  mma::cp_async_commit();
+
+  // delta = g . o in f32 (the TPU's di, flash_attention.py:273) while the
+  // tiles arrive: lanes 2 r and 2 r + 1 of warp w sum the even and odd
+  // 16-byte chunks of query 16 w + r
+  float part = 0.f;
+  {
+    const int n = q0 + 16 * warp + (lane >> 1);
+    if (n < N) {
+      const bf16* grow = gb + n * sg.n;
+      const bf16* orow = ob + n * so.n;
+#pragma unroll
+      for (int c = (lane & 1) * 8; c < D; c += 16) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 gf = __bfloat1622float2(g2[e]), of = __bfloat1622float2(o2[e]);
+          part = fmaf(gf.x, of.x, part);
+          part = fmaf(gf.y, of.y, part);
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((lane & 1) == 0 && n < N) delta[bh * N + n] = part;
+  }
+  // this lane's rows gr and gr + 8: delta, and lse times log2 e
+  const float scale_log2 = scale * mma::kLog2e;
+  float row_delta[2], row_lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_delta[i] = __shfl_sync(0xffffffffu, part, 2 * (gr + 8 * i));
+    const int n = q0 + 16 * warp + gr + 8 * i;
+    row_lse[i] = n < N ? lse[bh * N + n] * mma::kLog2e : 0.f;
+  }
+
+  float acc[D / 8][4];
+  mma::zero<D / 8>(acc);
+  const int steps = (N + kCols - 1) / kCols;
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) {  // the next K, V tiles into the other stage
+      bf16* next = KV + ((it + 1) & 1) * 2 * kCols * L;
+      mma::load_rows_async<D, kCols>(next, kb, sk.n, (it + 1) * kCols, N);
+      mma::load_rows_async<D, kCols>(next + kCols * L, vb, sv.n, (it + 1) * kCols, N);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = KV + (it & 1) * 2 * kCols * L;
+    const bf16* Vs = Ks + kCols * L;
+    float s[kCols / 8][4], dp[kCols / 8][4];
+    mma::warp_dots<D, kCols>(Qs + 16 * warp * L, Ks, s);
+    mma::warp_dots<D, kCols>(Gs + 16 * warp * L, Vs, dp);
+    const int k0 = it * kCols;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = k0 + 8 * j + 2 * t + (e & 1) < N
+                            ? exp2f(fmaf(s[j][e], scale_log2, -row_lse[i]))
+                            : 0.f;
+        s[j][e] = (dp[j][e] - row_delta[i]) * p * scale;  // ds, scaled
+      }
+    uint32_t ds[kCols / 16][4];  // rounded to bf16 (flash_attention.py:1258)
+    mma::to_a_frags<kCols>(s, ds);
+    mma::warp_product<D, kCols>(ds, Ks, acc);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  mma::store_rows<D>(acc, dq + ((long long)b * N * H + h) * D, (long long)H * D,
+                     q0 + 16 * warp, N);
+}
+
+// Pass 2 on the tensor cores: dk and dv for 16 kWarps keys, walking the
+// queries kCols at a time with their lse and delta.
+template <int D, int kCols>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq,
+                         Strides sk, Strides sv, Strides sg, int H, int N, float scale) {
+  constexpr int kOwn = 16 * kWarps, L = D + mma::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kOwn * L;
+  bf16* QG = Vs + kOwn * L;  // two stages of (Q, G), kCols rows each
+  float* stats = reinterpret_cast<float*>(QG + 4 * kCols * L);  // two of (lse, delta)
+  const int k0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const long long bh = (long long)b * H + h;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* gb = g + b * sg.b + h * sg.h;
+  const float* lse_bh = lse + bh * N;
+  const float* delta_bh = delta + bh * N;
+
+  mma::load_rows_async<D, kOwn>(Ks, k + b * sk.b + h * sk.h, sk.n, k0, N);
+  mma::load_rows_async<D, kOwn>(Vs, v + b * sv.b + h * sv.h, sv.n, k0, N);
+  mma::load_rows_async<D, kCols>(QG, qb, sq.n, 0, N);
+  mma::load_rows_async<D, kCols>(QG + kCols * L, gb, sg.n, 0, N);
+  mma::load_vec_async<kCols>(stats, lse_bh, 0, N);
+  mma::load_vec_async<kCols>(stats + kCols, delta_bh, 0, N);
+  mma::cp_async_commit();
+
+  const float scale_log2 = scale * mma::kLog2e;
+  float dka[D / 8][4], dva[D / 8][4];
+  mma::zero<D / 8>(dka);
+  mma::zero<D / 8>(dva);
+  const int steps = (N + kCols - 1) / kCols;
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) {  // the next Q, G tiles and their stats
+      const int s1 = (it + 1) & 1, q1 = (it + 1) * kCols;
+      bf16* next = QG + s1 * 2 * kCols * L;
+      mma::load_rows_async<D, kCols>(next, qb, sq.n, q1, N);
+      mma::load_rows_async<D, kCols>(next + kCols * L, gb, sg.n, q1, N);
+      mma::load_vec_async<kCols>(stats + s1 * 2 * kCols, lse_bh, q1, N);
+      mma::load_vec_async<kCols>(stats + s1 * 2 * kCols + kCols, delta_bh, q1, N);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qs = QG + (it & 1) * 2 * kCols * L;
+    const bf16* Gs = Qs + kCols * L;
+    const float* Ls = stats + (it & 1) * 2 * kCols;
+    const float* Ds = Ls + kCols;
+    // rows: this warp's keys; columns: the step's queries
+    float s[kCols / 8][4], dp[kCols / 8][4];
+    mma::warp_dots<D, kCols>(Ks + 16 * warp * L, Qs, s);
+    mma::warp_dots<D, kCols>(Vs + 16 * warp * L, Gs, dp);
+    const int q0 = it * kCols;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const float p = q0 + col < N
+                            ? exp2f(fmaf(s[j][e], scale_log2, -Ls[col] * mma::kLog2e))
+                            : 0.f;
+        s[j][e] = p;
+        dp[j][e] = (dp[j][e] - Ds[col]) * p * scale;  // ds, scaled
+      }
+    uint32_t a[kCols / 16][4];
+    mma::to_a_frags<kCols>(s, a);  // P^T in bf16 (flash_attention.py:900)
+    mma::warp_product<D, kCols>(a, Gs, dva);
+    mma::to_a_frags<kCols>(dp, a);  // dS^T in bf16 (:918)
+    mma::warp_product<D, kCols>(a, Qs, dka);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  const long long out = ((long long)b * N * H + h) * D;
+  mma::store_rows<D>(dka, dk + out, (long long)H * D, k0 + 16 * warp, N);
+  mma::store_rows<D>(dva, dv + out, (long long)H * D, k0 + 16 * warp, N);
+}
+
 // the dynamic shared memory of a kernel, set before each launch: above 48
 // KB a kernel must opt in
 template <typename K>
@@ -245,10 +456,49 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* o, const void* g, const float* lse,
+                          void* dq, float* delta, const long long* st, int B,
+                          int H, int N, float scale, cudaStream_t stream) {
+  constexpr int kOwn = 16 * kWarps;
+  const size_t bytes = mma::tile_bytes<D>(2 * kOwn + 4 * 64);
+  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  kernel<<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(g), lse, static_cast<bf16*>(dq), delta, at(st, 0),
+      at(st, 1), at(st, 2), at(st, 3), at(st, 4), H, N, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* g, const float* lse, const float* delta,
+                           void* dk, void* dv, const long long* st, int B, int H,
+                           int N, float scale, cudaStream_t stream) {
+  constexpr int kOwn = 16 * kWarps, C = dkv_cols<D>();
+  const size_t bytes = mma::tile_bytes<D>(2 * kOwn + 4 * C) + 4 * C * sizeof(float);
+  auto kernel = flash_bwd_dkv_mma_kernel<D, C>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  kernel<<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), at(st, 0), at(st, 1),
+      at(st, 2), at(st, 3), H, N, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // strides: int64 [15], the b, h, n element strides of q, k, v, o, g.
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the tensor-core
+// kernels). Returns the launch's cudaError_t.
 extern "C" int wmz_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* g, const void* lse,
                                 void* dq, void* delta,
@@ -267,9 +517,13 @@ extern "C" int wmz_flash_bwd_dq(const void* q, const void* k, const void* v,
     if (D == 64) WMZ_FLASH_DQ(float, 64);
     WMZ_FLASH_DQ(float, 128);
   }
-  if (D == 64) WMZ_FLASH_DQ(__nv_bfloat16, 64);
-  WMZ_FLASH_DQ(__nv_bfloat16, 128);
 #undef WMZ_FLASH_DQ
+#define WMZ_FLASH_DQ_MMA(DD)                                                \
+  return (int)launch_dq_mma<DD>(q, k, v, o, g, ls, dq, dl, strides, B, H, N, \
+                                scale, st)
+  if (D == 64) WMZ_FLASH_DQ_MMA(64);
+  WMZ_FLASH_DQ_MMA(128);
+#undef WMZ_FLASH_DQ_MMA
 }
 
 // strides: int64 [12], the b, h, n element strides of q, k, v, g.
@@ -291,7 +545,11 @@ extern "C" int wmz_flash_bwd_dkv(const void* q, const void* k, const void* v,
     if (D == 64) WMZ_FLASH_DKV(float, 64);
     WMZ_FLASH_DKV(float, 128);
   }
-  if (D == 64) WMZ_FLASH_DKV(__nv_bfloat16, 64);
-  WMZ_FLASH_DKV(__nv_bfloat16, 128);
 #undef WMZ_FLASH_DKV
+#define WMZ_FLASH_DKV_MMA(DD)                                                  \
+  return (int)launch_dkv_mma<DD>(q, k, v, g, ls, dl, dk, dv, strides, B, H, N, \
+                                 scale, st)
+  if (D == 64) WMZ_FLASH_DKV_MMA(64);
+  WMZ_FLASH_DKV_MMA(128);
+#undef WMZ_FLASH_DKV_MMA
 }

@@ -9,10 +9,14 @@ function in ``models.attention`` (``dense_attention_fwd``,
 ``dense_attention_bwd_dq``, ``dense_attention_bwd_dkv``).
 
 Operands are (B, H, N, D) with D = 64 or 128, float32 or bfloat16. The
-kernels read any layout whose last dimension is contiguous, so q, k and v
-may be the strided head views of a fused QKV projection. Every output
-(out, dq, dk, dv) is a (B, H, N, D) view of a (B, N, H, D)-contiguous
-buffer, so that merging the heads back into (B, N, H * D) copies nothing.
+kernels read any layout whose last dimension is contiguous and whose other
+strides are whole 16-byte chunks (``kernel_layout``), so q, k and v may be
+the strided head views of a fused QKV projection. The bfloat16 backward
+pair runs on the tensor cores and rounds P and dS to bfloat16 before their
+products, as the stock TPU kernels do; float32 keeps f32 arithmetic. Every
+output (out, dq, dk, dv) is a (B, H, N, D) view of a (B, N, H,
+D)-contiguous buffer, so that merging the heads back into (B, N, H * D)
+copies nothing.
 lse and delta are (B, H, N) float32.
 """
 
@@ -50,9 +54,11 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
 
 
 def kernel_layout(t: torch.Tensor) -> bool:
-    """Whether the kernels read ``t`` in place: last dimension contiguous,
-    16-byte aligned base, the other strides multiples of 4 elements."""
-    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
+    """Whether the kernels read ``t`` in place with 16-byte loads: last
+    dimension contiguous, 16-byte aligned base, the b, h and n strides
+    multiples of 16 bytes (4 float32 or 8 bfloat16 elements)."""
+    return (t.stride(-1) == 1
+            and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
 
 
@@ -74,7 +80,7 @@ def _kernel_args(operands, stats=()):
         raise ValueError(
             "flash attention kernels need operands whose last dimension is "
             "contiguous, 16-byte aligned, with the other strides multiples "
-            f"of 4 elements; got strides {[t.stride() for t in operands]}")
+            f"of 16 bytes; got strides {[t.stride() for t in operands]}")
     if max(b * h, n) >= 2**31:
         raise ValueError(f"flash attention shape {tuple(q.shape)} too large")
     strides = [s for t in operands for s in t.stride()[:3]]

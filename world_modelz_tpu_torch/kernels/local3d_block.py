@@ -6,7 +6,7 @@ Counterpart of ``world_modelz_tpu.kernels.local3d_block`` (``local3d_block``
 and its custom_vjp). The forward is one kernel: the q, k and v projections,
 the windowed attention and the output projection. The backward has no
 kernel of its own, as in the JAX package: it rebuilds the unfused
-composition (``F.linear`` projections around ``kernels.local3d.
+composition (``dense_apply`` projections around ``kernels.local3d.
 local3d_attention``, whose forward and split backward pair are kernels on
 CUDA) and differentiates it. A CUDA tensor launches the kernel; a CPU
 tensor takes ``local3d_block_reference``.
@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from world_modelz_tpu_torch.kernels import local3d as local3d_kernels
 from world_modelz_tpu_torch.kernels._build import (
@@ -27,6 +26,7 @@ from world_modelz_tpu_torch.kernels._build import (
     on_cpu,
     stream,
 )
+from world_modelz_tpu_torch.ops.dense import dense_apply
 
 Extents = Tuple[int, int, int]
 
@@ -211,14 +211,15 @@ def local3d_block_fwd(x_kv, q_in, wk, wv, bv, wq, wo, bo,
 
 
 def block_composition(x_kv, q_in, wk, wv, bv, wq, wo, bo, extents, heads):
-    """The unfused block: ``F.linear`` projections around the
-    differentiable ``kernels.local3d.local3d_attention`` (JAX's
-    ``_block_pallas_composition``); what the fused backward rebuilds."""
-    k = F.linear(x_kv, wk)
-    v = F.linear(x_kv, wv, bv)
-    q = F.linear(q_in, wq)
+    """The unfused block: ``dense_apply`` projections (the bias after the
+    rounded product) around the differentiable ``kernels.local3d.
+    local3d_attention`` (JAX's ``_block_pallas_composition``); what the
+    fused backward rebuilds."""
+    k = dense_apply(x_kv, wk)
+    v = dense_apply(x_kv, wv, bv)
+    q = dense_apply(q_in, wq)
     out = local3d_kernels.local3d_attention(q, k, v, extents, heads)
-    return F.linear(out, wo, bo)
+    return dense_apply(out, wo, bo)
 
 
 class Local3dBlockFunction(torch.autograd.Function):

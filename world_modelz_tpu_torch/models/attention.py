@@ -47,6 +47,7 @@ from world_modelz_tpu_torch.kernels.local3d_block import (
     block_supported,
     local3d_block,
 )
+from world_modelz_tpu_torch.ops.dense import dense_apply, narrow
 
 NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
 # DenseAttention's "auto" backend takes the flash kernel from this many
@@ -54,17 +55,25 @@ NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
 FLASH_MIN_TOKENS = 1024
 
 
+class Dense(nn.Linear):
+    """``nn.Linear``'s parameters and state_dict, applied as flax's
+    ``nn.Dense`` (``dense_apply``): every biased dense layer of the port."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_apply(x, self.weight, self.bias)
+
+
 class FeedForward(nn.Module):
-    """Linear -> GELU (tanh approximation, flax's ``nn.gelu``) -> Linear
+    """Dense -> GELU (tanh approximation, flax's ``nn.gelu``) -> Dense
     (transformer.py:20-31)."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.net = nn.Sequential(
-            nn.Linear(dim, hidden_dim),
+            Dense(dim, hidden_dim),
             nn.GELU(approximate="tanh"),
             nn.Dropout(dropout),
-            nn.Linear(hidden_dim, dim),
+            Dense(hidden_dim, dim),
             nn.Dropout(dropout),
         )
 
@@ -326,10 +335,10 @@ class Local3dAttention(nn.Module):
         self.heads, self.dim_head, self.backend = heads, dim_head, backend
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=True)
+        self.to_v = Dense(dim, inner)
         self.to_out = None
         if not (heads == 1 and dim_head == dim):
-            self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+            self.to_out = nn.Sequential(Dense(inner, dim), nn.Dropout(dropout))
 
     def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """x: normed (B, S, H, W, dim) key/value input; q: query input."""
@@ -495,6 +504,11 @@ def dense_attention_fwd(
     return out.to(q.dtype), lse
 
 
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and widened back: an operand cast."""
+    return t.to(dtype).to(t.dtype)
+
+
 def dense_attention_bwd_dq(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -507,21 +521,26 @@ def dense_attention_bwd_dq(
     """Backward pass 1 (plain version of the query-centric kernel):
 
       delta = rowsum(g * o),  P = exp(scale * q k^T - lse),
-      dq = scale * (P * (g v^T - delta)) k.
+      dS = scale * P * (g v^T - delta),  dq = dS k.
 
     Args:
       q, k, v, o (the forward's output), g (its cotangent): (B, H, N, D);
       lse: the forward's (B, H, N) f32 log-sum-exp.
 
     Returns:
-      dq in q's dtype, and delta (B, H, N) f32. All arithmetic in f32 or
-      wider.
+      dq in q's dtype, and delta (B, H, N) f32. Sums in f32 or wider; for
+      bf16 operands dS is rounded to bf16 before dS k, as the stock TPU
+      kernel casts it (flash_attention.py:1258).
     """
     delta = (_f32(g) * _f32(o)).sum(-1)
     p = _probs(q, k, lse, scale)
     dp = torch.einsum("bhnd,bhmd->bhnm", _f32(g), _f32(v))
-    dq = torch.einsum("bhnm,bhmd->bhnd", p * (dp - delta[..., None]), _f32(k))
-    return (dq * scale).to(q.dtype), delta
+    ds = p * (dp - delta[..., None])
+    if narrow(k.dtype):
+        dq = torch.einsum("bhnm,bhmd->bhnd", _rounded(ds * scale, k.dtype), _f32(k))
+    else:
+        dq = torch.einsum("bhnm,bhmd->bhnd", ds, _f32(k)) * scale
+    return dq.to(q.dtype), delta
 
 
 def dense_attention_bwd_dkv(
@@ -536,16 +555,22 @@ def dense_attention_bwd_dkv(
     """Backward pass 2 (plain version of the key-centric kernel), with P
     rebuilt from lse:
 
-      dv = P^T g,  dk = scale * (P * (g v^T - delta))^T q.
+      dv = P^T g,  dk = dS^T q,  dS = scale * P * (g v^T - delta).
 
     Returns:
-      (dk, dv) in k's and v's dtypes. All arithmetic in f32 or wider.
+      (dk, dv) in k's and v's dtypes. Sums in f32 or wider; for bf16
+      operands P and dS are rounded to bf16 before their products, as the
+      stock TPU kernel casts them (flash_attention.py:900, :918).
     """
     p = _probs(q, k, lse, scale)
     dp = torch.einsum("bhnd,bhmd->bhnm", _f32(g), _f32(v))
     ds = p * (dp - delta[..., None])
-    dv = torch.einsum("bhnm,bhnd->bhmd", p, _f32(g))
-    dk = torch.einsum("bhnm,bhnd->bhmd", ds, _f32(q)) * scale
+    if narrow(g.dtype):
+        dv = torch.einsum("bhnm,bhnd->bhmd", _rounded(p, g.dtype), _f32(g))
+        dk = torch.einsum("bhnm,bhnd->bhmd", _rounded(ds * scale, g.dtype), _f32(q))
+    else:
+        dv = torch.einsum("bhnm,bhnd->bhmd", p, _f32(g))
+        dk = torch.einsum("bhnm,bhnd->bhmd", ds, _f32(q)) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -588,7 +613,7 @@ class DenseAttention(nn.Module):
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = None
         if not (heads == 1 and dim_head == dim):
-            self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+            self.to_out = nn.Sequential(Dense(inner, dim), nn.Dropout(dropout))
 
     def uses_flash(self, x: torch.Tensor) -> bool:
         """Whether a forward on ``x`` (B, N, dim) goes through the flash

@@ -20,6 +20,7 @@ from torch import nn
 
 from world_modelz_tpu_torch._device import DeviceLike, resolve_device
 from world_modelz_tpu_torch.models.attention import (
+    Dense,
     DenseTransformer,
     Local3dAttentionTransformer,
 )
@@ -69,7 +70,7 @@ class VqVideoDiffusionModel(nn.Module):
             dropout=dropout,
             backend=backend,
         )
-        self.logit_proj = nn.Linear(dim, num_classes)
+        self.logit_proj = Dense(dim, num_classes)
         self.to(device=dev, dtype=dtype)
         self.eval()
 
@@ -129,7 +130,7 @@ class VqSparseDiffusionModel(nn.Module):
             dim, depth, heads=heads, dim_head=dim_head, mlp_dim=mlp_dim,
             dropout=dropout, attn_backend=attn_backend,
         )
-        self.logit_proj = nn.Linear(dim, num_classes)
+        self.logit_proj = Dense(dim, num_classes)
         self.to(device=dev, dtype=dtype)
         self.eval()
 

@@ -1,4 +1,5 @@
-"""Vector-quantization ops (plain PyTorch)."""
+"""Plain PyTorch ops: the vector quantizer (``ops.vq``, exported here) and
+flax's dense apply (``ops.dense``)."""
 
 from world_modelz_tpu_torch.ops.vq import (
     VQOutput,

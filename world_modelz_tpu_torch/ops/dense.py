@@ -1,0 +1,30 @@
+"""flax ``nn.Dense``'s compute contract (plain PyTorch), shared by the
+model layers (``models/attention.py``) and the fused block's backward
+(``kernels/local3d_block.py``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def narrow(dtype: torch.dtype) -> bool:
+    """Whether ``dtype`` is a floating type below f32 (bf16): products of
+    such operands accumulate in f32 and round to it afterwards."""
+    return dtype.is_floating_point and torch.finfo(dtype).bits < 32
+
+
+def dense_apply(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor = None
+) -> torch.Tensor:
+    """As the JAX package's ``_dense_apply`` (models/attention.py:424-431)
+    and flax's ``nn.Dense``: input and parameters promoted to one dtype,
+    the product rounded to it, then the bias added in it. ``weight`` is
+    nn.Linear's (out, in). Below f32 the bias is a separate add:
+    ``F.linear`` with a bias adds it inside the product and rounds once,
+    which in bf16 differs by a rounding step. In f32 and wider the product
+    is already in the working dtype, so the fused bias rounds the same."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if bias is None or not narrow(dt):
+        return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+    return F.linear(x.to(dt), weight.to(dt)) + bias.to(dt)

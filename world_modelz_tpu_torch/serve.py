@@ -12,6 +12,9 @@ and the HTTP layer:
   (``stats["padded_rows"]`` counts the rows wasted on padding).
 - Streaming sessions (``open_session``): the seed clip is encoded once; each
   ``generate()`` continues from the session's rolled token context.
+- Both programs run the tokenizer and the denoiser in eval mode (flax's
+  ``train=False``, as the JAX service applies them), whatever mode the
+  caller left them in, and give every submodule its own mode back after.
 
 Example:
     svc = RolloutService(tok, model, num_frames=8)
@@ -22,6 +25,7 @@ Example:
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -50,6 +54,21 @@ def rolled_context(tokens: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
         return tokens  # the context is just the generation slot
     full = torch.cat([tokens[:, :-1], gen.to(tokens.dtype)], dim=1)
     return torch.cat([full[:, -(s - 1):], tokens[:, -1:]], dim=1)
+
+
+@contextlib.contextmanager
+def eval_mode(*modules: torch.nn.Module):
+    """Run the block with ``modules`` in eval mode (dropout off, BatchNorm
+    on its running statistics), then give each submodule its own mode
+    back."""
+    saved = [(m, m.training) for module in modules for m in module.modules()]
+    for module in modules:
+        module.eval()
+    try:
+        yield
+    finally:
+        for m, training in saved:
+            m.training = training
 
 
 class RolloutSession:
@@ -157,6 +176,9 @@ class RolloutService:
         sizes.append(self._batch_size)
         self._sizes = sorted(set(sizes))
         self._lifecycle = threading.Lock()  # orders submit() vs close()
+        # one program at a time: open_session encodes on the caller's
+        # thread, the worker runs the rest, and each switches the modes
+        self._programs = threading.Lock()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -167,7 +189,8 @@ class RolloutService:
         """(b, S, H, W, C) pixels -> (b, S, th, tw) tokens."""
         x = torch.as_tensor(seeds, dtype=torch.float32, device=self._device)
         b, s = x.shape[:2]
-        tokens = self._tok.encode(x.reshape(b * s, *x.shape[2:]))
+        with self._programs, eval_mode(self._tok):
+            tokens = self._tok.encode(x.reshape(b * s, *x.shape[2:]))
         self.stats["encode_calls"] += 1
         return tokens.reshape(b, s, *tokens.shape[1:]).cpu().numpy()
 
@@ -176,14 +199,15 @@ class RolloutService:
         """(b, S, th, tw) tokens -> ((b, T, H, W, C) pixels, rolled context)."""
         tokens = torch.as_tensor(ctx, device=self._device).long()
         k = self._tok.num_embeddings
-        gen = rollout_frames(
-            self._model, tokens,
-            num_frames=self.num_frames, num_classes=k, mask_token=k,
-            num_iterations=self._num_iterations,
-            sample_topk=self._sample_topk, generator=self._generator,
-        )  # (b, T, th, tw)
-        b, t = gen.shape[:2]
-        decoded = self._tok.decode(gen.reshape(b * t, *gen.shape[2:]))
+        with self._programs, eval_mode(self._tok, self._model):
+            gen = rollout_frames(
+                self._model, tokens,
+                num_frames=self.num_frames, num_classes=k, mask_token=k,
+                num_iterations=self._num_iterations,
+                sample_topk=self._sample_topk, generator=self._generator,
+            )  # (b, T, th, tw)
+            b, t = gen.shape[:2]
+            decoded = self._tok.decode(gen.reshape(b * t, *gen.shape[2:]))
         decoded = decoded.reshape(b, t, *decoded.shape[1:])
         new_ctx = rolled_context(tokens, gen)
         return decoded.float().cpu().numpy(), new_ctx.cpu().numpy()
