@@ -125,6 +125,11 @@ BWD_BF16_TOL = 3e-2
 # and at least this share of dq, dk and dv bitwise equal
 FLASH_BWD_BF16_TOL = 2.0**-7
 FLASH_BWD_BF16_EQUAL = 0.99
+# the bf16 forwards (flash_fwd, local3d_fwd) vs plain versions that round P
+# at the TPU kernels' points, fed the same bf16 operands: times max |out|,
+# and at least this share of out bitwise equal
+FWD_BF16_TOL = 2.0**-7
+FWD_BF16_EQUAL = 0.99
 STAT_TOL = 1e-4  # lse and delta (f32 in both), times max(1, max |stat|)
 # card vs CPU gradient of each parameter tensor, times max(max |its CPU
 # gradient|, GRAD_FLOOR x the largest gradient of any tensor)
@@ -286,6 +291,36 @@ def window_pairs(s, h, w, extents) -> int:
     return axis(s, extents[0]) * axis(h, extents[1]) * axis(w, extents[2])
 
 
+def local3d_executed_ops(b, s, h, w, heads, dh, extents) -> int:
+    """The products the tensor-core local3d_fwd executes (2 flops per
+    multiply-add): each warp (16 query positions of a block's 64 or 32)
+    takes Q K^T over every
+    staged 64-position tile of its block's key band in each frame of the
+    window in sweep 1, and Q K^T and P V again in sweep 2, over 32 keys of
+    the tile where the band is one tile and the warp's own band fits in
+    32 (csrc/local3d_fwd.cu, local3d_mma.cuh)."""
+    es, eh, _ = extents
+    hw = h * w
+    # query positions per block: 64, or 32 where 64 positions' key band
+    # would not fit one 64-position tile
+    own = 64 if min((min(64, hw) - 1) // w + 1 + 2 * eh, h) * w <= 64 else 32
+
+    def band(p0, p1):
+        return max(p0 // w - eh, 0) * w, (min((p1 - 1) // w + eh, h - 1) + 1) * w
+
+    keys = 0  # tile keys dotted per query row, summed over warps and frames
+    for f in range(s):
+        frames = min(f + es, s - 1) - max(f - es, 0) + 1
+        for p0 in range(0, hw, own):
+            lo, hi = band(p0, min(p0 + own, hw))
+            tiles = -(-(hi - lo) // 64)
+            for pw in range(p0, p0 + own, 16):
+                wlo, whi = band(pw, max(min(pw + 16, hw), pw + 1))
+                narrow = tiles == 1 and whi - wlo <= 32
+                keys += frames * tiles * (32 if narrow else 64)
+    return keys * b * heads * 3 * 2 * 16 * dh
+
+
 def ptxas_summary(build_log: str):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     name and template arguments, registers, barriers and shared memory, and
@@ -329,19 +364,30 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 
 def check_local3d(torch, dev):
-    """Kernel A against its plain version at the serving, training and a
-    multi-head asymmetric shape, in f32 and bf16. Returns the serving-shape
-    bf16 record."""
+    """Kernel A against its plain version, ``local3d_attention_rounded``
+    fed the same operands, at the serving, training and a multi-head
+    asymmetric shape, at 34-frame clips (which the TPU forward normalises
+    P for), and at 16 x 16 frames at batch 8 and 2 (blocks of 32 queries,
+    with one and two groups of warps), in f32 (the CUDA-core kernel) and
+    bf16 (the tensor-core kernel at dh 64 and 128, rounding P where the
+    TPU kernel does). bf16 must lie within FWD_BF16_TOL x max |out| and be
+    at least FWD_BF16_EQUAL bitwise equal, f32 within F32_TOL; two
+    launches must be bitwise equal. Returns the serving-shape bf16
+    record."""
     import torch.nn.functional as F
 
+    from world_modelz_tpu_torch.kernels import local3d as kl
     from world_modelz_tpu_torch.kernels import local3d_attention_fwd
-    from world_modelz_tpu_torch.models.attention import local3d_attention
+    from world_modelz_tpu_torch.models.attention import local3d_attention_rounded
 
     cases = [  # name, (B, S, H, W), heads, dh, extents
         ("serving", (8, 6, 8, 8), 1, 128, (3, 1, 1)),
         ("train_m3_b64", (64, 6, 8, 8), 1, 128, (3, 1, 1)),
         ("training", (8, 6, 16, 16), 1, 128, (3, 1, 1)),
+        ("frames16_b2", (2, 6, 16, 16), 1, 128, (3, 1, 1)),
         ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1)),
+        ("clip34", (2, 34, 8, 8), 1, 128, (3, 1, 1)),
+        ("clip34_multihead", (2, 34, 8, 8), 2, 64, (1, 2, 1)),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
     serving = None
@@ -350,19 +396,31 @@ def check_local3d(torch, dev):
             shape = (b, s, h, w, heads * dh)
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for _ in range(3))
+            route = kl.fwd_route(shape, heads, ext, dtype)
+            divide_after = kl.divides_after_product(shape, heads, ext, dtype)
             out = local3d_attention_fwd(q, k, v, ext, heads)
-            plain = local3d_attention(q.float(), k.float(), v.float(), ext, heads)
+            again = local3d_attention_fwd(q, k, v, ext, heads)
+            plain = local3d_attention_rounded(q, k, v, ext, heads, divide_after)
             torch.cuda.synchronize()
-            err = float((out.float() - plain).abs().max())
-            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-            if not err <= tol:
+            if not torch.equal(out, again):
+                raise AssertionError(f"local3d {name} {dtype}: two launches differ")
+            err = float((out.float() - plain.float()).abs().max())
+            peak = float(plain.float().abs().max())
+            bf16 = dtype == torch.bfloat16
+            lim = FWD_BF16_TOL * peak if bf16 else F32_TOL
+            if not err <= lim:
                 raise AssertionError(
-                    f"local3d {name} {dtype}: max abs err {err} > {tol}")
+                    f"local3d {name} {dtype}: max abs err {err} > {lim}")
+            equal = float((out == plain).float().mean())
+            if bf16 and not equal >= FWD_BF16_EQUAL:
+                raise AssertionError(
+                    f"local3d {name} {dtype}: {equal:.4f} bitwise equal < "
+                    f"{FWD_BF16_EQUAL}")
             kernel = lambda: local3d_attention_fwd(q, k, v, ext, heads)  # noqa: E731
             ms = device_ms(torch, kernel, 100)
             launch_ms = cuda_ms(torch, kernel, 200)
-            plain_ms = device_ms(
-                torch, lambda: local3d_attention(q, k, v, ext, heads), 10)
+            plain_ms = device_ms(torch, lambda: local3d_attention_rounded(
+                q, k, v, ext, heads, divide_after), 10)
             # library yardstick: SDPA over all S*H*W tokens with a dense
             # boolean window mask
             n = s * h * w
@@ -375,12 +433,19 @@ def check_local3d(torch, dev):
             ops = 4 * dh * heads * b * window_pairs(s, h, w, ext)
             tname = str(dtype).replace("torch.", "")
             bound_ms, bound_by = bound(nbytes, ops, tname)
-            log(f"local3d_fwd {name} {tname} {shape} extents={ext}: "
-                f"max_abs_err={err:.3g} (tol {tol}) kernel_ms={ms:.5f} "
+            executed = ""
+            if route != kl.ROUTE_CUDA_CORES:
+                done = local3d_executed_ops(b, s, h, w, heads, dh, ext)
+                executed = (f" executed {done / ops:.3f}x the window's products "
+                            f"({done / ms / 1e9:.2f} TFLOP/s)")
+            log(f"local3d_fwd {name} {tname} {shape} extents={ext} route={route} "
+                f"(divide_after={divide_after}): max_abs_err={err:.3g} (tol "
+                f"{lim:.3g}) bitwise_equal={equal:.5f}; repeat bitwise; "
+                f"kernel_ms={ms:.5f} ({ops / ms / 1e9:.2f} TFLOP/s;{executed}) "
                 f"back_to_back_ms={launch_ms:.5f} plain_ms={plain_ms:.5f} "
-                f"library_ms={lib_ms:.5f} "
+                f"library_ms={lib_ms:.5f} (kernel/SDPA {ms / lib_ms:.4f}) "
                 f"bound_us={bound_ms * 1e3:.4f} ({bound_by})")
-            if name == "serving" and dtype == torch.bfloat16:
+            if name == "serving" and bf16:
                 serving = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms)
@@ -789,11 +854,13 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
     tensor, as DenseAttention hands them over. Each kernel is fed the same
     inputs as its plain version (the operands in their own dtype, so that
     both round P and dS to bf16 at the same points, and the kernels' own
-    out, lse and delta), and must repeat bitwise. In bf16, dq, dk and dv
-    must lie within FLASH_BWD_BF16_TOL x max |x| and be at least
+    out, lse and delta), and must repeat bitwise. In bf16, out must lie
+    within FWD_BF16_TOL x max |out| and be at least FWD_BF16_EQUAL bitwise
+    equal, dq, dk and dv within FLASH_BWD_BF16_TOL x max |x| and at least
     FLASH_BWD_BF16_EQUAL bitwise equal, which a kernel that rounds P or dS
     elsewhere fails. Logs each kernel's TFLOP/s (4, 6 and 8 B H N^2 D
-    operations). Returns {kernel: record} at the training shape."""
+    operations; the bf16 forward executes 6, Q K^T twice). Returns
+    {kernel: record} at the training shape."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import (
@@ -813,6 +880,7 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         ("ragged", (16, 8, 1000, 64), torch.bfloat16),
         ("d128_bf16", (8, 4, 1024, 128), torch.bfloat16),
         ("d128", (8, 4, 1024, 128), torch.float32),
+        ("one_block", (8, 8, 512, 64), torch.bfloat16),  # P / l rounded
     ]
     gen = torch.Generator(device=dev).manual_seed(10)
     records = {}
@@ -835,7 +903,7 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
                 (out, lse, dq, delta, dk, dv), again)):
             raise AssertionError(f"flash {name}: two launches differ")
         bf16 = dtype == torch.bfloat16
-        fwd_tol = BF16_TOL if bf16 else F32_TOL
+        fwd_tol = FWD_BF16_TOL if bf16 else F32_TOL
         bwd_tol = FLASH_BWD_BF16_TOL if bf16 else BWD_F32_TOL
         errs, equal = {}, {}
         for label, got, want, tol in (
@@ -844,18 +912,19 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
                 ("dk", dk, p_dk, bwd_tol), ("dv", dv, p_dv, bwd_tol)):
             err = float((got.float() - want.float()).abs().max())
             scale_x = float(want.float().abs().max())
-            grad = label in ("dq", "dk", "dv")
-            lim = tol * (scale_x if bf16 and grad else max(1.0, scale_x))
+            rounded = bf16 and label not in ("lse", "delta")
+            lim = tol * (scale_x if rounded else max(1.0, scale_x))
             errs[label] = err
             if not err <= lim:
                 raise AssertionError(
                     f"flash {name} {dtype} {label}: max abs err {err} > {lim}")
-            if bf16 and grad:
+            if rounded:
+                need = FWD_BF16_EQUAL if label == "out" else FLASH_BWD_BF16_EQUAL
                 equal[label] = float((got == want).float().mean())
-                if not equal[label] >= FLASH_BWD_BF16_EQUAL:
+                if not equal[label] >= need:
                     raise AssertionError(
                         f"flash {name} {dtype} {label}: {equal[label]:.4f} bitwise "
-                        f"equal < {FLASH_BWD_BF16_EQUAL}")
+                        f"equal < {need}")
         del p_out, p_lse, p_dq, p_delta, p_dk, p_dv
         tname = str(dtype).replace("torch.", "")
         isz = qkv.element_size()
@@ -901,13 +970,15 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         log(f"flash {name} {tname} (B, H, N, D)={(b, h, n, d)}: max_abs_err "
             + " ".join(f"{key}={val:.3g}" for key, val in errs.items())
             + f" (tol fwd {fwd_tol}, bwd {bwd_tol}, stats {STAT_TOL}, x max(1, "
-            f"max|x|){'; bf16 grads x max|x|' if bf16 else ''})"
+            f"max|x|){'; bf16 out and grads x max|x|' if bf16 else ''})"
             + "".join(f" {key} {val:.4f} bitwise equal" for key, val in equal.items())
             + "; repeat bitwise | " + " ".join(
                 f"{key}: kernel_ms={ms[key]:.5f} "
                 f"({ops[key] / ms[key] / 1e9:.2f} TFLOP/s) plain_ms={plain_ms[key]:.5f} "
                 f"bound_us={bounds[key][0] * 1e3:.4f} ({bounds[key][1]})"
                 for key in ms)
+            + (f" | fwd executes 6 B H N^2 D: {6 * work / ms['flash_fwd'] / 1e9:.2f} "
+               "TFLOP/s" if bf16 else "")
             + f" | fwd back_to_back_ms={b2b:.5f} | SDPA fwd library_ms="
             f"{lib_fwd:.5f}, fwd+bwd {lib_all:.5f} | {depth} launches of each "
             f"per train step")

@@ -14,18 +14,38 @@
 // for real rows. Softmax statistics and sums in f32; out in the input
 // dtype, written (B, N, H, D)-contiguous so the heads merge without a copy.
 //
+// In bf16 it rounds P where the stock kernel does. That kernel walks the
+// keys in blocks of `block` keys (512, 256 or 128, as
+// `_flash_dense_attention` picks it) and per block, with the running max m
+// and sum l: m' = max(m, max s), P = exp(s - m'), l_corr = exp(m - m') l,
+// l' = sum P + l_corr, acc = acc * (l_corr / l') + (bf16(P) v) / l'
+// (:440-473). A single block (`normalise`) rounds P / l instead
+// (:540-553).
+//
 // What bounds it on the H100. At the sparse trainer's shape (B=16, H=8,
 // N=1024, D=64, bf16) it reads q, k, v (25 MB) and writes out and lse: ~8 us
 // at 3.35 TB/s, against 4 B H N^2 D = 34.4 GFLOP of products, ~35 us at the
 // bf16 tensor-core peak: bound by operations.
 //
-// Design (simple and right first; tensor cores are later work). One block
-// of 256 threads per (64-query tile, h, b), the tiling of flash_tile.cuh:
-// the query tile stays in shared memory, 64-key tiles of K and V are staged
-// through it in order, the 4 x 4 scores per thread are CUDA-core f32 FMAs,
-// the softmax is online (running max and sum per row, the accumulator
-// rescaled per key tile), and the weights go through shared memory into
-// the P v product. Each block sums in a fixed order: two launches are
+// Design. bf16: flash_mma.cuh's tiling. A block of 8 warps owns 128
+// queries of one (b, h), 16 per warp, with Q held as mma A fragments in
+// registers (D = 64; D = 128 reads them from shared memory). Per key block
+// it walks the block's keys twice, 128 (D = 64) or 64 keys a step, with
+// the next step's cp.async copies in flight: sweep 1 reads K only, twice
+// as many keys a step, and takes S = Q K^T (mma.sync m16n8k16) for the
+// block's row max (and, when normalising, the online sum); sweep 2 reads
+// K and V, recomputes S, forms P = exp(s - m'), sums it, rounds it into
+// the A fragments of P V (`to_a_frags`) and accumulates P V in a second
+// set of f32 registers, which the block's end folds into acc in the stock
+// kernel's order. The max has to be known before P is rounded, so Q K^T
+// runs twice: 1.5x the products of one pass. exp is the SFU's (__expf),
+// and P / l is P times l's correctly rounded reciprocal: each within a
+// few f32 ulps of the stock kernel's value before the bf16 rounding.
+// f32: flash_tile.cuh's CUDA-core tiling (one block of 256 threads per
+// 64-query tile, the query tile in shared memory, 64-key tiles of K and V
+// staged through it, 4 x 4 scores per thread as f32 FMAs, an online
+// softmax per 64 keys, the weights in f32 through shared memory into the
+// P v product). Each block sums in a fixed order: two launches are
 // bitwise equal.
 
 #include <cuda_bf16.h>
@@ -33,11 +53,13 @@
 
 #include <math.h>
 
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
 
 using namespace wmz::flash;
+namespace mma = wmz::mma;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -110,6 +132,186 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// The tensor-core forward (flash_mma.cuh): kWarps warps own 16 kWarps
+// queries. A stage holds 2 kKeys rows: K and V of kKeys keys in sweep 2,
+// K of 2 kKeys keys in sweep 1 (V is not needed there), so a 512-key block
+// takes 2 + 4 steps at D = 64. S is taken kSub keys at a time (32 at D =
+// 128, so that S, P and both sums fit in registers).
+
+using mma::bf16;
+constexpr int kWarps = 8, kOwn = 16 * kWarps;
+template <int D>
+__host__ __device__ constexpr int keys_per_step() {
+  return D == 64 ? 128 : 64;
+}
+
+template <int D, bool kNormalise>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, Strides sq, Strides sk, Strides sv, int H,
+                     int N, float scale, int block) {
+  constexpr int L = D + mma::kPad, kKeys = keys_per_step<D>(), kSub = D == 64 ? 64 : 32;
+  // Q as A fragments in registers at D = 64; at D = 128 they would push
+  // the two 16 x D sums out of registers, so Q K^T reads Q from the tile
+  constexpr bool kQInRegisters = D == 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KV = Qs + kOwn * L;  // two stages of 2 kKeys rows
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  // per key block (every one starts below N, since N > padded N - 128):
+  // n1 sweep-1 steps of k1 keys, then n2 sweep-2 steps of kKeys keys
+  const int k1 = min(2 * kKeys, block), n1 = block / k1, n2 = block / kKeys;
+  const int per_block = n1 + n2, steps = per_block * ((N + block - 1) / block);
+  auto issue = [&](int i) {
+    const int r = i % per_block, blk0 = i / per_block * block;
+    bf16* stage = KV + (i & 1) * 2 * kKeys * L;
+    if (r < n1) {
+      const int k0 = blk0 + r * k1;
+      mma::load_rows_async<D, kKeys>(stage, kb, sk.n, k0, N);
+      if (k1 > kKeys) mma::load_rows_async<D, kKeys>(stage + kKeys * L, kb, sk.n, k0 + kKeys, N);
+    } else {
+      const int k0 = blk0 + (r - n1) * kKeys;
+      mma::load_rows_async<D, kKeys>(stage, kb, sk.n, k0, N);
+      mma::load_rows_async<D, kKeys>(stage + kKeys * L, vb, sv.n, k0, N);
+    }
+  };
+
+  mma::load_rows_async<D, kOwn>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
+  issue(0);
+  mma::cp_async_commit();
+
+  uint32_t qa[D / 16][4];
+  float acc[D / 8][4], o[D / 8][4];
+  mma::zero<D / 8>(acc);
+  mma::zero<D / 8>(o);
+  // this lane's rows gr and gr + 8: the running (m, l) over the finished
+  // key blocks, the current block's max (and, with normalise, its online
+  // sum) from sweep 1, and this lane's part of sum P in sweep 2
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float m_blk[2], l_blk[2], m_next[2], p_sum[2], inv_l[2];
+  // S for kSub keys from row c0 of the stage, the first at key k0 + c0,
+  // scaled (s *= sm_scale, rounded apart from the exponent's subtraction)
+  // and -inf at or past N; mt: this lane's row maxima
+  auto scores = [&](const bf16* Ks, int c0, int k0, float s[kSub / 8][4], float mt[2]) {
+    if constexpr (kQInRegisters)
+      mma::warp_dots_frags<D, kSub>(qa, Ks + c0 * L, s);
+    else
+      mma::warp_dots<D, kSub>(Qs + 16 * warp * L, Ks + c0 * L, s);
+    const bool full = k0 + c0 + kSub <= N;
+    mt[0] = mt[1] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = full || k0 + c0 + 8 * j + 2 * t + (e & 1) < N ? __fmul_rn(s[j][e], scale)
+                                                                : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+  };
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) issue(it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (kQInRegisters)
+      if (it == 0) mma::load_a_frags<D>(Qs + 16 * warp * L, qa);
+    const int r = it % per_block, blk0 = it / per_block * block;
+    const bf16* Ks = KV + (it & 1) * 2 * kKeys * L;
+    if (r < n1) {  // sweep 1: the block's max; with normalise, its sum online
+      if (r == 0) m_blk[0] = m_blk[1] = -INFINITY, l_blk[0] = l_blk[1] = 0.f;
+      for (int half = 0; half < k1 / kKeys; ++half)
+#pragma unroll
+        for (int c0 = half * kKeys; c0 < (half + 1) * kKeys; c0 += kSub) {
+          float s[kSub / 8][4], mt[2];
+          scores(Ks, c0, blk0 + r * k1, s, mt);
+          // the first sub-tile of a block holds a real key: m_new is finite
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float m_new = fmaxf(m_blk[i], mma::quad_max(mt[i]));
+            if (kNormalise) {
+              float ps = 0.f;
+#pragma unroll
+              for (int j = 0; j < kSub / 8; ++j)
+                ps += __expf(s[j][2 * i] - m_new) + __expf(s[j][2 * i + 1] - m_new);
+              l_blk[i] = l_blk[i] * __expf(m_blk[i] - m_new) + mma::quad_sum(ps);
+            }
+            m_blk[i] = m_new;
+          }
+        }
+      if (r == n1 - 1) {  // sweep 1 done: m', and sweep 2 starts
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m_next[i] = fmaxf(m_run[i], m_blk[i]);
+          p_sum[i] = 0.f;
+          inv_l[i] = __frcp_rn(l_blk[i]);
+        }
+      }
+    } else {  // sweep 2: P = exp(s - m'), rounded, into P V
+      const bf16* Vs = Ks + kKeys * L;
+#pragma unroll
+      for (int c0 = 0; c0 < kKeys; c0 += kSub) {
+        float s[kSub / 8][4], mt[2];
+        scores(Ks, c0, blk0 + (r - n1) * kKeys, s, mt);
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float p = __expf(__fsub_rn(s[j][e], m_next[i]));
+            if (kNormalise) {
+              s[j][e] = __fmul_rn(p, inv_l[i]);  // P / l to an f32 ulp
+            } else {
+              p_sum[i] += p;
+              s[j][e] = p;
+            }
+          }
+        uint32_t pa[kSub / 16][4];
+        mma::to_a_frags<kSub>(s, pa);  // P to bf16 (flash_attention.py:471)
+        mma::warp_product<D, kSub>(pa, Vs + c0 * L, o);
+      }
+      if (r == per_block - 1) {  // the block's end: fold P V into acc
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (kNormalise) {  // one block: acc = bf16(P / l) v
+            l_run[i] = l_blk[i];
+          } else {
+            const float l_corr = __fmul_rn(__expf(m_run[i] - m_next[i]), l_run[i]);
+            const float l_next = __fadd_rn(mma::quad_sum(p_sum[i]), l_corr);
+            const float inv = __fdiv_rn(1.f, l_next), keep = __fmul_rn(l_corr, inv);
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+              for (int e = 2 * i; e < 2 * i + 2; ++e)
+                o[j][e] = __fadd_rn(__fmul_rn(acc[j][e], keep), __fmul_rn(o[j][e], inv));
+            l_run[i] = l_next;
+          }
+          m_run[i] = m_next[i];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = o[j][e], o[j][e] = 0.f;
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  mma::store_rows<D>(acc, out + ((long long)b * N * H + h) * D, (long long)H * D,
+                     q0 + 16 * warp, N);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = q0 + 16 * warp + gr + 8 * i;
+      if (n < N) lse[((long long)b * H + h) * N + n] = m_run[i] + logf(l_run[i]);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, const long long* st, int B, int H, int N,
@@ -127,31 +329,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     float* lse, const long long* st, int B, int H, int N,
-                     int D, float scale, cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, out, lse, st, B, H, N, scale, stream);
-  return launch<T, 128>(q, k, v, out, lse, st, B, H, N, scale, stream);
+template <int D, bool kNormalise>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       float* lse, const long long* st, int B, int H, int N,
+                       float scale, int block, cudaStream_t stream) {
+  const size_t bytes = mma::tile_bytes<D>(kOwn + 4 * keys_per_step<D>());
+  auto kernel = flash_fwd_mma_kernel<D, kNormalise>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  kernel<<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, H, N, scale, block);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// strides: int64 [9], the b, h, n element strides of q, k, v. dtype: 0 =
-// float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// strides: int64 [9], the b, h, n element strides of q, k, v. block: the
+// stock kernel's key block (a multiple of 128); normalise: 1 when one
+// block covers the padded N. dtype: 0 = float32 (the CUDA-core kernel,
+// which ignores block and normalise), 1 = bfloat16 (the tensor-core
+// kernel). Returns the launch's cudaError_t.
 extern "C" int wmz_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const long long* strides,
-                             int B, int H, int N, int D, float scale,
-                             int dtype, void* stream) {
+                             int B, int H, int N, int D, float scale, int block,
+                             int normalise, int dtype, void* stream) {
   if (wmz::flash::bad_head_size(D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
-  if (dtype == 0)
-    return (int)launch_d<float>(q, k, v, out, ls, strides, B, H, N, D, scale,
-                                st);
-  if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(q, k, v, out, ls, strides, B, H, N, D,
-                                        scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (D == 64) return (int)launch<float, 64>(q, k, v, out, ls, strides, B, H, N, scale, st);
+    return (int)launch<float, 128>(q, k, v, out, ls, strides, B, H, N, scale, st);
+  }
+  if (dtype != 1 || block <= 0 || block % 128 || (normalise && block < N))
+    return (int)cudaErrorInvalidValue;
+#define WMZ_FLASH_FWD_MMA(DD, NN) \
+  return (int)launch_mma<DD, NN>(q, k, v, out, ls, strides, B, H, N, scale, block, st)
+  if (D == 64) {
+    if (normalise) WMZ_FLASH_FWD_MMA(64, true);
+    WMZ_FLASH_FWD_MMA(64, false);
+  }
+  if (normalise) WMZ_FLASH_FWD_MMA(128, true);
+  WMZ_FLASH_FWD_MMA(128, false);
+#undef WMZ_FLASH_FWD_MMA
 }

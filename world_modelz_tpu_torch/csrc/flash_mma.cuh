@@ -1,9 +1,10 @@
 // Tensor-core tiling for the dense flash-attention kernels on Hopper
 // (sm_90a): bf16 tiles in shared memory, `cp.async` staging, `ldmatrix`
 // fragments and `mma.sync.aligned.m16n8k16` products with f32 sums.
-// flash_bwd.cu builds its bf16 backward pair on it; a forward takes the
-// same pieces (Q K^T with `warp_dots`, P rounded into `to_a_frags`, P V with
-// `warp_product`).
+// flash_bwd.cu builds its bf16 backward pair on it; the forwards
+// (flash_fwd.cu, local3d_fwd.cu) hold Q as A fragments in registers
+// (`load_a_frags`, `warp_dots_frags` for Q K^T), round P into `to_a_frags`
+// and take P V with `warp_product`.
 //
 // A block of W warps owns 16 W rows of one side (queries or keys) of one
 // (b, h); warp w owns rows 16 w .. 16 w + 15 and keeps its sums in
@@ -148,6 +149,48 @@ __device__ __forceinline__ void warp_dots(const bf16* A, const bf16* B, float ac
       mma_16816(acc[2 * j + 1], a, b[2], b[3]);
     }
   }
+}
+
+// the A fragments of this warp's 16 rows of the padded tile A (D values a
+// row): one 16 x 16 slice of the depth per entry
+template <int D>
+__device__ __forceinline__ void load_a_frags(const bf16* A, uint32_t a[D / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const bf16* a_row = A + (lane & 15) * (D + kPad) + (lane >> 4) * 8;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) ldmatrix_x4(a[kc], a_row + kc * 16);
+}
+
+// warp_dots with A held as fragments (`load_a_frags`): acc[j] = the m16n8
+// tile of columns 8 j .. 8 j + 7 of A B^T for the Cols rows of the padded
+// tile B, which may start at any row of a tile
+template <int D, int Cols>
+__device__ __forceinline__ void warp_dots_frags(const uint32_t a[D / 16][4], const bf16* B,
+                                                float acc[Cols / 8][4]) {
+  constexpr int L = D + kPad;
+  const int lane = threadIdx.x & 31;
+  zero<Cols / 8>(acc);
+  const bf16* b_row = B + ((lane & 7) + (lane >> 4) * 8) * L + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+    for (int j = 0; j < Cols / 16; ++j) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_row + j * 16 * L + kc * 16);
+      mma_16816(acc[2 * j], a[kc], b[0], b[1]);
+      mma_16816(acc[2 * j + 1], a[kc], b[2], b[3]);
+    }
+}
+
+// max and sum over the four lanes (t = 0..3) that hold one row of an m16n8
+// tile; every lane gets the result
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // the m16n8 f32 tiles s[2 k], s[2 k + 1], rounded to bf16: the A fragment

@@ -9,31 +9,65 @@
 // What it computes. q, k, v, out are (B, S, H, W, heads * dh), contiguous.
 // Query (b, s, h, w) of head n attends to the keys with |ds| <= es inside
 // the clip and |dh| <= eh, |dw| <= ew inside the frame; scores are scaled
-// by dh^-1/2 and softmaxed over those keys only, then multiplied by V.
+// by dh^-1/2 and softmaxed over those keys only, then multiplied by V. In
+// bf16 P = exp(s - m), m the max over the query's whole window, is rounded
+// where the TPU kernel for the shape rounds it: unnormalised, with P V
+// divided by the sum l after the product (`_attn_kernel_allframes`,
+// :531-539; route 1), or normalised first (`_attn_kernel` :207-211,
+// `_attn_kernel_tiled` :924-928; route 2). The caller picks the route
+// (kernels/local3d.py:fwd_route).
 //
 // What bounds it on the H100. At the serving shape (B=8, S=6, 8x8 grid,
 // dh=128, extents (3,1,1)) one launch moves ~3.1 MB in bf16 (q, k, v read
 // once, out written once), ~0.94 us at 3.35 TB/s, and does ~59 MFLOP,
 // ~0.06 us at the bf16 tensor-core peak: memory-bound, and at that size
-// bound in practice by latency and by the launch itself.
+// bound in practice by latency and by the launch itself. On the card the
+// tensor-core kernel is bound by each SM's intake of staged tiles and by
+// the chain of steps of a block, not by its (dense) products.
 //
-// Design. The TPU kernels multiply dense 7-frame blocks and mask the
-// scores (with a max over valid keys only, local3d.py:520-530, to avoid
-// NaN rows). Here the window is walked directly, so a query never visits
-// an invalid key and always visits itself: the normaliser is never 0.
-// One warp per query, split into four groups of eight lanes; each group
-// scores its own key of the window (keys g, g+4, g+8, ... of the window in
-// row-major order), so four keys' loads are in flight per warp. Lane t of
-// a group holds elements [t*E, t*E+E) of q (pre-scaled), of the key and
-// value rows (vector loads) and of its f32 accumulator, E = dh / 8; a
-// three-step shuffle sums the dot product within the group. Each group
-// keeps an online softmax (running max, running sum); the four partial
-// states are merged by two shuffles at the end. q, k and v are read in
-// place in their (B, S, H, W, heads * dh) layout: no transposes and no
-// zero-padded frames. The window's k/v rows are re-read from L2 by every
-// query that sees them; shared-memory K/V tiles and tensor-core products
-// are later work. The window and the warp layout are defined once, for
-// this kernel and the backward pair, in local3d_window.cuh.
+// Design, bf16 at dh = 64 and 128 (routes 1, 2): tensor cores on
+// flash_mma.cuh's tiles and local3d_mma.cuh's window. A block owns 16
+// kWarps consecutive query positions of one (b, head, frame s), 16 per
+// warp, with Q held as mma A fragments in registers: kWarps = 4, or 2
+// where 64 positions' key band would not fit one tile. It visits only the
+// frames of the clip inside s +- es (`_valid_offsets`, :481) and, of each,
+// the rows within eh of its queries' rows (`key_band`), staged as
+// 64-position tiles with cp.async, the next step's tiles in flight while
+// the current ones are used. Each warp takes S = Q K^T (mma.sync
+// m16n8k16) over a whole tile, or over the 32 keys of it that hold its
+// own band where they fit (every 8 x 8 frame), and masks the keys
+// outside each query's window with bits worked out once where the band is
+// one tile. The max runs over the whole window before P is rounded, so
+// the block walks its tiles twice: sweep 1 for the row max (route 2: and
+// the online sum), sweep 2 for P, rounded into the A fragments of P V
+// (`to_a_frags`), and its sum (route 1); a division by the sum is a
+// multiplication by its correctly rounded reciprocal (within an f32 ulp
+// of the TPU kernel's quotient before the bf16 rounding). Where the grid
+// leaves SMs to spare (the serving shape: 48 blocks) two groups of warps
+// split the window's tiles and merge their maxima, sums and P V sums in
+// group order; their window's K tiles (at most 8) are all staged up front
+// and stay for sweep 2, which then stages V alone. Otherwise one group,
+// with Q passing through the second stage, holds 70 KB at dh = 128 and
+// three blocks fit on an SM. Each warp sums in a fixed order: no atomics,
+// two launches are bitwise equal.
+//
+// Design, f32 and the other head sizes (route 0): CUDA cores, P in f32.
+// The TPU kernels multiply dense 7-frame blocks and mask the scores (with
+// a max over valid keys only, local3d.py:520-530, to avoid NaN rows). Here
+// the window is walked directly, so a query never visits an invalid key
+// and always visits itself: the normaliser is never 0. One warp per query,
+// split into four groups of eight lanes; each group scores its own key of
+// the window (keys g, g+4, g+8, ... of the window in row-major order), so
+// four keys' loads are in flight per warp. Lane t of a group holds
+// elements [t*E, t*E+E) of q (pre-scaled), of the key and value rows
+// (vector loads) and of its f32 accumulator, E = dh / 8; a three-step
+// shuffle sums the dot product within the group. Each group keeps an
+// online softmax (running max, running sum); the four partial states are
+// merged by two shuffles at the end. q, k and v are read in place in their
+// (B, S, H, W, heads * dh) layout: no transposes and no zero-padded
+// frames. The window's k/v rows are re-read from L2 by every query that
+// sees them. The window and the warp layout are defined once, for this
+// kernel and the backward pair, in local3d_window.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +75,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_mma.cuh"
+#include "local3d_mma.cuh"
 #include "local3d_window.cuh"
 #include "vec.cuh"
 
@@ -150,6 +188,295 @@ local3d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// The tensor-core forward (routes 1 and 2).
+
+namespace mma = wmz::mma;
+using mma::bf16;
+using wmz::l3d::kTileKeys;
+
+// kGroups groups of kWarps warps split the window's tiles: each group
+// takes its share of every step, and the groups merge their maxima (and
+// sums) after sweep 1 and their P V sums at the end, in group order.
+template <int D, int kWarps, int kGroups, bool kDivideAfter>
+__global__ void __launch_bounds__(32 * kWarps * kGroups, kGroups == 1 ? 3 : 1)
+local3d_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int S,
+                       int H, int W, int heads, int es, int eh, int ew, float scale) {
+  constexpr int kOwn = 16 * kWarps, L = D + mma::kPad;
+  // a stage holds 2 kGroups tiles of kTileKeys rows: sweep 1 stages that
+  // many K tiles (two per group), sweep 2 a K tile and its V tile per
+  // group. With more than one group a ring of two stages of kGroups V
+  // tiles follows: where the window has at most 4 kGroups K tiles, sweep 1
+  // leaves all of them in the two stages and sweep 2 stages V alone
+  constexpr int kUnit = kTileKeys * L, kStage = 2 * kGroups * kUnit;
+  constexpr int kRing = kGroups > 1 ? 2 * kGroups * kUnit : 0;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* KV = reinterpret_cast<bf16*>(smem_raw);  // two stages
+  bf16* Vring = KV + 2 * kStage;
+  const int HW = H * W;
+  const int s = blockIdx.y, head = blockIdx.z % heads, b = blockIdx.z / heads;
+  const int p0 = blockIdx.x * kOwn, p1 = min(p0 + kOwn, HW);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qw = warp % kWarps, grp = warp / kWarps;  // query sub-block, group
+  const int gr = lane >> 2, t = lane & 3;
+  const long long ld = (long long)heads * D;  // elements between positions
+  auto frame = [&](int f) { return ((long long)b * S + f) * HW * ld + head * D; };
+  const wmz::l3d::Band band = wmz::l3d::key_band(p0, p1, H, W, eh);
+  const int tiles = (band.hi - band.lo + kTileKeys - 1) / kTileKeys;
+  const int f0 = max(s - es, 0), frames = min(s + es, S - 1) - f0 + 1;
+  // the window's K tiles kt = 0 .. n - 1, frame by frame; sweep 1 takes
+  // 2 kGroups of them a step, sweep 2 kGroups (with their V tiles)
+  // with more than one group and at most 4 kGroups tiles, sweep 1 is one
+  // step that stages every K tile (all stay resident for sweep 2)
+  const int n = frames * tiles;
+  const bool resident = kGroups > 1 && n <= 4 * kGroups;
+  const int n1 = resident ? 1 : (n + 2 * kGroups - 1) / (2 * kGroups);
+  const int steps = n1 + (n + kGroups - 1) / kGroups;
+  // where K tile kt stays in resident mode
+  auto resident_k = [&](int kt) {
+    return KV + kt / (2 * kGroups) * kStage + kt % (2 * kGroups) * kUnit;
+  };
+  auto load = [&](bf16* dst, const bf16* src, int kt) {
+    const int t0 = band.lo + kt % tiles * kTileKeys;
+    mma::load_rows_async<D, kTileKeys>(dst, src + frame(f0 + kt / tiles), ld, t0, band.hi);
+  };
+  auto issue = [&](int i) {
+    bf16* stage = KV + (i & 1) * kStage;
+    if (resident && i == 0) {
+      for (int kt = 0; kt < n; ++kt) load(resident_k(kt), k, kt);
+      return;
+    }
+    for (int u = 0; u < 2 * kGroups; ++u) {
+      if (i < n1) {
+        if (2 * kGroups * i + u < n) load(stage + u * kUnit, k, 2 * kGroups * i + u);
+      } else if (resident) {
+        const int kt = kGroups * (i - n1) + u;
+        if (u < kGroups && kt < n) load(Vring + ((i - n1) & 1) * kGroups * kUnit + u * kUnit, v, kt);
+      } else {
+        const int kt = kGroups * (i - n1) + u / 2;
+        if (kt < n) load(stage + u * kUnit, u & 1 ? v : k, kt);
+      }
+    }
+  };
+
+  // Q into stage 1 (resident: the V ring's second slot, first written by
+  // sweep 2's second step) and step 0; Q's fragments into registers
+  bf16* Qs = resident ? Vring + kGroups * kUnit : KV + kStage;
+  mma::load_rows_async<D, kOwn>(Qs, q + frame(s), ld, p0, p1);
+  issue(0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+  mma::load_a_frags<D>(Qs + 16 * qw * L, qa);
+  __syncthreads();
+
+  // this lane's query rows gr and gr + 8 of the warp's 16
+  int hq[2], wq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pq = p0 + 16 * qw + gr + 8 * i;
+    hq[i] = pq / W;
+    wq[i] = pq - hq[i] * W;
+  }
+  // which of this lane's scores of KW keys from position t0 lie in their
+  // query's window (bit 4 j + e of the m16n8 tile j, element e);
+  // positions at or past the band's end are off the frame
+  auto window_bits = [&](int t0, auto kw) {
+    constexpr int KW = decltype(kw)::value;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int pk = t0 + 8 * j + 2 * t + c;
+        if (pk >= band.hi) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (wmz::l3d::in_window(pk, hq[i], wq[i], W, eh, ew)) bits |= 1u << (4 * j + 2 * i + c);
+      }
+    return bits;
+  };
+  using Full = std::integral_constant<int, kTileKeys>;
+  using Narrow = std::integral_constant<int, kTileKeys / 2>;
+  // where the band is one tile and this warp's own key band (the rows
+  // within eh of its 16 queries' rows) fits in half a tile, the warp takes
+  // its products over that half only, from row `off` of the tile
+  const wmz::l3d::Band wband =
+      wmz::l3d::key_band(p0 + 16 * qw, max(min(p0 + 16 * qw + 16, p1), p0 + 16 * qw + 1), H, W, eh);
+  const bool narrow = tiles == 1 && wband.hi - wband.lo <= kTileKeys / 2;
+  const int off = narrow ? min(wband.lo - band.lo, kTileKeys / 2) : 0;
+  // one tile's bits serve every frame
+  const uint32_t bits0 = narrow ? window_bits(band.lo + off, Narrow{})
+                                : window_bits(band.lo, Full{});
+  float acc[D / 8][4];
+  mma::zero<D / 8>(acc);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // one K tile kt from stage rows Ks (and V from Vs): S = Q K^T over KW
+  // keys from row `off`, scaled (rounded apart from the exponent's
+  // subtraction) and -inf outside the window; sweep 1 folds it into the
+  // row max (route 2: and the online sum), sweep 2 forms P = exp(s - m),
+  // rounds it where the TPU kernel does and adds P V
+  auto tile = [&](auto kw, const bf16* Ks, const bf16* Vs, int kt, bool sweep2) {
+    constexpr int KW = decltype(kw)::value;
+    float sc[KW / 8][4];
+    mma::warp_dots_frags<D, KW>(qa, Ks + off * L, sc);
+    const uint32_t bits =
+        tiles == 1 ? bits0 : window_bits(band.lo + kt % tiles * kTileKeys, Full{});
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = bits >> (4 * j + e) & 1u ? __fmul_rn(sc[j][e], scale) : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], sc[j][e]);
+      }
+    if (!sweep2) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], mma::quad_max(mt[i]));
+        if (!kDivideAfter && m_new != -INFINITY) {
+          float ps = 0.f;
+#pragma unroll
+          for (int j = 0; j < KW / 8; ++j)
+            ps += __expf(sc[j][2 * i] - m_new) + __expf(sc[j][2 * i + 1] - m_new);
+          l[i] = (m[i] == -INFINITY ? 0.f : l[i] * __expf(m[i] - m_new)) + mma::quad_sum(ps);
+        }
+        m[i] = m_new;
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = __expf(__fsub_rn(sc[j][e], m[i]));
+        if (kDivideAfter) {
+          l[i] += p;
+          sc[j][e] = p;
+        } else {
+          sc[j][e] = __fmul_rn(p, l[i]);  // l holds 1 / l here
+        }
+      }
+    uint32_t pa[KW / 16][4];
+    mma::to_a_frags<KW>(sc, pa);  // P to bf16 (local3d.py:536, :210)
+    mma::warp_product<D, KW>(pa, Vs + off * L, acc);
+  };
+  auto run = [&](const bf16* Ks, const bf16* Vs, int kt, bool sweep2) {
+    if (narrow)
+      tile(Narrow{}, Ks, Vs, kt, sweep2);
+    else
+      tile(Full{}, Ks, Vs, kt, sweep2);
+  };
+  // the groups' (m, l) of each query row, and after sweep 2 their P V sums
+  float* stats = reinterpret_cast<float*>(smem_raw + (2 * kStage + kRing) * sizeof(bf16));
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) issue(it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* stage = KV + (it & 1) * kStage;
+    if (it < n1) {  // sweep 1: the max over the window (route 2: and the sum)
+      if (resident) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int kt = grp + kGroups * u;
+          if (kt < n) run(resident_k(kt), nullptr, kt, false);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int kt = 2 * kGroups * it + 2 * grp + u;
+          if (kt < n) run(stage + (2 * grp + u) * kUnit, nullptr, kt, false);
+        }
+      }
+      if (it == n1 - 1) {  // sweep 1 done: merge the groups' (m, l)
+        if (kGroups > 1) {
+          if (t == 0) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float* st = stats + 2 * (grp * kOwn + 16 * qw + gr + 8 * i);
+              st[0] = m[i];
+              st[1] = l[i];
+            }
+          }
+          __syncthreads();
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = 16 * qw + gr + 8 * i;
+            float mg = -INFINITY, lg = 0.f;
+            for (int g = 0; g < kGroups; ++g) mg = fmaxf(mg, stats[2 * (g * kOwn + row)]);
+            for (int g = 0; g < kGroups; ++g) {
+              const float* st = stats + 2 * (g * kOwn + row);
+              if (st[0] != -INFINITY) lg += st[1] * __expf(st[0] - mg);
+            }
+            m[i] = mg;
+            l[i] = lg;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (m[i] == -INFINITY) m[i] = 0.f;  // a row past the frame: no keys
+          // route 1 sums P in sweep 2; route 2 multiplies P by 1 / l, within
+          // an f32 ulp of the TPU kernel's P / l before it is rounded
+          l[i] = kDivideAfter ? 0.f : __frcp_rn(l[i] > 0.f ? l[i] : 1.f);
+        }
+      }
+    } else {  // sweep 2: P = exp(s - m), rounded where the TPU kernel does, into P V
+      const int kt = kGroups * (it - n1) + grp;
+      if (kt < n) {
+        if (resident)  // K tile kt stayed where sweep 1 staged it
+          run(resident_k(kt), Vring + ((it - n1) & 1) * kGroups * kUnit + grp * kUnit, kt, true);
+        else
+          run(stage + 2 * grp * kUnit, stage + (2 * grp + 1) * kUnit, kt, true);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  if (kDivideAfter) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = mma::quad_sum(l[i]);
+  }
+  if (kGroups > 1) {  // group 0 adds the other groups' P V sums, in order
+    float* part = reinterpret_cast<float*>(smem_raw);  // the stages are free
+    const int slot = ((grp - 1) * kWarps + qw) * 32 + lane;
+    if (grp > 0) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(j * 4 + e) * (kGroups - 1) * kWarps * 32 + slot] = acc[j][e];
+      if (kDivideAfter && t == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) stats[2 * (grp * kOwn + 16 * qw + gr + 8 * i)] = l[i];
+      }
+    }
+    __syncthreads();
+    if (grp > 0) return;
+    for (int g = 1; g < kGroups; ++g) {
+      const int other = ((g - 1) * kWarps + qw) * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] += part[(j * 4 + e) * (kGroups - 1) * kWarps * 32 + other];
+      if (kDivideAfter) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] += stats[2 * (g * kOwn + 16 * qw + gr + 8 * i)];
+      }
+    }
+  }
+  if (kDivideAfter) {  // out = (bf16(P) V) / l, as (bf16(P) V) * (1 / l)
+    const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = __fmul_rn(acc[j][e], inv[e >> 1]);
+  }
+  mma::store_rows<D>(acc, out + frame(s), ld, p0 + 16 * qw, p1);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int H, int W, int heads, int dh, int es,
@@ -171,15 +498,77 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <int D, int kWarps, int kGroups, bool kDivideAfter>
+cudaError_t launch_groups(const void* q, const void* k, const void* v, void* out, int B,
+                          int S, int H, int W, int heads, int es, int eh, int ew,
+                          cudaStream_t stream) {
+  const size_t bytes = mma::tile_bytes<D>((kGroups > 1 ? 6 : 4) * kGroups * kTileKeys) +
+                       (kGroups > 1 ? 2 * kGroups * 16 * kWarps * sizeof(float) : 0);
+  auto kernel = local3d_fwd_mma_kernel<D, kWarps, kGroups, kDivideAfter>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((H * W + 16 * kWarps - 1) / (16 * kWarps)), (unsigned)S,
+                  (unsigned)(B * heads));
+  kernel<<<grid, 32 * kWarps * kGroups, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, W, heads, es, eh, ew,
+      1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+// The block's shape. 4 query warps (64 positions), or 2 where the key band
+// of 64 positions would not fit one tile (16 x 16 frames: 6 rows of 16
+// against 4), so that every block stages one tile a frame; one group of
+// warps, or two where the grid leaves SMs to spare (the serving shape: 48
+// blocks), so that each block's chain of steps is half as long.
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B,
+                       int S, int H, int W, int heads, int es, int eh, int ew,
+                       int divide_after, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int rows64 = min((min(64, H * W) - 1) / W + 1 + 2 * eh, H);
+  const int qw = rows64 * W <= kTileKeys ? 4 : 2;
+  const long long blocks = (long long)(H * W + 16 * qw - 1) / (16 * qw) * S * B * heads;
+#define WMZ_L3D_SHAPE(QW, G)                                                           \
+  return divide_after ? launch_groups<D, QW, G, true>(q, k, v, out, B, S, H, W, heads, es, \
+                                                      eh, ew, stream)                  \
+                      : launch_groups<D, QW, G, false>(q, k, v, out, B, S, H, W, heads, es, \
+                                                       eh, ew, stream)
+  if (qw == 4) {
+    if (blocks <= sms) WMZ_L3D_SHAPE(4, 2);
+    WMZ_L3D_SHAPE(4, 1);
+  }
+  if (blocks <= sms) WMZ_L3D_SHAPE(2, 2);
+  WMZ_L3D_SHAPE(2, 1);
+#undef WMZ_L3D_SHAPE
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// route: 0 = the CUDA-core kernel (float32 or bfloat16, any dh the switch
+// takes), 1 = the tensor-core kernel rounding P before P V and dividing by
+// the sum after it, 2 = the tensor-core kernel rounding P / l; routes 1
+// and 2 take bfloat16 at dh = 64 or 128 only. dtype: 0 = float32, 1 =
+// bfloat16. Returns the launch's cudaError_t.
 extern "C" int wmz_local3d_fwd(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int W,
                                int heads, int dh, int es, int eh, int ew,
-                               int dtype, void* stream) {
+                               int route, int dtype, void* stream) {
   if (wmz::bad_dh(dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1 || route == 2) {
+    if (dtype != 1 || (dh != 64 && dh != 128)) return (int)cudaErrorInvalidValue;
+    const int divide_after = route == 1;
+    if (dh == 64)
+      return (int)launch_mma<64>(q, k, v, out, B, S, H, W, heads, es, eh, ew, divide_after, st);
+    return (int)launch_mma<128>(q, k, v, out, B, S, H, W, heads, es, eh, ew, divide_after, st);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
     err = launch<float>(q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, st);

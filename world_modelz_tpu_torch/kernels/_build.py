@@ -49,8 +49,8 @@ BUILD_INFO: Dict[str, object] = {}
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, dtype, stream
-    "wmz_local3d_fwd": ([_VP] * 4 + [_INT] * 10 + [_VP], _INT),
+    # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, route, dtype, stream
+    "wmz_local3d_fwd": ([_VP] * 4 + [_INT] * 11 + [_VP], _INT),
     # q, k, v, g, dq, lse, delta, B, S, H, W, heads, dh, es, eh, ew, dtype,
     # stream
     "wmz_local3d_bwd_dq": ([_VP] * 7 + [_INT] * 10 + [_VP], _INT),
@@ -69,8 +69,8 @@ _SIGNATURES = {
     "wmz_vq_train_stats": ([_VP] * 13 + [_INT] * 3 + [_VP], _INT),
     "wmz_vq_train_splits": ([_INT], _INT),
     # q, k, v, out, lse, strides (int64 [9]: b, h, n of q, k, v), B, H, N,
-    # D, scale, dtype, stream
-    "wmz_flash_fwd": ([_VP] * 6 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
+    # D, scale, key block, normalise, dtype, stream
+    "wmz_flash_fwd": ([_VP] * 6 + [_INT] * 4 + [_FLOAT] + [_INT] * 3 + [_VP], _INT),
     # q, k, v, o, g, lse, dq, delta, strides (int64 [15]: q, k, v, o, g),
     # B, H, N, D, scale, dtype, stream
     "wmz_flash_bwd_dq": ([_VP] * 9 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),

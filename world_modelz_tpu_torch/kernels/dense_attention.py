@@ -11,9 +11,11 @@ function in ``models.attention`` (``dense_attention_fwd``,
 Operands are (B, H, N, D) with D = 64 or 128, float32 or bfloat16. The
 kernels read any layout whose last dimension is contiguous and whose other
 strides are whole 16-byte chunks (``kernel_layout``), so q, k and v may be
-the strided head views of a fused QKV projection. The bfloat16 backward
-pair runs on the tensor cores and rounds P and dS to bfloat16 before their
-products, as the stock TPU kernels do; float32 keeps f32 arithmetic. Every
+the strided head views of a fused QKV projection. The bfloat16 kernels run
+on the tensor cores and round P (forward and dV) and dS to bfloat16 before
+their products, as the stock TPU kernels do; the forward rounds P against
+the running max of each key block of ``flash_block_size`` keys, the stock
+forward's blocking. float32 keeps f32 arithmetic on the CUDA cores. Every
 output (out, dq, dk, dv) is a (B, H, N, D) view of a (B, N, H,
 D)-contiguous buffer, so that merging the heads back into (B, N, H * D)
 copies nothing.
@@ -37,6 +39,17 @@ from world_modelz_tpu_torch.kernels._build import (
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (64, 128)
+
+
+def flash_block_size(n: int) -> Tuple[int, int]:
+    """(key block, padded length) of the stock TPU forward for ``n`` tokens,
+    as the JAX package's ``_flash_dense_attention`` picks them: n padded to
+    a multiple of 128, and the largest of 512, 256 and 128 that divides it.
+    The forward rounds P against the running max of each such block; a
+    single block (padded length <= 512 and a power-of-two multiple of 128)
+    is normalised before it is rounded."""
+    padded = n + (-n % 128)
+    return max(b for b in (512, 256, 128) if padded % b == 0), padded
 
 
 def _check_shapes(q: torch.Tensor, *same: torch.Tensor) -> None:
@@ -104,6 +117,7 @@ def flash_attention_fwd(
     Returns:
       out (B, H, N, D) in the input dtype, and lse (B, H, N) float32. No
       autograd graph on CUDA: training goes through ``flash_attention``.
+      bfloat16 launches the tensor-core kernel, float32 the CUDA-core one.
     """
     _check_shapes(q, k, v)
     if on_cpu("flash attention", q, k, v):
@@ -115,11 +129,13 @@ def flash_attention_fwd(
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
+    block, padded = flash_block_size(n)
     lib = load_library()
     LAUNCHES["flash_fwd"] += 1
     status = lib.wmz_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), strides, b, h, n, d, scale, dtype, stream(q))
+        lse.data_ptr(), strides, b, h, n, d, scale, block,
+        int(block == padded), dtype, stream(q))
     check(status, "flash_fwd")
     return out, lse
 

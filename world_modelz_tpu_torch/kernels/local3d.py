@@ -5,13 +5,20 @@ the autograd Function that joins them.
 Counterpart of ``world_modelz_tpu.kernels.local3d.local3d_attention_pallas``
 and its custom_vjp. A CUDA tensor launches a kernel; a CPU tensor takes the
 plain version of the same function in ``models.attention``
-(``local3d_attention``, ``local3d_attention_bwd_dq``,
+(``local3d_attention_rounded``, ``local3d_attention_bwd_dq``,
 ``local3d_attention_bwd_dkv``).
+
+The forward rounds P to the operand dtype where the TPU kernel that
+``_route_fwd`` picks for the shape rounds it: the all-frames kernel rounds
+exp(s - m) and divides by the sum after P V, the per-frame and H-tiled
+kernels normalise first. ``divides_after_product`` is the port's copy of
+that choice; ``fwd_route`` picks the CUDA kernel (tensor cores for bf16 at
+head sizes 64 and 128, the CUDA-core kernel otherwise).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +33,79 @@ from world_modelz_tpu_torch.kernels._build import (
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 Extents = Tuple[int, int, int]
+
+# The JAX package's VMEM budget and unroll cap for its all-frames kernels
+# (world_modelz_tpu/kernels/local3d.py: _VMEM_BUDGET_BYTES,
+# _MAX_ALLFRAMES_TILES), which decide where its forward rounds P.
+_VMEM_BUDGET_BYTES = 10 * 1024 * 1024
+_MAX_ALLFRAMES_TILES = 32
+
+# fwd_route's codes, as the C entry wmz_local3d_fwd takes them
+ROUTE_CUDA_CORES = 0  # f32 FMAs, P in f32 (any dtype, dh % 32 == 0)
+ROUTE_DIVIDE_AFTER = 1  # tensor cores: P rounded, P V divided by the sum
+ROUTE_NORMALISED = 2  # tensor cores: P normalised, then rounded
+TENSOR_CORE_HEAD_SIZES = (64, 128)
+
+
+def _band_candidates(height: int, width: int, eh: int, min_m: int):
+    """The JAX package's ``_band_candidates``: query row bands in its
+    order of preference, the unbanded frame last."""
+    return [
+        qt for qt in (2, 4, 8, 16, 32, 64)
+        if qt + 2 * eh < height and height % qt == 0 and qt * width >= min_m
+    ] + [height]
+
+
+def _fits_allframes(seq: int, height: int, width: int, extents: Extents,
+                    dh: int, itemsize: int, qt: int) -> bool:
+    """The JAX package's ``fits_vmem_allframes``: q, out, the padded k and
+    v, and one query band's two f32 score intermediates."""
+    es, eh, _ = extents
+    hw = height * width
+    rows_k = (2 * es + 1) * min(height, qt + 2 * eh) * width
+    qkv = (seq * hw * dh + 2 * (seq + 2 * es) * hw * dh) * itemsize
+    out = seq * hw * dh * itemsize
+    score = qt * width * rows_k * 4 * 2
+    return qkv + out + score <= _VMEM_BUDGET_BYTES
+
+
+def allframes_band(seq: int, height: int, width: int, extents: Extents,
+                   dh: int, itemsize: int) -> Optional[int]:
+    """The JAX package's forward ``pick_allframes_band`` (``bwd=False``):
+    the query row band of its all-frames kernel, or None when the shape
+    goes to the per-frame or H-tiled kernel."""
+    for qt in _band_candidates(height, width, extents[1], min_m=64):
+        if seq * -(-height // qt) > _MAX_ALLFRAMES_TILES:
+            continue
+        if _fits_allframes(seq, height, width, extents, dh, itemsize, qt):
+            return qt
+    return None
+
+
+def divides_after_product(shape, heads: int, extents: Extents,
+                          dtype: torch.dtype) -> bool:
+    """Whether the TPU forward that ``_route_fwd`` picks for q's (B, S, H,
+    W, heads * dh) ``shape`` rounds P unnormalised and divides P V by the
+    sum (``_attn_kernel_allframes``); False where it normalises P before
+    rounding it (``_attn_kernel``, ``_attn_kernel_tiled``, and shapes no
+    TPU kernel takes)."""
+    _, s, h, w, inner = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return allframes_band(s, h, w, tuple(extents), inner // heads,
+                          itemsize) is not None
+
+
+def fwd_route(shape, heads: int, extents: Extents, dtype: torch.dtype) -> int:
+    """The forward kernel a CUDA launch takes, as the C entry's route code:
+    the tensor-core kernel for bfloat16 at head sizes 64 and 128, rounding
+    P where the TPU forward does (``divides_after_product``); the CUDA-core
+    kernel for float32 and every other head size."""
+    if (dtype != torch.bfloat16
+            or shape[-1] // heads not in TENSOR_CORE_HEAD_SIZES):
+        return ROUTE_CUDA_CORES
+    if divides_after_product(shape, heads, extents, dtype):
+        return ROUTE_DIVIDE_AFTER
+    return ROUTE_NORMALISED
 
 
 def _check_layout(q: torch.Tensor, heads: int, *same: torch.Tensor) -> None:
@@ -76,7 +156,8 @@ def local3d_attention_fwd(
     extents: Extents,
     heads: int,
 ) -> torch.Tensor:
-    """Windowed space-time attention; same contract as the plain version.
+    """Windowed space-time attention; same contract as the plain version,
+    ``local3d_attention_rounded``.
 
     Args:
       q, k, v: (B, S, H, W, heads * dim_head), float32 or bfloat16.
@@ -89,18 +170,21 @@ def local3d_attention_fwd(
     """
     _check_layout(q, heads, k, v)
     if on_cpu("local3d", q, k, v):
-        from world_modelz_tpu_torch.models.attention import local3d_attention as plain
+        from world_modelz_tpu_torch.models.attention import local3d_attention_rounded
 
-        return plain(q, k, v, extents, heads)
+        return local3d_attention_rounded(
+            q, k, v, extents, heads,
+            divides_after_product(q.shape, heads, extents, q.dtype))
     args = _kernel_args(extents, heads, (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    route = fwd_route(q.shape, heads, extents, q.dtype)
     lib = load_library()
     LAUNCHES["local3d_fwd"] += 1
     status = lib.wmz_local3d_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
-        stream(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args[:-1],
+        route, args[-1], stream(q),
     )
     check(status, "local3d_fwd")
     return out

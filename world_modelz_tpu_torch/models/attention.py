@@ -16,17 +16,19 @@ versions of the three flash-attention kernels of
 ``kernels/dense_attention.py`` (forward with its log-sum-exp, and the split
 backward pair).
 
-``local3d_attention`` is the plain version of the CUDA forward kernel
-(``kernels/local3d.py``), written as the JAX package writes it: keys and
-values stacked for the 2e_s+1 frame offsets, dense per-frame scores, and an
-additive -1e9 mask for pairs outside the spatial window or off the clip.
+``local3d_attention`` is the JAX package's XLA route, written as it writes
+it: keys and values stacked for the 2e_s+1 frame offsets, dense per-frame
+scores, and an additive -1e9 mask for pairs outside the spatial window or
+off the clip. ``local3d_attention_rounded`` is the plain version of the
+CUDA forward kernel (``kernels/local3d.py``): the same scores, with P
+rounded to the operand dtype where the TPU kernel for the shape rounds it.
 ``local3d_attention_bwd_dq`` and ``local3d_attention_bwd_dkv`` are the
 plain versions of the two backward kernels, written as the JAX package's
 split backward (``_bwd_impl_split``) computes. CPU tensors and the tests
 use them; ``Local3dAttention`` goes through the autograd Function of
 ``kernels/local3d.py``, which on CUDA launches the kernels and on the CPU
-calls these three; with ``backend="fused"`` it runs the whole block through
-``kernels/local3d_block.py`` instead. Submodule names follow the reference
+calls the last three; with ``backend="fused"`` it runs the whole block
+through ``kernels/local3d_block.py`` instead. Submodule names follow the reference
 state_dict layout (``transformer.layers.{i}.0.fn.to_q`` ...), so the weight
 bridge (``convert.py``) loads with ``strict=True``.
 """
@@ -142,6 +144,11 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and widened back: an operand cast."""
+    return t.to(dtype).to(t.dtype)
+
+
 def _from_heads(t: torch.Tensor, shape) -> torch.Tensor:
     """Inverse of ``_to_heads`` for the (B, S, H, W, heads * d) ``shape``."""
     b, s, h, w, inner = shape
@@ -188,6 +195,52 @@ def local3d_attention(
     ).reshape(scores.shape)
     out = torch.einsum("zsqtk,zstkd->zsqd", attn.to(vh.dtype), vh)
     return _from_heads(out, q.shape)
+
+
+def local3d_attention_rounded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    extents: Tuple[int, int, int],
+    heads: int,
+    divide_after: bool,
+) -> torch.Tensor:
+    """Plain version of the forward kernel: the window's f32 scores and
+    P = exp(s - m), m the max over the query's whole window, rounded to
+    the operand dtype where the TPU kernel rounds it, and P V summed in
+    f32 (or wider):
+
+      divide_after (``_attn_kernel_allframes``, local3d.py:531-539):
+        out = (round(P) V) / l;
+      else (``_attn_kernel`` :207-211, ``_attn_kernel_tiled`` :924-928):
+        out = round(P / l) V;
+
+    with l the sum of the unrounded P. ``kernels.local3d.
+    divides_after_product`` says which the TPU forward takes for a shape.
+
+    Returns:
+      (B, S, H, W, heads * dim_head) in q's dtype.
+    """
+    es = extents[0]
+    b, s, h, w, inner = q.shape
+    dh = inner // heads
+    hw = h * w
+    ts = 2 * es + 1
+    kh = _shift_stack_frames(_to_heads(k, heads), es)  # (Z, S, Ts, HW, dh)
+    vh = _f32(_shift_stack_frames(_to_heads(v, heads), es))
+    scores = torch.einsum("zsqd,zstkd->zsqtk", _f32(_to_heads(q, heads)), _f32(kh))
+    scores = scores * dh**-0.5
+    scores = scores + local3d_attention_weights_mask(s, h, w, extents, q.device)
+    flat = scores.reshape(b * heads, s, hw, ts * hw)
+    p = torch.exp(flat - flat.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if not divide_after:
+        p = p / l
+    out = torch.einsum("zsqtk,zstkd->zsqd",
+                       _rounded(p, v.dtype).reshape(scores.shape), vh)
+    if divide_after:
+        out = out / l
+    return _from_heads(out, q.shape).to(q.dtype)
 
 
 def local3d_attention_bwd_dq(
@@ -487,26 +540,53 @@ def _probs(q, k, lse, scale):
 def dense_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel: softmax(scale * q k^T) v with
-    every product and the softmax in f32.
+    """Plain version of the forward kernel: softmax(scale * q k^T) v as the
+    stock TPU forward computes it (flash_attention.py:_flash_attention_kernel
+    :331), with the key blocks of ``flash_block_size``. Per block, in
+    order, with f32 (or wider) scores s and sums:
+
+      m' = max(m, max s),  P = exp(s - m'),  l_corr = exp(m - m') l,
+      l' = sum P + l_corr,
+      acc = acc * (l_corr / l') + (round(P) v) / l'   (:440-473);
+
+    a single block (N padded to 128, 256 or 512) normalises first:
+    out = round(P / l) v (:540-553). round() is the operand dtype (bf16
+    rounds, f32 and wider keep their values).
 
     Args:
       q, k, v: (B, H, N, D).
 
     Returns:
-      out (B, H, N, D) in q's dtype, and lse (B, H, N) f32 (float64 for
-      float64 inputs): the log-sum-exp of each query's scaled scores.
+      out (B, H, N, D) in q's dtype, and lse = m + log l (B, H, N), f32
+      (float64 for float64 inputs): the log-sum-exp of each query's scaled
+      scores, the backward's input.
     """
+    n = q.shape[2]
+    block, padded = dense_kernels.flash_block_size(n)
     scores = torch.einsum("bhnd,bhmd->bhnm", _f32(q), _f32(k)) * scale
-    lse = torch.logsumexp(scores, dim=-1)
-    out = torch.einsum(
-        "bhnm,bhmd->bhnd", torch.exp(scores - lse[..., None]), _f32(v))
-    return out.to(q.dtype), lse
-
-
-def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` rounded to ``dtype`` and widened back: an operand cast."""
-    return t.to(dtype).to(t.dtype)
+    vf = _f32(v)
+    if block == padded:
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp(scores - m)
+        l = p.sum(-1, keepdim=True)
+        acc = torch.einsum("bhnm,bhmd->bhnd", _rounded(p / l, v.dtype), vf)
+    else:
+        m = l = acc = None
+        for k0 in range(0, n, block):
+            s = scores[..., k0:k0 + block]
+            m_next = s.amax(-1, keepdim=True)
+            if m is not None:
+                m_next = torch.maximum(m, m_next)
+            p = torch.exp(s - m_next)
+            l_corr = 0.0 if m is None else torch.exp(m - m_next) * l
+            l_next = p.sum(-1, keepdim=True) + l_corr
+            inv = 1.0 / l_next
+            o = torch.einsum("bhnm,bhmd->bhnd", _rounded(p, v.dtype),
+                             vf[..., k0:k0 + block, :]) * inv
+            acc = o if acc is None else acc * (l_corr * inv) + o
+            m, l = m_next, l_next
+    lse = (m + torch.log(l))[..., 0]
+    return acc.to(q.dtype), lse
 
 
 def dense_attention_bwd_dq(
