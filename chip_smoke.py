@@ -117,9 +117,14 @@ BLOCK_CASES = [
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
 BF16_TOL = 2e-2  # bf16 output rounding (2^-8 relative) of O(1) values
 # backward kernels vs plain, times max(1, max |grad|): f32 sums in another
-# order; bf16 output rounding (2^-8) of the largest gradients
+# order
 BWD_F32_TOL = 1e-4
-BWD_BF16_TOL = 3e-2
+# the bf16 local-3D backward pair vs plain versions fed the same bf16
+# operands, rounding P and dS (and dK, dV partials) where the TPU backward
+# for the shape does: times max |grad| (one bf16 step of the largest
+# gradient), and at least this share of dq, dk and dv bitwise equal
+LOCAL3D_BWD_BF16_TOL = 2.0**-7
+LOCAL3D_BWD_BF16_EQUAL = 0.99
 # the bf16 flash backward pair vs plain versions that round P and dS at the
 # same points: times max |grad| (one bf16 step of the largest gradient),
 # and at least this share of dq, dk and dv bitwise equal
@@ -187,6 +192,28 @@ def device_kernels(prof):
 
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def kernels_run(torch, fn, launches: int = 1):
+    """The names of the device kernels one call of ``fn`` launches, as the
+    profiler traces them: which kernel a C entry picked. A trace that
+    holds fewer than ``launches`` kernels (the profiler drops one now and
+    then) is taken again; after three the call raises."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
+        found = (re.search(r"(\w+(?:<[^()]*>)?)\(", e.key) for e in device_kernels(prof))
+        names = sorted(m.group(1) for m in found if m)
+        if len(names) >= launches:
+            return names
+    raise AssertionError(
+        f"kernels_run: the profiler traced {names}, not {launches} kernels, three times")
 
 
 def device_ms(torch, fn, iters: int, warmup: int = 3, label: str = "") -> float:
@@ -321,6 +348,41 @@ def local3d_executed_ops(b, s, h, w, heads, dh, extents) -> int:
     return keys * b * heads * 3 * 2 * 16 * dh
 
 
+def local3d_bwd_executed_ops(b, s, h, w, heads, dh, extents, partial_rows=0):
+    """The products the tensor-core backward pair executes (2 flops per
+    multiply-add), as (pass 1, pass 2): each block of 64 rows (64 positions
+    of a frame, or 32 of two frames where 64 positions' band would not fit
+    one 64-position tile) against each 64-position tile of the other
+    side's band in each frame of its frames' windows; pass 1 takes 5
+    products of 64 x 64 x dh a tile (sweep 1: Q K^T, G V^T; sweep 2: both
+    again and dS K), pass 2 takes 4 (K Q^T, V G^T, P^T G, dS^T Q), its
+    tiles starting at each segment of ``partial_rows`` rows
+    (csrc/local3d_bwd.cu)."""
+    es, eh, _ = extents
+    hw = h * w
+    frames = 1 if min((min(64, hw) - 1) // w + 1 + 2 * eh, h) * w <= 64 else 2
+    own = 64 // frames
+
+    def band(p0, p1):
+        return max(p0 // w - eh, 0) * w, (min((p1 - 1) // w + eh, h - 1) + 1) * w
+
+    def tiles(lo, hi, seg):  # staged tiles of a frame's band
+        return sum(-(-(min(hi, c + seg) - max(lo, c)) // 64)
+                   for c in range(lo // seg * seg, hi, seg))
+
+    seg2 = partial_rows * w if partial_rows else hw
+    tile_pairs = [0, 0]  # (block, tile) pairs of each pass
+    for s0 in range(0, s, frames):
+        s1 = min(s0 + frames - 1, s - 1)
+        window = min(s1 + es, s - 1) - max(s0 - es, 0) + 1
+        for p0 in range(0, hw, own):
+            lo, hi = band(p0, min(p0 + own, hw))
+            tile_pairs[0] += window * tiles(lo, hi, hw)
+            tile_pairs[1] += window * tiles(lo, hi, seg2)
+    unit = b * heads * 2 * 64 * 64 * dh
+    return tile_pairs[0] * unit * 5, tile_pairs[1] * unit * 4
+
+
 def ptxas_summary(build_log: str):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     name and template arguments, registers, barriers and shared memory, and
@@ -368,9 +430,11 @@ def check_local3d(torch, dev):
     fed the same operands, at the serving, training and a multi-head
     asymmetric shape, at 34-frame clips (which the TPU forward normalises
     P for), and at 16 x 16 frames at batch 8 and 2 (blocks of 32 queries,
-    with one and two groups of warps), in f32 (the CUDA-core kernel) and
-    bf16 (the tensor-core kernel at dh 64 and 128, rounding P where the
-    TPU kernel does). bf16 must lie within FWD_BF16_TOL x max |out| and be
+    with one and two groups of warps), and at head size 32 in both of the
+    TPU's rounding routes, in f32 (the CUDA-core kernel) and bf16 (the
+    tensor-core kernel at dh 64 and 128, the rounding CUDA-core kernel at
+    32, both rounding P where the TPU kernel does). bf16 must lie within
+    FWD_BF16_TOL x max |out| and be
     at least FWD_BF16_EQUAL bitwise equal, f32 within F32_TOL; two
     launches must be bitwise equal. Returns the serving-shape bf16
     record."""
@@ -388,6 +452,8 @@ def check_local3d(torch, dev):
         ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1)),
         ("clip34", (2, 34, 8, 8), 1, 128, (3, 1, 1)),
         ("clip34_multihead", (2, 34, 8, 8), 2, 64, (1, 2, 1)),
+        ("multihead_dh32", (8, 6, 8, 8), 2, 32, (1, 2, 1)),
+        ("clip34_dh32", (2, 34, 8, 8), 2, 32, (1, 1, 1)),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
     serving = None
@@ -396,7 +462,6 @@ def check_local3d(torch, dev):
             shape = (b, s, h, w, heads * dh)
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for _ in range(3))
-            route = kl.fwd_route(shape, heads, ext, dtype)
             divide_after = kl.divides_after_product(shape, heads, ext, dtype)
             out = local3d_attention_fwd(q, k, v, ext, heads)
             again = local3d_attention_fwd(q, k, v, ext, heads)
@@ -417,6 +482,10 @@ def check_local3d(torch, dev):
                     f"local3d {name} {dtype}: {equal:.4f} bitwise equal < "
                     f"{FWD_BF16_EQUAL}")
             kernel = lambda: local3d_attention_fwd(q, k, v, ext, heads)  # noqa: E731
+            ran = kernels_run(torch, kernel)
+            tensor_cores = any("mma" in n for n in ran)
+            if name == "train_m3_b64" and bf16 and not tensor_cores:
+                raise AssertionError(f"local3d {name} bf16 ran {ran}, not the tensor cores")
             ms = device_ms(torch, kernel, 100)
             launch_ms = cuda_ms(torch, kernel, 200)
             plain_ms = device_ms(torch, lambda: local3d_attention_rounded(
@@ -434,11 +503,11 @@ def check_local3d(torch, dev):
             tname = str(dtype).replace("torch.", "")
             bound_ms, bound_by = bound(nbytes, ops, tname)
             executed = ""
-            if route != kl.ROUTE_CUDA_CORES:
+            if tensor_cores:
                 done = local3d_executed_ops(b, s, h, w, heads, dh, ext)
                 executed = (f" executed {done / ops:.3f}x the window's products "
                             f"({done / ms / 1e9:.2f} TFLOP/s)")
-            log(f"local3d_fwd {name} {tname} {shape} extents={ext} route={route} "
+            log(f"local3d_fwd {name} {tname} {shape} extents={ext} kernel={ran} "
                 f"(divide_after={divide_after}): max_abs_err={err:.3g} (tol "
                 f"{lim:.3g}) bitwise_equal={equal:.5f}; repeat bitwise; "
                 f"kernel_ms={ms:.5f} ({ops / ms / 1e9:.2f} TFLOP/s;{executed}) "
@@ -585,10 +654,18 @@ def window_mask(torch, dev, s, h, w, extents):
 
 
 def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
-    """The split backward pair against its plain versions at the training
-    slice's shape, train_step_bench's shape and a multi-head asymmetric
-    one, in f32 and bf16. Returns {kernel: record} at the slice's shape in
-    bf16."""
+    """The split backward pair against its plain versions fed the same
+    operands, at the training slice's shape, train_step_bench's shape, a
+    multi-head asymmetric one, 34-frame clips (the TPU's per-frame route:
+    dK and dV partials rounded per query frame), a 32 x 32 frame (the
+    split route), a 64 x 32 frame (the H-tiled route: partials per 4 rows)
+    and head size 32 (the rounding CUDA-core kernels), in f32 and bf16.
+    bf16 dq, dk and dv must lie within LOCAL3D_BWD_BF16_TOL x max |x| and
+    be at least LOCAL3D_BWD_BF16_EQUAL bitwise equal, f32 within
+    BWD_F32_TOL x max(1, max |x|); lse and delta within STAT_TOL; two
+    launches bitwise equal. Times the timed cases beside SDPA's backward
+    with the dense window mask. Returns {kernel: record} at the slice's
+    shape in bf16."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import (
@@ -596,57 +673,98 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
         local3d_bwd_dkv,
         local3d_bwd_dq,
     )
+    from world_modelz_tpu_torch.kernels import _build
+    from world_modelz_tpu_torch.kernels import local3d as kl
     from world_modelz_tpu_torch.models.attention import (
         local3d_attention_bwd_dkv,
         local3d_attention_bwd_dq,
     )
 
-    cases = [  # name, (B, S, H, W), heads, dh, extents
-        ("train_m3_b64", (64, 6, 8, 8), 1, 128, (3, 1, 1)),
-        ("train_bench", (8, 6, 16, 16), 1, 128, (3, 1, 1)),
-        ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1)),
+    for line in ptxas_summary(str(_build.BUILD_INFO.get("log", ""))):
+        if "local3d_bwd" in line:
+            log(f"local3d_bwd ptxas: {line}")
+    cases = [  # name, (B, S, H, W), heads, dh, extents, dtypes, timed
+        ("train_m3_b64", (64, 6, 8, 8), 1, 128, (3, 1, 1), ("float32", "bfloat16"), True),
+        ("train_bench", (8, 6, 16, 16), 1, 128, (3, 1, 1), ("float32", "bfloat16"), True),
+        ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1), ("float32", "bfloat16"), True),
+        ("clip34", (2, 34, 8, 8), 1, 128, (3, 1, 1), ("bfloat16",), True),
+        ("clip34_multihead", (2, 34, 8, 8), 2, 64, (1, 2, 1), ("bfloat16",), False),
+        ("frames32_split", (1, 2, 32, 32), 1, 128, (3, 1, 1), ("bfloat16",), False),
+        ("frames64x32_tiled", (1, 2, 64, 32), 1, 128, (3, 1, 1), ("bfloat16",), False),
+        ("dh32", (8, 6, 8, 8), 2, 32, (1, 2, 1), ("float32", "bfloat16"), True),
+        ("dh32_clip34", (2, 34, 8, 8), 2, 32, (1, 1, 1), ("bfloat16",), False),
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     records = {}
-    for name, (b, s, h, w), heads, dh, ext in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, (b, s, h, w), heads, dh, ext, dtypes, timed in cases:
+        for dtype in (getattr(torch, d) for d in dtypes):
             shape = (b, s, h, w, heads * dh)
             q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                           for _ in range(4))
-            dq, lse, delta = local3d_bwd_dq(q, k, v, g, ext, heads)
-            dk, dv = local3d_bwd_dkv(q, k, v, g, lse, delta, ext, heads)
-            f32 = [t.float() for t in (q, k, v, g)]
-            p_dq, p_lse, p_delta = local3d_attention_bwd_dq(*f32, ext, heads)
+            route = kl.bwd_route(shape, heads, ext, dtype)
+
+            def dq_fn():
+                return local3d_bwd_dq(q, k, v, g, ext, heads)
+
+            dq, lse, delta = dq_fn()
+            dkv_fn = lambda: local3d_bwd_dkv(  # noqa: E731
+                q, k, v, g, lse, delta, ext, heads)
+            dk, dv = dkv_fn()
+            again = (*dq_fn(), *dkv_fn())
+            ran = kernels_run(torch, lambda: (dq_fn(), dkv_fn()), launches=2)
+            tensor_cores = all(any("mma" in n and pass_ in n for n in ran)
+                               for pass_ in ("dq", "dkv"))
+            if name == "train_m3_b64" and dtype == torch.bfloat16 and not tensor_cores:
+                raise AssertionError(f"local3d_bwd {name} bf16 ran {ran}, not the tensor cores")
+            p_dq, p_lse, p_delta = local3d_attention_bwd_dq(q, k, v, g, ext, heads)
             p_dk, p_dv = local3d_attention_bwd_dkv(
-                *f32, p_lse, p_delta, ext, heads)
+                q, k, v, g, p_lse, p_delta, ext, heads)
             torch.cuda.synchronize()
-            tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
-            errs = {}
-            for label, got, want, t in (
-                    ("dq", dq, p_dq, tol), ("dk", dk, p_dk, tol),
-                    ("dv", dv, p_dv, tol), ("lse", lse, p_lse, STAT_TOL),
-                    ("delta", delta, p_delta, STAT_TOL)):
-                err = float((got.float() - want).abs().max())
-                scale = max(1.0, float(want.abs().max()))
+            if not all(torch.equal(x, y) for x, y in zip((dq, lse, delta, dk, dv), again)):
+                raise AssertionError(f"local3d_bwd {name} {dtype}: two launches differ")
+            bf16 = dtype == torch.bfloat16
+            errs, equal = {}, {}
+            for label, got, want in (
+                    ("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv),
+                    ("lse", lse, p_lse), ("delta", delta, p_delta)):
+                err = float((got.float() - want.float()).abs().max())
+                peak = float(want.float().abs().max())
                 errs[label] = err
-                if not err <= t * scale:
+                if label in ("lse", "delta"):
+                    lim = STAT_TOL * max(1.0, peak)
+                elif bf16:
+                    lim = LOCAL3D_BWD_BF16_TOL * peak
+                    equal[label] = float((got == want).float().mean())
+                    if not equal[label] >= LOCAL3D_BWD_BF16_EQUAL:
+                        raise AssertionError(
+                            f"local3d_bwd {name} {dtype} {label}: "
+                            f"{equal[label]:.5f} bitwise equal < {LOCAL3D_BWD_BF16_EQUAL}")
+                else:
+                    lim = BWD_F32_TOL * max(1.0, peak)
+                if not err <= lim:
                     raise AssertionError(
-                        f"local3d_bwd {name} {dtype} {label}: max abs err "
-                        f"{err} > {t} x {scale}")
+                        f"local3d_bwd {name} {dtype} {label}: max abs err {err} > {lim}")
             tname = str(dtype).replace("torch.", "")
+            head = (f"local3d_bwd {name} {tname} {shape} extents={ext} route={route.kind} "
+                    f"partial_rows={route.partial_rows} kernels={ran}: max_abs_err " + " ".join(
+                        f"{key}={val:.3g}" for key, val in errs.items())
+                    + (" bitwise_equal " + " ".join(
+                        f"{key}={val:.5f}" for key, val in equal.items()) if bf16 else "")
+                    + "; repeat bitwise")
+            if not timed:
+                dq_ms = device_ms(torch, dq_fn, 20)
+                dkv_ms = device_ms(torch, dkv_fn, 20)
+                log(f"{head}; dq_ms={dq_ms:.5f} dkv_ms={dkv_ms:.5f}")
+                continue
             isz = torch.tensor([], dtype=dtype).element_size()
             pairs = b * heads * window_pairs(s, h, w, ext)
             stats = 2 * lse.numel() * 4
-            dq_ms = device_ms(
-                torch, lambda: local3d_bwd_dq(q, k, v, g, ext, heads), 50)
-            dkv_ms = device_ms(torch, lambda: local3d_bwd_dkv(
-                q, k, v, g, lse, delta, ext, heads), 50)
+            dq_ms = device_ms(torch, dq_fn, 50)
+            dkv_ms = device_ms(torch, dkv_fn, 50)
             # CUDA events over back-to-back launches: a cross-check of the
             # profiler's sums
-            dq_b2b = cuda_ms(
-                torch, lambda: local3d_bwd_dq(q, k, v, g, ext, heads), 100)
-            dkv_b2b = cuda_ms(torch, lambda: local3d_bwd_dkv(
-                q, k, v, g, lse, delta, ext, heads), 100)
+            dq_b2b = cuda_ms(torch, dq_fn, 100)
+            dkv_b2b = cuda_ms(torch, dkv_fn, 100)
             fwd_ms = device_ms(
                 torch, lambda: local3d_attention_fwd(q, k, v, ext, heads), 50)
             p_dq_ms = device_ms(torch, lambda: local3d_attention_bwd_dq(
@@ -678,12 +796,16 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
                 "local3d_bwd_dkv": bound(
                     6 * q.numel() * isz + stats, 8 * dh * pairs, tname),
             }
-            log(f"local3d_bwd {name} {tname} {shape} extents={ext}: "
-                f"max_abs_err " + " ".join(
-                    f"{key}={val:.3g}" for key, val in errs.items())
-                + f" (tol {tol}, stats {STAT_TOL}, x max(1, max|x|)) "
-                f"dq_ms={dq_ms:.5f} dkv_ms={dkv_ms:.5f} (back_to_back "
-                f"{dq_b2b:.5f}, {dkv_b2b:.5f}) "
+            executed = ""
+            if tensor_cores:
+                e1, e2 = local3d_bwd_executed_ops(b, s, h, w, heads, dh, ext,
+                                                  route.partial_rows)
+                executed = (f" executed dq {e1 / 1e9:.3f} GFLOP ({e1 / dq_ms / 1e9:.2f} "
+                            f"TFLOP/s) dkv {e2 / 1e9:.3f} GFLOP ({e2 / dkv_ms / 1e9:.2f} "
+                            f"TFLOP/s);")
+            log(f"{head}; dq_ms={dq_ms:.5f} dkv_ms={dkv_ms:.5f} (back_to_back "
+                f"{dq_b2b:.5f}, {dkv_b2b:.5f}) pair_ms={dq_ms + dkv_ms:.5f} "
+                f"(pair/SDPA bwd {(dq_ms + dkv_ms) / lib_bwd_ms:.4f});{executed} "
                 f"plain_dq_ms={p_dq_ms:.5f} plain_dkv_ms={p_dkv_ms:.5f} | "
                 f"fwd+dq+dkv_ms={fwd_ms + dq_ms + dkv_ms:.5f} vs "
                 f"SDPA fwd+bwd library_ms={lib_ms:.5f} "
@@ -693,7 +815,7 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
                 f"dkv={bounds['local3d_bwd_dkv'][0] * 1e3:.4f} "
                 f"({bounds['local3d_bwd_dkv'][1]}) | "
                 f"{depth} launches of each per train step")
-            if name == "train_m3_b64" and dtype == torch.bfloat16:
+            if name == "train_m3_b64" and bf16:
                 for kname, ms, plain_ms, err in (
                         ("local3d_bwd_dq", dq_ms, p_dq_ms,
                          max(errs["dq"], errs["lse"], errs["delta"])),
@@ -703,6 +825,8 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
                         library_ms=lib_bwd_ms)
+            del q, k, v, g, dq, dk, dv, again, p_dq, p_dk, p_dv
+        torch.cuda.empty_cache()
     return records
 
 

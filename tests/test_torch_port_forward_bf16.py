@@ -162,18 +162,19 @@ def test_allframes_band_is_the_jax_packages():
                         assert kl.allframes_band(*args) == jl3d.pick_allframes_band(*args), args
 
 
-@pytest.mark.parametrize("dtype,dh,route", [
-    (torch.bfloat16, 64, kl.ROUTE_DIVIDE_AFTER),
-    (torch.bfloat16, 128, kl.ROUTE_DIVIDE_AFTER),
-    (torch.float32, 128, kl.ROUTE_CUDA_CORES),
-    (torch.bfloat16, 32, kl.ROUTE_CUDA_CORES),
-    (torch.bfloat16, 96, kl.ROUTE_CUDA_CORES),
-    (torch.bfloat16, 256, kl.ROUTE_CUDA_CORES),
+@pytest.mark.parametrize("dtype,dh", [
+    (torch.bfloat16, 64),
+    (torch.bfloat16, 128),
+    (torch.float32, 128),
+    (torch.bfloat16, 32),
+    (torch.bfloat16, 96),
+    (torch.bfloat16, 256),
 ])
-def test_local3d_forward_route(dtype, dh, route):
-    """bf16 at head sizes 64 and 128 takes the tensor-core kernel, rounding
-    P as the TPU forward for the shape does; everything else the CUDA-core
-    kernel."""
-    assert kl.fwd_route((8, 6, 8, 8, 2 * dh), 2, (3, 1, 1), dtype) == route
-    if route != kl.ROUTE_CUDA_CORES:
-        assert kl.fwd_route((1, 34, 2, 4, 2 * dh), 2, (1, 1, 1), dtype) == kl.ROUTE_NORMALISED
+def test_local3d_forward_route(dtype, dh):
+    """Where the forward rounds P follows the TPU forward for the shape at
+    every head size and dtype, whichever CUDA kernel the C entry picks
+    (tensor cores for bf16 at 64 and 128, CUDA cores otherwise): the
+    training shape divides P V by the sum as the all-frames kernel does, a
+    34-frame clip normalises P first as the per-frame kernel does."""
+    assert kl.divides_after_product((8, 6, 8, 8, 2 * dh), 2, (3, 1, 1), dtype)
+    assert not kl.divides_after_product((1, 34, 2, 4, 2 * dh), 2, (1, 1, 1), dtype)

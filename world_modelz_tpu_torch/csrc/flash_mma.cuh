@@ -4,7 +4,8 @@
 // flash_bwd.cu builds its bf16 backward pair on it; the forwards
 // (flash_fwd.cu, local3d_fwd.cu) hold Q as A fragments in registers
 // (`load_a_frags`, `warp_dots_frags` for Q K^T), round P into `to_a_frags`
-// and take P V with `warp_product`.
+// and take P V with `warp_product`; the local-3D backward (local3d_bwd.cu,
+// on wgmma.cuh) takes its copies, fragments and stores from here.
 //
 // A block of W warps owns 16 W rows of one side (queries or keys) of one
 // (b, h); warp w owns rows 16 w .. 16 w + 15 and keeps its sums in

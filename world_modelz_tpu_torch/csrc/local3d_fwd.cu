@@ -14,8 +14,9 @@
 // where the TPU kernel for the shape rounds it: unnormalised, with P V
 // divided by the sum l after the product (`_attn_kernel_allframes`,
 // :531-539; route 1), or normalised first (`_attn_kernel` :207-211,
-// `_attn_kernel_tiled` :924-928; route 2). The caller picks the route
-// (kernels/local3d.py:fwd_route).
+// `_attn_kernel_tiled` :924-928; route 2). The caller says which
+// (kernels/local3d.py:divides_after_product); which kernel runs follows
+// dtype and head size here alone.
 //
 // What bounds it on the H100. At the serving shape (B=8, S=6, 8x8 grid,
 // dh=128, extents (3,1,1)) one launch moves ~3.1 MB in bf16 (q, k, v read
@@ -51,7 +52,10 @@
 // three blocks fit on an SM. Each warp sums in a fixed order: no atomics,
 // two launches are bitwise equal.
 //
-// Design, f32 and the other head sizes (route 0): CUDA cores, P in f32.
+// Design, f32 and the other head sizes (route 0): CUDA cores. In f32, P
+// stays in f32 and the window is walked once; in bf16 it is walked twice
+// (`local3d_fwd_round_kernel`): once for the max and the sum, once to
+// round P (route 1's way or route 2's, as the caller says) before P V.
 // The TPU kernels multiply dense 7-frame blocks and mask the scores (with
 // a max over valid keys only, local3d.py:520-530, to avoid NaN rows). Here
 // the window is walked directly, so a query never visits an invalid key
@@ -185,6 +189,111 @@ local3d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < E; e += 4)
       store4(op + e, make_float4(acc[e] * inv, acc[e + 1] * inv,
                                  acc[e + 2] * inv, acc[e + 3] * inv));
+  }
+}
+
+// bf16 at the other head sizes: the same walk twice, P rounded where the
+// TPU kernel rounds it (kDivideAfter: P = exp(s - m), P V divided by the
+// sum after the product; else P / l).
+template <int E, bool kDivideAfter>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+local3d_fwd_round_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ out, int B, int S, int H, int W,
+                         int heads, int es, int eh, int ew, float scale) {
+  constexpr int dh = kGroupLanes * E;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / kGroupLanes;
+  const int t = lane % kGroupLanes;
+  const long long query = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (query >= (long long)B * S * H * W * heads) return;  // whole warps
+  const Window c = window_of(query, S, H, W, heads, es, eh, ew);
+  auto elems = [&](long long row) -> long long { return row * dh + t * E; };
+
+  float qr[E], acc[E];
+  {
+    const long long o = elems(query);
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      const float4 x = load4(q + o + e);
+      qr[e] = x.x, qr[e + 1] = x.y, qr[e + 2] = x.z, qr[e + 3] = x.w;
+    }
+  }
+  // the scaled score of window row i (all lanes); o: the row's offset
+  auto score = [&](int i, long long& o) {
+    o = elems(window_row(c, i, S, H, W, heads));
+    float part = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      const float4 x = load4(k + o + e);
+      part = fmaf(qr[e], x.x, part);
+      part = fmaf(qr[e + 1], x.y, part);
+      part = fmaf(qr[e + 2], x.z, part);
+      part = fmaf(qr[e + 3], x.w, part);
+    }
+    return __fmul_rn(group_sum(part), scale);
+  };
+  // walk 1: the max and the online sum per group, merged
+  float m = -INFINITY, l = 0.f;
+  for (int i0 = 0; i0 < c.n; i0 += kGroups) {
+    const int i = i0 + group;
+    const bool valid = i < c.n;
+    long long o;
+    const float sc = score(valid ? i : 0, o);
+    if (valid) {
+      const float m_new = fmaxf(m, sc);
+      l = l * expf(m - m_new) + expf(sc - m_new);  // expf(-inf) = 0 first
+      m = m_new;
+    }
+  }
+#pragma unroll
+  for (int off = kGroupLanes; off < 32; off <<= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
+    const float m_new = fmaxf(m, m_o);
+    const float ca = m == -INFINITY ? 0.f : expf(m - m_new);
+    const float cb = m_o == -INFINITY ? 0.f : expf(m_o - m_new);
+    l = l * ca + l_o * cb;
+    m = m_new;
+  }
+  const float inv = __frcp_rn(l);
+  // walk 2: P rounded into P V (kDivideAfter: and its sum)
+  float l2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int i0 = 0; i0 < c.n; i0 += kGroups) {
+    const int i = i0 + group;
+    const bool valid = i < c.n;
+    long long o;
+    const float sc = score(valid ? i : 0, o);
+    if (valid) {
+      const float p = expf(sc - m);
+      l2 += p;
+      const float pr =
+          __bfloat162float(__float2bfloat16_rn(kDivideAfter ? p : __fmul_rn(p, inv)));
+#pragma unroll
+      for (int e = 0; e < E; e += 4) {
+        const float4 x = load4(v + o + e);
+        acc[e] = fmaf(pr, x.x, acc[e]);
+        acc[e + 1] = fmaf(pr, x.y, acc[e + 1]);
+        acc[e + 2] = fmaf(pr, x.z, acc[e + 2]);
+        acc[e + 3] = fmaf(pr, x.w, acc[e + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kGroupLanes; off < 32; off <<= 1) {
+    l2 += __shfl_xor_sync(0xffffffffu, l2, off);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+  }
+  if (group == 0) {
+    const float f = kDivideAfter ? __frcp_rn(l2) : 1.f;
+    __nv_bfloat16* op = out + elems(query);
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      store4(op + e, make_float4(acc[e] * f, acc[e + 1] * f, acc[e + 2] * f, acc[e + 3] * f));
   }
 }
 
@@ -477,20 +586,40 @@ local3d_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   mma::store_rows<D>(acc, out + frame(s), ld, p0 + 16 * qw, p1);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int W, int heads, int dh, int es,
-                   int eh, int ew, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S,
+                       int H, int W, int heads, int dh, int es, int eh, int ew,
+                       cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)dh);
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  T* oo = static_cast<T*>(out);
+  const float* qq = static_cast<const float*>(q);
+  const float* kk = static_cast<const float*>(k);
+  const float* vv = static_cast<const float*>(v);
+  float* oo = static_cast<float*>(out);
   const dim3 grid(wmz::blocks_for(B, S, H, W, heads));
   const dim3 block(kWarpsPerBlock * 32);
 #define WMZ_L3D_CASE(EE)                                                   \
   case EE:                                                                 \
-    local3d_fwd_kernel<T, EE><<<grid, block, 0, stream>>>(                 \
+    local3d_fwd_kernel<float, EE><<<grid, block, 0, stream>>>(             \
+        qq, kk, vv, oo, B, S, H, W, heads, es, eh, ew, scale);             \
+    break;
+  WMZ_L3D_E_SWITCH(dh, WMZ_L3D_CASE)
+#undef WMZ_L3D_CASE
+  return cudaGetLastError();
+}
+
+template <bool kDivideAfter>
+cudaError_t launch_round(const void* q, const void* k, const void* v, void* out, int B,
+                         int S, int H, int W, int heads, int dh, int es, int eh, int ew,
+                         cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf((float)dh);
+  const auto* qq = static_cast<const __nv_bfloat16*>(q);
+  const auto* kk = static_cast<const __nv_bfloat16*>(k);
+  const auto* vv = static_cast<const __nv_bfloat16*>(v);
+  auto* oo = static_cast<__nv_bfloat16*>(out);
+  const dim3 grid(wmz::blocks_for(B, S, H, W, heads));
+  const dim3 block(kWarpsPerBlock * 32);
+#define WMZ_L3D_CASE(EE)                                                   \
+  case EE:                                                                 \
+    local3d_fwd_round_kernel<EE, kDivideAfter><<<grid, block, 0, stream>>>( \
         qq, kk, vv, oo, B, S, H, W, heads, es, eh, ew, scale);             \
     break;
   WMZ_L3D_E_SWITCH(dh, WMZ_L3D_CASE)
@@ -550,33 +679,26 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
 
 }  // namespace
 
-// route: 0 = the CUDA-core kernel (float32 or bfloat16, any dh the switch
-// takes), 1 = the tensor-core kernel rounding P before P V and dividing by
-// the sum after it, 2 = the tensor-core kernel rounding P / l; routes 1
-// and 2 take bfloat16 at dh = 64 or 128 only. dtype: 0 = float32, 1 =
-// bfloat16. Returns the launch's cudaError_t.
+// The kernel follows dtype and dh: float32 takes the CUDA-core kernel with
+// P in f32; bfloat16 the tensor-core kernel at dh = 64 and 128 and the
+// rounding CUDA-core kernel at the other head sizes, both rounding P
+// before P V and dividing by the sum after it (divide_after = 1) or
+// rounding P / l (0). dtype: 0 = float32, 1 = bfloat16. Returns the
+// launch's cudaError_t.
 extern "C" int wmz_local3d_fwd(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int W,
                                int heads, int dh, int es, int eh, int ew,
-                               int route, int dtype, void* stream) {
+                               int divide_after, int dtype, void* stream) {
   if (wmz::bad_dh(dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 1 || route == 2) {
-    if (dtype != 1 || (dh != 64 && dh != 128)) return (int)cudaErrorInvalidValue;
-    const int divide_after = route == 1;
-    if (dh == 64)
-      return (int)launch_mma<64>(q, k, v, out, B, S, H, W, heads, es, eh, ew, divide_after, st);
+  if (dtype == 0)
+    return (int)launch_f32(q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dh == 64)
+    return (int)launch_mma<64>(q, k, v, out, B, S, H, W, heads, es, eh, ew, divide_after, st);
+  if (dh == 128)
     return (int)launch_mma<128>(q, k, v, out, B, S, H, W, heads, es, eh, ew, divide_after, st);
-  }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float>(q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, st);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, out, B, S, H, W, heads, dh, es, eh,
-                                ew, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (divide_after)
+    return (int)launch_round<true>(q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, st);
+  return (int)launch_round<false>(q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, st);
 }

@@ -1,5 +1,5 @@
 // The local-3D window on flash_mma.cuh's tensor-core tiles, for the bf16
-// forward (local3d_fwd.cu).
+// forward (local3d_fwd.cu) and backward (local3d_bwd.cu).
 //
 // Positions p = h * W + w of a frame are row-major, so the keys a run of
 // query positions [p0, p1) can see in any frame of its window lie in one

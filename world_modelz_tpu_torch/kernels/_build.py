@@ -49,14 +49,15 @@ BUILD_INFO: Dict[str, object] = {}
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, route, dtype, stream
+    # q, k, v, out, B, S, H, W, heads, dh, es, eh, ew, divide_after, dtype,
+    # stream
     "wmz_local3d_fwd": ([_VP] * 4 + [_INT] * 11 + [_VP], _INT),
     # q, k, v, g, dq, lse, delta, B, S, H, W, heads, dh, es, eh, ew, dtype,
     # stream
     "wmz_local3d_bwd_dq": ([_VP] * 7 + [_INT] * 10 + [_VP], _INT),
     # q, k, v, g, lse, delta, dk, dv, B, S, H, W, heads, dh, es, eh, ew,
-    # dtype, stream
-    "wmz_local3d_bwd_dkv": ([_VP] * 8 + [_INT] * 10 + [_VP], _INT),
+    # partial_rows, dtype, stream
+    "wmz_local3d_bwd_dkv": ([_VP] * 8 + [_INT] * 11 + [_VP], _INT),
     # x, q_in, wk, wv, bv, wq, wo, bo, out, qkv, attn, B, S, H, W, heads,
     # dh, dim, dim_q, out_dim, es, eh, ew, dtype, stream
     "wmz_local3d_block": ([_VP] * 11 + [_INT] * 13 + [_VP], _INT),

@@ -12,13 +12,24 @@ The forward rounds P to the operand dtype where the TPU kernel that
 ``_route_fwd`` picks for the shape rounds it: the all-frames kernel rounds
 exp(s - m) and divides by the sum after P V, the per-frame and H-tiled
 kernels normalise first. ``divides_after_product`` is the port's copy of
-that choice; ``fwd_route`` picks the CUDA kernel (tensor cores for bf16 at
-head sizes 64 and 128, the CUDA-core kernel otherwise).
+that choice. Which CUDA kernel runs is the C entries' choice alone, by
+dtype and head size: the tensor cores for bf16 at head sizes 64 and 128,
+the CUDA cores otherwise (in bf16 rounding P and dS at the same points).
+
+The backward rounds P and dS to the operand dtype before their products,
+as every TPU backward does, and sums dK and dV where the TPU backward that
+``_route_bwd`` picks for the shape sums them: once in f32 (the all-frames
+and split kernels), or per query frame (the per-frame kernel) or per
+query frame and H tile (the H-tiled kernel), each partial rounded to the
+operand dtype before the f32 fold. ``bwd_route`` is the port's copy of
+that choice; the plain dK/dV pass and the kernel wrapper each take its
+``partial_rows``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,14 +51,15 @@ Extents = Tuple[int, int, int]
 _VMEM_BUDGET_BYTES = 10 * 1024 * 1024
 _MAX_ALLFRAMES_TILES = 32
 
-# fwd_route's codes, as the C entry wmz_local3d_fwd takes them
-ROUTE_CUDA_CORES = 0  # f32 FMAs, P in f32 (any dtype, dh % 32 == 0)
-ROUTE_DIVIDE_AFTER = 1  # tensor cores: P rounded, P V divided by the sum
-ROUTE_NORMALISED = 2  # tensor cores: P normalised, then rounded
-TENSOR_CORE_HEAD_SIZES = (64, 128)
+# bwd_route's kinds: the TPU backward that ``_route_bwd`` picks
+BWD_ALLFRAMES = "allframes"  # _bwd_impl_allframes: dK, dV one f32 sum
+BWD_PER_FRAME = "per_frame"  # _bwd_impl: a rounded partial per query frame
+BWD_SPLIT = "split"  # _bwd_impl_split: dK, dV one f32 sum
+BWD_TILED = "tiled"  # _bwd_impl_tiled: a partial per query frame and H tile
+BWD_NONE = "none"  # no TPU kernel takes the shape: summed as the split pair
 
 
-def _band_candidates(height: int, width: int, eh: int, min_m: int):
+def _band_candidates(height: int, width: int, eh: int, min_m: int = 128):
     """The JAX package's ``_band_candidates``: query row bands in its
     order of preference, the unbanded frame last."""
     return [
@@ -69,6 +81,7 @@ def _fits_allframes(seq: int, height: int, width: int, extents: Extents,
     return qkv + out + score <= _VMEM_BUDGET_BYTES
 
 
+@functools.lru_cache(maxsize=None)
 def allframes_band(seq: int, height: int, width: int, extents: Extents,
                    dh: int, itemsize: int) -> Optional[int]:
     """The JAX package's forward ``pick_allframes_band`` (``bwd=False``):
@@ -82,6 +95,123 @@ def allframes_band(seq: int, height: int, width: int, extents: Extents,
     return None
 
 
+def _fits_allframes_bwd(seq: int, height: int, width: int,
+                        extents: Extents, dh: int, itemsize: int,
+                        qt: int) -> bool:
+    """The JAX package's ``fits_vmem_allframes_bwd``."""
+    es, eh, _ = extents
+    hw = height * width
+    band = min(height, qt + 2 * eh)
+    rows_k = (2 * es + 1) * band * width
+    per_clip = seq * hw * dh * itemsize
+    per_pad = (seq + 2 * es) * hw * dh * itemsize
+    per_pad_acc = (seq + 2 * es) * hw * dh * 4
+    score = qt * width * rows_k * 4
+    score_lo = qt * width * rows_k * itemsize
+    dkv_f = (2 * es + 1) * band * width * dh * 4
+    return (3 * per_clip + 2 * per_pad + 2 * per_pad_acc + 4 * score
+            + 2 * score_lo + 2 * dkv_f <= _VMEM_BUDGET_BYTES)
+
+
+def _fits_frame_bwd(height: int, width: int, extents: Extents, dh: int,
+                    qt: int, itemsize: int) -> bool:
+    """The JAX package's ``fits_vmem(..., bwd=True)``."""
+    es, eh, _ = extents
+    hw = height * width
+    ts = 2 * es + 1
+    rows_q = qt * width
+    rows_k = ts * min(height, qt + 2 * eh) * width
+    score = rows_q * rows_k * 4 * 2
+    total = score + ts * hw * dh * itemsize * 2 + hw * dh * itemsize * 2
+    total += (hw * dh * itemsize * 2 + ts * hw * dh * 4 * 2
+              + ts * hw * dh * itemsize * 2 + score
+              + rows_q * rows_k * itemsize * 2)
+    return total <= _VMEM_BUDGET_BYTES
+
+
+def _fits_split_dq(height: int, width: int, extents: Extents, dh: int,
+                   itemsize: int, qt: int) -> bool:
+    """The JAX package's ``_fits_split_dq``."""
+    es, eh, _ = extents
+    hw = height * width
+    ts = 2 * es + 1
+    rows_q = qt * width
+    rows_k = ts * min(height, qt + 2 * eh) * width
+    return (rows_q * rows_k * (4 * 4 + itemsize) + 2 * ts * hw * dh * itemsize
+            + 3 * hw * dh * itemsize + 2 * hw * 4 <= _VMEM_BUDGET_BYTES)
+
+
+def _fits_split_dkv(height: int, width: int, extents: Extents, dh: int,
+                    itemsize: int, kt: int) -> bool:
+    """The JAX package's ``_fits_split_dkv``."""
+    es, eh, _ = extents
+    hw = height * width
+    ts = 2 * es + 1
+    rows_p = (height + 2 * eh) * width
+    rows_k, cols_q = kt * width, (kt + 2 * eh) * width
+    return (rows_k * cols_q * (4 * 4 + 2 * itemsize)
+            + 2 * ts * rows_p * dh * itemsize + 2 * ts * rows_p * 4
+            + 4 * hw * dh * itemsize + 2 * rows_k * dh * 4
+            <= _VMEM_BUDGET_BYTES)
+
+
+def _h_tile(height: int, width: int, extents: Extents, dh: int):
+    """The JAX package's ``pick_h_tile``: the H-tiled kernel's query row
+    tile, or None."""
+    es, eh, _ = extents
+    ts = 2 * es + 1
+    for th in (4, 8, 16, 32):
+        if th < 2 * eh or th >= height or height % th:
+            continue
+        rows_q, rows_k = th * width, ts * 2 * th * width
+        if (rows_q * rows_k * 4 * 2 + rows_k * dh * 16 + rows_q * dh * 16
+                <= _VMEM_BUDGET_BYTES):
+            return th
+    return None
+
+
+class BwdRoute(NamedTuple):
+    """The TPU backward for a shape, and where it rounds dK and dV:
+    ``partial_rows`` query rows of a frame per rounded partial (the frame
+    height for the per-frame kernel, the H tile for the H-tiled one), or 0
+    where dK and dV are one f32 sum, rounded once."""
+
+    kind: str
+    partial_rows: int
+
+
+def bwd_route(shape, heads: int, extents: Extents,
+              dtype: torch.dtype) -> BwdRoute:
+    """The port's copy of ``_route_bwd`` for q's (B, S, H, W, heads * dh)
+    ``shape``: the all-frames kernel where ``pick_allframes_band(bwd=True)``
+    finds a band, else the per-frame kernel (``pick_frame_band(bwd=True)``),
+    the split pair (``pick_split_bands``) or the H-tiled kernel
+    (``pick_h_tile``); ``BWD_NONE`` where the JAX package raises. Cached:
+    every backward call asks."""
+    _, s, h, w, inner = shape
+    return _bwd_route(s, h, w, tuple(int(e) for e in extents), inner // heads,
+                      torch.empty((), dtype=dtype).element_size())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route(s: int, h: int, w: int, ext: Extents, dh: int,
+               item: int) -> BwdRoute:
+    cands = _band_candidates(h, w, ext[1])
+    for qt in cands:
+        if (s * -(-h // qt) <= _MAX_ALLFRAMES_TILES
+                and _fits_allframes_bwd(s, h, w, ext, dh, item, qt)):
+            return BwdRoute(BWD_ALLFRAMES, 0)
+    if any(_fits_frame_bwd(h, w, ext, dh, qt, item) for qt in cands):
+        return BwdRoute(BWD_PER_FRAME, h)
+    if (any(_fits_split_dq(h, w, ext, dh, item, qt) for qt in cands)
+            and any(_fits_split_dkv(h, w, ext, dh, item, kt) for kt in cands)):
+        return BwdRoute(BWD_SPLIT, 0)
+    th = _h_tile(h, w, ext, dh)
+    if th is not None:
+        return BwdRoute(BWD_TILED, th)
+    return BwdRoute(BWD_NONE, 0)
+
+
 def divides_after_product(shape, heads: int, extents: Extents,
                           dtype: torch.dtype) -> bool:
     """Whether the TPU forward that ``_route_fwd`` picks for q's (B, S, H,
@@ -93,19 +223,6 @@ def divides_after_product(shape, heads: int, extents: Extents,
     itemsize = torch.empty((), dtype=dtype).element_size()
     return allframes_band(s, h, w, tuple(extents), inner // heads,
                           itemsize) is not None
-
-
-def fwd_route(shape, heads: int, extents: Extents, dtype: torch.dtype) -> int:
-    """The forward kernel a CUDA launch takes, as the C entry's route code:
-    the tensor-core kernel for bfloat16 at head sizes 64 and 128, rounding
-    P where the TPU forward does (``divides_after_product``); the CUDA-core
-    kernel for float32 and every other head size."""
-    if (dtype != torch.bfloat16
-            or shape[-1] // heads not in TENSOR_CORE_HEAD_SIZES):
-        return ROUTE_CUDA_CORES
-    if divides_after_product(shape, heads, extents, dtype):
-        return ROUTE_DIVIDE_AFTER
-    return ROUTE_NORMALISED
 
 
 def _check_layout(q: torch.Tensor, heads: int, *same: torch.Tensor) -> None:
@@ -179,12 +296,12 @@ def local3d_attention_fwd(
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    route = fwd_route(q.shape, heads, extents, q.dtype)
+    divide_after = divides_after_product(q.shape, heads, extents, q.dtype)
     lib = load_library()
     LAUNCHES["local3d_fwd"] += 1
     status = lib.wmz_local3d_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args[:-1],
-        route, args[-1], stream(q),
+        int(divide_after), args[-1], stream(q),
     )
     check(status, "local3d_fwd")
     return out
@@ -236,7 +353,8 @@ def local3d_bwd_dkv(
     heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward pass 2: (dk, dv) from pass 1's lse and delta, in the input
-    dtype."""
+    dtype, summed where ``bwd_route`` says the TPU backward for the shape
+    sums them."""
     _check_layout(q, heads, k, v, g)
     stat_shape = q.shape[:4] + (heads,)
     if lse.shape != stat_shape or delta.shape != stat_shape:
@@ -247,8 +365,10 @@ def local3d_bwd_dkv(
     if on_cpu("local3d", q, k, v, g, lse, delta):
         from world_modelz_tpu_torch.models.attention import local3d_attention_bwd_dkv
 
-        return local3d_attention_bwd_dkv(q, k, v, g, lse, delta, extents, heads)
+        return local3d_attention_bwd_dkv(q, k, v, g, lse, delta, extents,
+                                         heads)
     args = _kernel_args(extents, heads, (q, k, v, g), (lse, delta))
+    partial_rows = bwd_route(q.shape, heads, extents, q.dtype).partial_rows
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:
@@ -258,7 +378,7 @@ def local3d_bwd_dkv(
     status = lib.wmz_local3d_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *args, stream(q),
+        *args[:-1], partial_rows, args[-1], stream(q),
     )
     check(status, "local3d_bwd_dkv")
     return dk, dv
@@ -281,7 +401,8 @@ class Local3dAttentionFunction(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
         dq, lse, delta = local3d_bwd_dq(q, k, v, g, ctx.extents, ctx.heads)
-        dk, dv = local3d_bwd_dkv(q, k, v, g, lse, delta, ctx.extents, ctx.heads)
+        dk, dv = local3d_bwd_dkv(q, k, v, g, lse, delta, ctx.extents,
+                                 ctx.heads)
         return dq, dk, dv, None, None
 
 

@@ -24,7 +24,10 @@ CUDA forward kernel (``kernels/local3d.py``): the same scores, with P
 rounded to the operand dtype where the TPU kernel for the shape rounds it.
 ``local3d_attention_bwd_dq`` and ``local3d_attention_bwd_dkv`` are the
 plain versions of the two backward kernels, written as the JAX package's
-split backward (``_bwd_impl_split``) computes. CPU tensors and the tests
+split backward (``_bwd_impl_split``) computes: scores, P and dP in f32 (or
+wider), with P and dS rounded to the operand dtype before their products
+and dK, dV summed where the TPU backward for the shape sums them
+(``kernels.local3d.bwd_route``). CPU tensors and the tests
 use them; ``Local3dAttention`` goes through the autograd Function of
 ``kernels/local3d.py``, which on CUDA launches the kernels and on the CPU
 calls the last three; with ``backend="fused"`` it runs the whole block
@@ -115,12 +118,15 @@ def local3d_attention_weights_mask(
 
 def _shift_stack_frames(t: torch.Tensor, es: int) -> torch.Tensor:
     """(Z, S, HW, D) -> (Z, S, Ts, HW, D) with out[:, s, i] = t[:, s + ds_i],
-    zero off the ends of the clip (those keys are masked)."""
+    zero off the ends of the clip (those keys are masked), also where the
+    offset reaches past the whole clip (es >= S)."""
     seq = t.shape[1]
     stacks = []
     for ds in range(-es, es + 1):
         shifted = torch.zeros_like(t)
-        if ds < 0:
+        if abs(ds) >= seq:
+            pass
+        elif ds < 0:
             shifted[:, -ds:] = t[:, : seq + ds]
         elif ds > 0:
             shifted[:, : seq - ds] = t[:, ds:]
@@ -256,14 +262,19 @@ def local3d_attention_bwd_dq(
     against its 2e_s+1 stacked key frames, the additive window mask, then
 
       lse = m + log l,  delta = rowsum(dP * P),
-      dq = scale * (P * (dP - delta)) @ K.
+      dq = (round(P * (dP - delta)) @ K) * scale,
+
+    P = exp(s - m) / l. dS = P * (dP - delta) is rounded to the operand
+    dtype before its product, as every TPU backward rounds it
+    (world_modelz_tpu/kernels/local3d.py:710, :1054, :1225, :1611); the
+    scale follows the product. Rounding to f32 or float64 is the identity.
 
     Args:
       q, k, v: (B, S, H, W, heads * dim_head); g: the output's cotangent.
 
     Returns:
       dq in q's dtype; lse and delta (B, S, H, W, heads), float32 (float64
-      for float64 inputs). All arithmetic in f32 or wider.
+      for float64 inputs). Products and sums in f32 or wider.
     """
     es = extents[0]
     b, s, h, w, inner = q.shape
@@ -287,7 +298,7 @@ def local3d_attention_bwd_dq(
 
     dp = torch.einsum("zsqd,zstkd->zsqtk", gh, vh)
     delta = (dp * attn).sum((-2, -1))
-    dscores = attn * (dp - delta[..., None, None])
+    dscores = _rounded(attn * (dp - delta[..., None, None]), q.dtype)
     dq = torch.einsum("zsqtk,zstkd->zsqd", dscores, kh) * scale
     stats = q.shape[:4] + (heads,)
     return (
@@ -313,15 +324,35 @@ def local3d_attention_bwd_dkv(
     their stats are stacked for the 2e_s+1 frame offsets around f, P is
     rebuilt as exp(scores - lse) under the same additive mask, and
 
-      dv = P^T @ G,  dk = scale * (P * (G @ V^T - delta))^T @ Q.
+      dv = round(P)^T @ G,  dk = (round(P * (G @ V^T - delta))^T @ Q) * scale,
+
+    P and dS rounded to the operand dtype before their products, as every
+    TPU backward rounds them (world_modelz_tpu/kernels/local3d.py:709-710,
+    :1053-1054, :1301-1308, :1610-1611). The sums are f32 (or wider) and
+    end where the TPU backward for the shape ends them: ``partial_rows`` 0
+    (the all-frames and split kernels) sums every query of a key's window
+    and rounds once; otherwise each query frame's queries of each tile of
+    ``partial_rows`` rows (the whole frame for the per-frame kernel's
+    slabs, ``_part_dtype`` :49; the H tile for the H-tiled kernel's) form a
+    partial that is rounded before the partials are summed (the fold,
+    :1688, :1131) and rounded again, as ``kernels.local3d.bwd_route`` says
+    for the shape. Rounding to f32 or float64 is the identity, so wider
+    inputs keep one sum.
 
     Args:
       q, k, v, g: (B, S, H, W, heads * dim_head); lse, delta: pass 1's
         (B, S, H, W, heads) float32 stats.
 
     Returns:
-      (dk, dv) in k's and v's dtypes. All arithmetic in f32 or wider.
+      (dk, dv) in k's and v's dtypes.
     """
+    rows = local3d_kernels.bwd_route(q.shape, heads, extents, q.dtype).partial_rows
+    return _local3d_bwd_dkv(q, k, v, g, lse, delta, extents, heads, rows)
+
+
+def _local3d_bwd_dkv(q, k, v, g, lse, delta, extents, heads, partial_rows):
+    """``local3d_attention_bwd_dkv`` with dK and dV summed in partials of
+    ``partial_rows`` query rows (0: one sum), whatever the shape's route."""
     es = extents[0]
     b, s, h, w, inner = q.shape
     dh = inner // heads
@@ -339,9 +370,22 @@ def local3d_attention_bwd_dkv(
     scores = scores + local3d_attention_weights_mask(s, h, w, extents, q.device)
     p = torch.exp(scores - lses[:, :, None])
     dp = torch.einsum("zfkd,zftqd->zfktq", vh, gs)
-    dscores = p * (dp - deltas[:, :, None])
-    dv = torch.einsum("zfktq,zftqd->zfkd", p, gs)
-    dk = torch.einsum("zfktq,zftqd->zfkd", dscores, qs) * scale
+    dscores = _rounded(p * (dp - deltas[:, :, None]), q.dtype)
+    p = _rounded(p, q.dtype)
+    if not partial_rows or q.dtype in (torch.float32, torch.float64):
+        dv = torch.einsum("zfktq,zftqd->zfkd", p, gs)
+        dk = torch.einsum("zfktq,zftqd->zfkd", dscores, qs) * scale
+    else:
+        # one partial per (query frame t, tile i of partial_rows rows)
+        z, ts = p.shape[0], p.shape[3]
+        tiles = (z, s, h * w, ts, h // partial_rows, partial_rows * w)
+        rows = (z, s, ts, h // partial_rows, partial_rows * w, dh)
+        dv_part = torch.einsum("zfktiq,zftiqd->zfktid", p.reshape(tiles),
+                               gs.reshape(rows))
+        dk_part = torch.einsum("zfktiq,zftiqd->zfktid", dscores.reshape(tiles),
+                               qs.reshape(rows)) * scale
+        dv = _rounded(dv_part, q.dtype).sum((3, 4))
+        dk = _rounded(dk_part, q.dtype).sum((3, 4))
     return (
         _from_heads(dk, k.shape).to(k.dtype),
         _from_heads(dv, v.shape).to(v.dtype),
