@@ -40,9 +40,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate, and the peak rate for each
-# operand type (bf16 tensor cores, f32 CUDA cores)
+# operand type (bf16 and TF32 tensor cores, f32 CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# TF32 products the split-TF32 f32 flash forward executes per f32 product
+# (lo hi + hi lo + hi hi)
+SPLIT_TF32_PRODUCTS = 3
 
 # serve/m3_g8 (benchmarks/serve_bench.py): 64x64x1 frames, S = 6 context
 # frames, 8x8 token grid
@@ -103,19 +106,26 @@ SPARSE_TRAIN = dict(
 )
 
 # the fused block's check (check_local3d_block): name, (B, S, H, W), dim,
-# heads, dim_head, extents, dtypes; the serving and training shapes of the
-# m3 denoiser, benchmarks/perf_ledger.py's attn_block/m3 (6 x 16 x 16),
-# two heads with an asymmetric window, and a width not a multiple of 64
+# heads, dim_head, extents, {dtype: the kernel wmz_local3d_block must
+# launch}; the serving and training shapes of the m3 denoiser,
+# benchmarks/perf_ledger.py's attn_block/m3 (6 x 16 x 16), two heads with
+# an asymmetric window, a width not a multiple of 64, and a bf16 block the
+# tensor-core kernel does not take (head size 32, a width not a multiple
+# of 8), which the CUDA-core kernel runs
+BLOCK_MMA, BLOCK_CORES = "local3d_block_mma_kernel", "local3d_block_kernel"
 BLOCK_CASES = [
-    ("serving", (8, SEQ, GRID, GRID), 384, 1, 128, (3, 1, 1), ("float32", "bfloat16")),
-    ("train_m3_b64", (64, SEQ, GRID, GRID), 384, 1, 128, (3, 1, 1), ("bfloat16",)),
-    ("attn_block_m3", (8, 6, 16, 16), 384, 1, 128, (3, 1, 1), ("bfloat16",)),
-    ("multihead", (8, SEQ, GRID, GRID), 384, 2, 64, (1, 2, 1), ("float32", "bfloat16")),
-    ("dim200", (8, SEQ, GRID, GRID), 200, 1, 128, (3, 1, 1), ("float32", "bfloat16")),
+    ("serving", (8, SEQ, GRID, GRID), 384, 1, 128, (3, 1, 1),
+     {"float32": BLOCK_CORES, "bfloat16": BLOCK_MMA}),
+    ("train_m3_b64", (64, SEQ, GRID, GRID), 384, 1, 128, (3, 1, 1), {"bfloat16": BLOCK_MMA}),
+    ("attn_block_m3", (8, 6, 16, 16), 384, 1, 128, (3, 1, 1), {"bfloat16": BLOCK_MMA}),
+    ("multihead", (8, SEQ, GRID, GRID), 384, 2, 64, (1, 2, 1),
+     {"float32": BLOCK_CORES, "bfloat16": BLOCK_MMA}),
+    ("dim200", (8, SEQ, GRID, GRID), 200, 1, 128, (3, 1, 1),
+     {"float32": BLOCK_CORES, "bfloat16": BLOCK_MMA}),
+    ("cores_bf16", (8, SEQ, GRID, GRID), 196, 2, 32, (1, 2, 1), {"bfloat16": BLOCK_CORES}),
 ]
 
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
-BF16_TOL = 2e-2  # bf16 output rounding (2^-8 relative) of O(1) values
 # backward kernels vs plain, times max(1, max |grad|): f32 sums in another
 # order
 BWD_F32_TOL = 1e-4
@@ -130,9 +140,10 @@ LOCAL3D_BWD_BF16_EQUAL = 0.99
 # and at least this share of dq, dk and dv bitwise equal
 FLASH_BWD_BF16_TOL = 2.0**-7
 FLASH_BWD_BF16_EQUAL = 0.99
-# the bf16 forwards (flash_fwd, local3d_fwd) vs plain versions that round P
-# at the TPU kernels' points, fed the same bf16 operands: times max |out|,
-# and at least this share of out bitwise equal
+# the bf16 forwards (flash_fwd, local3d_fwd) and the bf16 fused block
+# (local3d_block) vs plain versions that round at the TPU kernels' points,
+# fed the same bf16 operands: times max |out|, and at least this share of
+# out bitwise equal
 FWD_BF16_TOL = 2.0**-7
 FWD_BF16_EQUAL = 0.99
 STAT_TOL = 1e-4  # lse and delta (f32 in both), times max(1, max |stat|)
@@ -195,25 +206,23 @@ def device_kernels(prof):
 
 
 def kernels_run(torch, fn, launches: int = 1):
-    """The names of the device kernels one call of ``fn`` launches, as the
-    profiler traces them: which kernel a C entry picked. A trace that
-    holds fewer than ``launches`` kernels (the profiler drops one now and
-    then) is taken again; after three the call raises."""
+    """The names (``name<args>``) of the kernels one call of ``fn``
+    launches, as the library's launch log names them
+    (``_build.kernels_launched``): which kernel a C entry picked. Fewer
+    than ``launches`` raises."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
+    from world_modelz_tpu_torch.kernels import _build
 
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
-        found = (re.search(r"(\w+(?:<[^()]*>)?)\(", e.key) for e in device_kernels(prof))
-        names = sorted(m.group(1) for m in found if m)
-        if len(names) >= launches:
-            return names
-    raise AssertionError(
-        f"kernels_run: the profiler traced {names}, not {launches} kernels, three times")
+    lines = _build.kernels_launched(fn)
+    torch.cuda.synchronize()
+    # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
+    found = (re.search(r"(\w+(?:<[^()]*>)?)\(", line) for line in lines)
+    names = sorted(m.group(1) for m in found if m)
+    if len(names) < launches:
+        raise AssertionError(
+            f"kernels_run: the launch log names {names}, not {launches} kernels")
+    return names
 
 
 def device_ms(torch, fn, iters: int, warmup: int = 3, label: str = "") -> float:
@@ -227,9 +236,11 @@ def device_ms(torch, fn, iters: int, warmup: int = 3, label: str = "") -> float:
     the device's time alone, host gaps excluded. A profile that records
     less than that (minus PROFILE_GAP_US per kernel for the gaps between
     queued kernels, and PROFILE_AGREE of slack), or more, is taken again;
-    after three disagreements the call raises. Where the host could not
-    get ahead of the spin (``fn`` syncs), the events only bound the
-    profile from above."""
+    after three disagreements (the profiler drops events now and then, or
+    traces none) the events' time of the last attempt is the result, and
+    the log says so. Where the host could not get ahead of the spin
+    (``fn`` syncs), the events only bound the profile from above, and as
+    the result they include the host's gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     host = []
@@ -266,9 +277,10 @@ def device_ms(torch, fn, iters: int, warmup: int = 3, label: str = "") -> float:
             f"in {launched} kernels vs {events_us:.3f} us "
             f"({'shielded' if shielded else 'host-bound'}); profiling again")
     else:
-        raise AssertionError(
-            f"{label or 'device_ms'}: the profiler and CUDA events disagree "
-            f"three times")
+        log(f"  {label or 'device_ms'}: the profiler and CUDA events disagree "
+            f"three times; the CUDA events' {events_us:.3f} us for {iters} calls "
+            f"is the result ({'device alone' if shielded else 'host gaps included'})")
+        return events_us / 1e3 / iters
     if label:
         for e in events:
             log(f"  {label}: {e.self_device_time_total / 1e3 / iters:.5f} ms "
@@ -540,26 +552,38 @@ def block_operands(torch, gen, dev, b, s, h, w, dim, heads, dh, dtype):
 def check_local3d_block(torch, dev, cases=None):
     """The fused block kernel (``local3d_block_fwd``) against its plain
     version at the serving (f32, bf16), training, attn_block/m3,
-    multi-head and dim-200 shapes; two launches bitwise equal; in f32, the
+    multi-head and dim-200 shapes, and in bf16 at a shape the tensor-core
+    kernel does not take: bf16 within FWD_BF16_TOL x max |out|
+    and at least FWD_BF16_EQUAL bitwise equal (the plain version rounds
+    where the TPU block does, so a kernel that rounds elsewhere fails), f32
+    within F32_TOL x max(1, max |out|); two launches bitwise equal; the
+    kernel that ran is the case's; in f32, the
     Function's gradients of all eight operands against autograd through
     the plain composition. Times the kernel beside the port's unfused
     attention-only route on the same inputs. Returns the serving-shape
     bf16 record."""
+    import ctypes
+
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import (
+        _build,
         load_library,
         local3d_attention_fwd,
         local3d_block_fwd,
         local3d_block_reference,
     )
+    from world_modelz_tpu_torch.kernels.local3d_block import _kernel_args
 
     lib = load_library()
+    for line in ptxas_summary(str(_build.BUILD_INFO.get("log", ""))):
+        if "local3d_block" in line:
+            log(f"local3d_block ptxas: {line}")
     cases = BLOCK_CASES if cases is None else cases
     gen = torch.Generator(device=dev).manual_seed(14)
     serving = None
-    for name, (b, s, h, w), dim, heads, dh, ext, dtypes in cases:
-        for dtype in (getattr(torch, d) for d in dtypes):
+    for name, (b, s, h, w), dim, heads, dh, ext, kernels in cases:
+        for dtype, want in ((getattr(torch, d), k) for d, k in kernels.items()):
             ops = block_operands(torch, gen, dev, b, s, h, w, dim, heads, dh, dtype)
             out = local3d_block_fwd(*ops, ext, heads)
             again = local3d_block_fwd(*ops, ext, heads)
@@ -569,11 +593,21 @@ def check_local3d_block(torch, dev, cases=None):
                 raise AssertionError(f"local3d_block {name} {dtype}: two launches differ")
             tname = str(dtype).replace("torch.", "")
             err = float((out.float() - plain.float()).abs().max())
-            lim = (F32_TOL if dtype == torch.float32 else BF16_TOL) * max(
-                1.0, float(plain.float().abs().max()))
+            peak = float(plain.float().abs().max())
+            bf16 = dtype == torch.bfloat16
+            lim = FWD_BF16_TOL * peak if bf16 else F32_TOL * max(1.0, peak)
             if not err <= lim:
                 raise AssertionError(
                     f"local3d_block {name} {tname}: max abs err {err} > {lim}")
+            equal = float((out == plain).float().mean())
+            if bf16 and not equal >= FWD_BF16_EQUAL:
+                raise AssertionError(
+                    f"local3d_block {name} {tname}: {equal:.4f} bitwise equal < "
+                    f"{FWD_BF16_EQUAL}")
+            kernel = lambda: local3d_block_fwd(*ops, ext, heads)  # noqa: E731
+            ran = kernels_run(torch, kernel)
+            if len(ran) != 1 or not ran[0].startswith(want + "<"):
+                raise AssertionError(f"local3d_block {name} {tname} ran {ran}, not {want}")
             grad_note = ""
             if dtype == torch.float32:
                 grad_note = " " + check_block_grads(
@@ -585,7 +619,6 @@ def check_local3d_block(torch, dev, cases=None):
                                           F.linear(x_kv, wv, bv), ext, heads)
                 return F.linear(a, wo, bo)
 
-            kernel = lambda: local3d_block_fwd(*ops, ext, heads)  # noqa: E731
             ms = device_ms(torch, kernel, 50)
             b2b = cuda_ms(torch, kernel, 100)
             plain_ms = device_ms(
@@ -597,18 +630,21 @@ def check_local3d_block(torch, dev, cases=None):
             ops_n = (2 * rows * inner * 4 * dim
                      + 4 * dh * heads * b * window_pairs(s, h, w, ext))
             bound_ms, bound_by = bound(nbytes, ops_n, tname)
-            grid = lib.wmz_local3d_block_grid(dh, 0 if dtype == torch.float32 else 1)
+            threads = ctypes.c_int(0)
+            grid = lib.wmz_local3d_block_grid(*_kernel_args(ext, heads, ops), ctypes.byref(threads))
             log(f"local3d_block {name} {tname} (B, S, H, W)={(b, s, h, w)} dim={dim} "
-                f"heads={heads}x{dh} extents={ext}: max_abs_err={err:.3g} (tol "
-                f"{lim:.3g}); repeat bitwise;{grad_note} kernel_ms={ms:.5f} "
+                f"heads={heads}x{dh} extents={ext} kernel={ran}: max_abs_err={err:.3g} "
+                f"(tol {lim:.3g}) bitwise_equal={equal:.5f}; repeat bitwise;{grad_note} "
+                f"kernel_ms={ms:.5f} ({ops_n / ms / 1e9:.2f} TFLOP/s) "
                 f"back_to_back_ms={b2b:.5f} plain_ms={plain_ms:.5f} "
-                f"unfused_ms={unfused_ms:.5f} (cuBLAS projections + local3d_fwd) "
-                f"library_ms=null bound_us={bound_ms * 1e3:.4f} ({bound_by}); "
-                f"cooperative grid cap {grid} blocks of 256")
-            if name == "serving" and dtype == torch.bfloat16:
+                f"unfused_ms={unfused_ms:.5f} (cuBLAS projections + local3d_fwd; "
+                f"kernel/unfused {ms / unfused_ms:.4f}) library_ms=null "
+                f"bound_us={bound_ms * 1e3:.4f} ({bound_by}); cooperative grid "
+                f"{grid} blocks of {threads.value}")
+            if name == "serving" and bf16:
                 serving = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=None)
+                               library_ms=None, unfused_ms=unfused_ms)
             del ops, out, again, plain
         torch.cuda.empty_cache()
     return serving
@@ -982,12 +1018,17 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
     within FWD_BF16_TOL x max |out| and be at least FWD_BF16_EQUAL bitwise
     equal, dq, dk and dv within FLASH_BWD_BF16_TOL x max |x| and at least
     FLASH_BWD_BF16_EQUAL bitwise equal, which a kernel that rounds P or dS
-    elsewhere fails. Logs each kernel's TFLOP/s (4, 6 and 8 B H N^2 D
-    operations; the bf16 forward executes 6, Q K^T twice). Returns
-    {kernel: record} at the training shape."""
+    elsewhere fails. The forward that runs must be the bf16 or the
+    split-TF32 tensor-core kernel, as the dtype says. Logs each kernel's TFLOP/s (4, 6 and 8 B H N^2 D
+    operations; the bf16 forward executes 6, Q K^T twice; the f32 forward
+    3 x 4, three TF32 products for each f32 one, whose bound is restated
+    at the TF32 peak beside the CUDA cores' f32 one). Returns {kernel:
+    record} at the training shape, and under "flash_fwd_eval" the f32
+    forward's record at the evaluation sweep's shape."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import (
+        _build,
         flash_attention_fwd,
         flash_bwd_dkv,
         flash_bwd_dq,
@@ -1006,6 +1047,9 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         ("d128", (8, 4, 1024, 128), torch.float32),
         ("one_block", (8, 8, 512, 64), torch.bfloat16),  # P / l rounded
     ]
+    for line in ptxas_summary(str(_build.BUILD_INFO.get("log", ""))):
+        if "flash_fwd" in line:
+            log(f"flash_fwd ptxas: {line}")
     gen = torch.Generator(device=dev).manual_seed(10)
     records = {}
     for name, (b, h, n, d), dtype in cases:
@@ -1026,6 +1070,10 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         if not all(torch.equal(a, b_) for a, b_ in zip(
                 (out, lse, dq, delta, dk, dv), again)):
             raise AssertionError(f"flash {name}: two launches differ")
+        ran = kernels_run(torch, lambda: flash_attention_fwd(q, k, v, scale))
+        want = "flash_fwd_mma_kernel<" if dtype == torch.bfloat16 else "flash_fwd_tf32_kernel<"
+        if len(ran) != 1 or not ran[0].startswith(want):
+            raise AssertionError(f"flash {name}: the forward ran {ran}, not {want}...>")
         bf16 = dtype == torch.bfloat16
         fwd_tol = FWD_BF16_TOL if bf16 else F32_TOL
         bwd_tol = FLASH_BWD_BF16_TOL if bf16 else BWD_F32_TOL
@@ -1056,8 +1104,13 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
         work = b * h * n * n * d
         ops = {"flash_fwd": 4 * work, "flash_bwd_dq": 6 * work,
                "flash_bwd_dkv": 8 * work}
+        # the f32 forward executes SPLIT_TF32_PRODUCTS TF32 products for
+        # each f32 product: its bound is that work at the TF32 peak
+        fwd_ops, fwd_type = ((ops["flash_fwd"], tname) if bf16 else
+                             (SPLIT_TF32_PRODUCTS * ops["flash_fwd"], "tf32"))
+        fwd_bytes = 4 * elems * isz + b * h * n * 4
         bounds = {  # (bytes in and out, products), each input read once
-            "flash_fwd": bound(4 * elems * isz + b * h * n * 4, ops["flash_fwd"], tname),
+            "flash_fwd": bound(fwd_bytes, fwd_ops, fwd_type),
             "flash_bwd_dq": bound(6 * elems * isz + 2 * b * h * n * 4,
                                   ops["flash_bwd_dq"], tname),
             "flash_bwd_dkv": bound(6 * elems * isz + 2 * b * h * n * 4,
@@ -1102,7 +1155,13 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
                 f"bound_us={bounds[key][0] * 1e3:.4f} ({bounds[key][1]})"
                 for key in ms)
             + (f" | fwd executes 6 B H N^2 D: {6 * work / ms['flash_fwd'] / 1e9:.2f} "
-               "TFLOP/s" if bf16 else "")
+               "TFLOP/s" if bf16 else
+               f" | fwd executes {SPLIT_TF32_PRODUCTS} x 4 B H N^2 D in TF32: "
+               f"{fwd_ops / ms['flash_fwd'] / 1e9:.2f} TFLOP/s, bound at the TF32 peak "
+               f"{bounds['flash_fwd'][0] * 1e3:.4f} us, on the CUDA cores at the f32 peak "
+               f"{bound(fwd_bytes, ops['flash_fwd'], tname)[0] * 1e3:.4f} us; kernel/SDPA "
+               f"{ms['flash_fwd'] / lib_fwd:.4f}")
+            + f" | fwd kernel {ran[0]}"
             + f" | fwd back_to_back_ms={b2b:.5f} | SDPA fwd library_ms="
             f"{lib_fwd:.5f}, fwd+bwd {lib_all:.5f} | {depth} launches of each "
             f"per train step")
@@ -1114,6 +1173,11 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
                     max_abs_err=max(errs[e] for e in err_keys), ms=ms[key],
                     plain_ms=plain_ms[key], bound_ms=bounds[key][0],
                     bound_by=bounds[key][1], library_ms=lib[key])
+        if name == "eval":
+            records["flash_fwd_eval"] = dict(
+                max_abs_err=max(errs["out"], errs["lse"]), ms=ms["flash_fwd"],
+                plain_ms=plain_ms["flash_fwd"], bound_ms=bounds["flash_fwd"][0],
+                bound_by=bounds["flash_fwd"][1], library_ms=lib_fwd)
         del qkv, q, k, v, g, out, lse, dq, delta, dk, dv, again, qs, ks, vs
         torch.cuda.empty_cache()
     return records
@@ -2137,6 +2201,8 @@ def main() -> int:
                                 ("flash_bwd_dq", "flash_bwd.cu", 1146),
                                 ("flash_bwd_dkv", "flash_bwd.cu", 796))
     ]
+    # the f32 forward of the evaluation sweep, beside the bf16 training record
+    next(k for k in kernels if k["name"] == "flash_fwd")["eval_f32"] = flash["flash_fwd_eval"]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

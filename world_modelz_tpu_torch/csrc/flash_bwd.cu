@@ -52,6 +52,7 @@
 
 #include "flash_mma.cuh"
 #include "flash_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -431,6 +432,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   auto kernel = flash_bwd_dq_kernel<T, D>;
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
+  wmz::note_launch(kernel);
   kernel<<<grid_for(B, H, N), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
@@ -448,6 +450,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
+  wmz::note_launch(kernel);
   kernel<<<grid_for(B, H, N), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
@@ -467,6 +470,7 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  wmz::note_launch(kernel);
   kernel<<<grid, 32 * kWarps, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
@@ -486,6 +490,7 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  wmz::note_launch(kernel);
   kernel<<<grid, 32 * kWarps, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,

@@ -25,9 +25,14 @@
 // What bounds it on the H100. At the sparse trainer's shape (B=16, H=8,
 // N=1024, D=64, bf16) it reads q, k, v (25 MB) and writes out and lse: ~8 us
 // at 3.35 TB/s, against 4 B H N^2 D = 34.4 GFLOP of products, ~35 us at the
-// bf16 tensor-core peak: bound by operations.
+// bf16 tensor-core peak: bound by operations. In f32, at the evaluation
+// sweep's shape (B=8, H=8, N=1024, D=64), 4 B H N^2 D = 17.2 GFLOP would
+// take 256 us at the 67 TFLOP/s of f32 FMAs on the CUDA cores; on the
+// tensor cores the kernel executes three TF32 products for each f32
+// product (below), 51.5 GFLOP, 104 us at the 495 TFLOP/s TF32 peak,
+// against 20 us for its 67 MB: bound by operations.
 //
-// Design. bf16: flash_mma.cuh's tiling. A block of 8 warps owns 128
+// Design, bf16: flash_mma.cuh's tiling. A block of 8 warps owns 128
 // queries of one (b, h), 16 per warp, with Q held as mma A fragments in
 // registers (D = 64; D = 128 reads them from shared memory). Per key block
 // it walks the block's keys twice, 128 (D = 64) or 64 keys a step, with
@@ -41,96 +46,54 @@
 // runs twice: 1.5x the products of one pass. exp is the SFU's (__expf),
 // and P / l is P times l's correctly rounded reciprocal: each within a
 // few f32 ulps of the stock kernel's value before the bf16 rounding.
-// f32: flash_tile.cuh's CUDA-core tiling (one block of 256 threads per
-// 64-query tile, the query tile in shared memory, 64-key tiles of K and V
-// staged through it, 4 x 4 scores per thread as f32 FMAs, an online
-// softmax per 64 keys, the weights in f32 through shared memory into the
-// P v product). Each block sums in a fixed order: two launches are
-// bitwise equal.
+//
+// Design, f32: the tensor cores in split TF32 (mma.sync m16n8k8 .tf32),
+// whatever torch.backends.cuda.matmul.allow_tf32 says. One TF32 product
+// keeps ~10 mantissa bits, ~1e-3 relative, too coarse for the f32 parity
+// gate (1e-4); so every operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (cvt.rna, round to nearest, ties away), and each product a
+// b is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b, accumulated in f32,
+// small terms first: within f32 rounding of the f32 product (lo_a lo_b,
+// ~2^-22 relative, is dropped). Q is split as its fragments are read, K
+// and V as theirs are, P in registers. In f32, rounding P to the operand
+// type is the identity, so there are no rounding points to keep and one
+// online sweep over the keys serves: per 64-key step the running max m
+// and sum l, acc rescaled by exp(m - m') as the max moves, exp the SFU's
+// and out = acc times l's correctly rounded reciprocal. The tensor cores
+// add a product's terms to the accumulator they are given less exactly
+// than an f32 add (on the card, out was ~5e-6 from float64 with S and acc
+// as the running accumulators, against ~5e-7 for f32 FMAs; PERF.md, PR
+// 9): so each 8-deep step of S takes its three products into zeroed
+// registers, added to S in f32, and each 64-key step's P V is summed
+// apart and folded into acc by one f32 FMA with the rescale. Layouts: the S
+// accumulators of an m16n8 tile hold (row g, columns 2t, 2t + 1), where
+// the m16n8k8 A fragment of P V wants columns t and t + 4. P V sums over
+// its k index, so the kernel reads the C columns {2t, 2t + 1} as A's
+// k-slots {t, t + 4} and loads V's B fragment from rows 2t and 2t + 1 of
+// the 8-key step: both sides take the same permutation and no lane
+// shuffles. A block of 8 warps owns 128 queries of one (b, h), 16 per
+// warp; Q (read from shared memory at both head sizes) and a ring of two
+// stages of 64 keys of K and V are staged by 16-byte cp.async copies into
+// f32 rows padded to D + 4, so that the fragment reads (row g or 2t,
+// column t or g) hit 32 different banks. At D = 64 that is 102 KB, and
+// two blocks fit on an SM; at D = 128 one. No atomics: two launches are
+// bitwise equal. wgmma, a later lever, takes TF32 only K-major, which V
+// is not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 #include "flash_mma.cuh"
 #include "flash_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
 using namespace wmz::flash;
 namespace mma = wmz::mma;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-                 int H, int N, float scale) {
-  constexpr int kC = D / kTx;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTile * (D + 1);
-  float* Vs = Ks + kTile * (D + 1);
-  float* Ps = Vs + kTile * (D + 1);  // 64 x kSLd weights
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
-
-  load_tile<T, D>(Qs, q, sq, b, h, q0, N);
-  float acc[kRows][kC], m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, k, sk, b, h, k0, N);
-    load_tile<T, D>(Vs, v, sv, b, h, k0, N);
-    __syncthreads();
-    float s[kRows][kCols];
-    tile_dots<D>(Qs, Ks, s);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[i][j] = k0 + tx + kTx * j < N ? s[i][j] * scale : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      // every key tile holds a real key, so m_new is finite
-      const float m_new = fmaxf(m[i], row_max(mt));
-      const float corr = expf(m[i] - m_new);  // 0 on the first tile
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * kRows + i) * kSLd + tx + kTx * j] = p;
-        ps += p;
-      }
-      l[i] = fmaf(l[i], corr, row_sum(ps));
-#pragma unroll
-      for (int c = 0; c < kC; ++c) acc[i][c] *= corr;
-      m[i] = m_new;
-    }
-    __syncthreads();
-    tile_product<D>(Ps, Vs, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int n = q0 + ty * kRows + i;
-    if (n >= N) continue;
-    const float inv = 1.f / l[i];
-    T* orow = out + (((long long)b * N + n) * H + h) * D + tx;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) orow[c * kTx] = from_float<T>(acc[i][c] * inv);
-    if (tx == 0) lse[((long long)b * H + h) * N + n] = m[i] + logf(l[i]);
-  }
-}
 
 // ---------------------------------------------------------------- bf16
 // The tensor-core forward (flash_mma.cuh): kWarps warps own 16 kWarps
@@ -312,19 +275,216 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, const long long* st, int B, int H, int N,
-                   float scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(3, 1, 0);
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// ---------------------------------------------------------------- f32
+// The split-TF32 forward: kWarps warps own 16 kWarps queries; a stage
+// holds kKeysF keys of K, then of V, as f32 rows padded to D + kPadF.
+
+namespace tf32 {
+
+constexpr int kPadF = 4;    // f32 of padding after each row of a tile
+constexpr int kKeysF = 64;  // keys of a step
+
+template <int D>
+constexpr size_t tile_bytes(int rows) {
+  return (size_t)rows * (D + kPadF) * sizeof(float);
+}
+
+// rows [row0, row0 + Rows) of a row-major f32 operand (`base` at row 0,
+// row stride `ld_n` elements, 16-byte aligned rows) -> the padded tile
+// `dst`; rows at or past N are zero. Every thread of the block takes part.
+template <int D, int Rows>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* __restrict__ base,
+                                                long long ld_n, int row0, int N) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < Rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int n = row0 + r;
+    const bool valid = n < N;
+    mma::cp_async16(dst + r * (D + kPadF) + c, base + (valid ? n * ld_n : 0) + c, valid);
+  }
+}
+
+// x = hi + lo: hi = tf32(x) and lo = tf32(x - hi), each rounded to nearest
+// with ties away (cvt.rna); the low 13 bits of hi are cleared so that x - hi
+// is exact
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x) & 0xffffe000u;
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b for one m16n8k8 tile: TF32 operands, f32 sums
+__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in split TF32, small terms first: lo_a hi_b, hi_a lo_b, hi_a hi_b.
+// The A fragment (row g or g + 8, k-slot t or t + 4) as hi and lo halves,
+// the B fragment's two values (k-slots t and t + 4 of column g) as f32
+__device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                          float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma_1688(c, al, bh0, bh1);
+  mma_1688(c, ah, bl0, bl1);
+  mma_1688(c, ah, bh0, bh1);
+}
+
+// the A fragment of four f32 values (a0: row g, slot t; a1: row g + 8,
+// slot t; a2: row g, slot t + 4; a3: row g + 8, slot t + 4), split
+__device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3, uint32_t ah[4],
+                                        uint32_t al[4]) {
+  split(a0, ah[0], al[0]);
+  split(a1, ah[1], al[1]);
+  split(a2, ah[2], al[2]);
+  split(a3, ah[3], al[3]);
+}
+
+}  // namespace tf32
+
+template <int D>
+__global__ void __launch_bounds__(32 * kWarps, D == 64 ? 2 : 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, int H, int N,
+                      float scale) {
+  using tf32::kKeysF;
+  constexpr int L = D + tf32::kPadF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* KV = Qs + kOwn * L;  // two stages: kKeysF rows of K, then of V
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int steps = (N + kKeysF - 1) / kKeysF;
+  auto issue = [&](int i) {
+    float* stage = KV + (i & 1) * 2 * kKeysF * L;
+    tf32::load_rows_async<D, kKeysF>(stage, kb, sk.n, i * kKeysF, N);
+    tf32::load_rows_async<D, kKeysF>(stage + kKeysF * L, vb, sv.n, i * kKeysF, N);
+  };
+
+  tf32::load_rows_async<D, kOwn>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
+  issue(0);
+  mma::cp_async_commit();
+
+  float acc[D / 8][4];
+  mma::zero<D / 8>(acc);
+  // this lane's rows gr and gr + 8: the running max and sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float* Qw = Qs + (16 * warp + gr) * L + t;
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) issue(it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = KV + (it & 1) * 2 * kKeysF * L;
+    const float* Vs = Ks + kKeysF * L;
+    // S = Q K^T for this step's keys: B fragment (depth t and t + 4 of key
+    // 8 j + g)
+    float s[kKeysF / 8][4];
+    mma::zero<kKeysF / 8>(s);
+#pragma unroll
+    for (int kc = 0; kc < D / 8; ++kc) {
+      uint32_t ah[4], al[4];
+      const float* qa = Qw + 8 * kc;
+      tf32::split_a(qa[0], qa[8 * L], qa[4], qa[8 * L + 4], ah, al);
+#pragma unroll
+      for (int j = 0; j < kKeysF / 8; ++j) {
+        const float* kp = Ks + (8 * j + gr) * L + 8 * kc + t;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};  // the step's sum, added in f32
+        tf32::mma_split(d, ah, al, kp[0], kp[4]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += d[e];
+      }
+    }
+    // scaled (rounded apart from the exponent's subtraction), -inf at or
+    // past N; every step holds a real key, so the new max is finite
+    const int k0 = it * kKeysF;
+    const bool full = k0 + kKeysF <= N;
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kKeysF / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = full || k0 + 8 * j + 2 * t + (e & 1) < N ? __fmul_rn(s[j][e], scale)
+                                                            : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+    float corr[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], mma::quad_max(mt[i]));
+      corr[i] = __expf(m[i] - m_new);  // 0 on the first step (m = -inf)
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysF / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __expf(__fsub_rn(s[j][e], m[e >> 1]));
+        ps[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + mma::quad_sum(ps[i]);
+    // pv = P V for this step: the C columns {2t, 2t + 1} of key tile j are
+    // A's k-slots {t, t + 4}, and V's B fragment takes keys 8 j + 2t and
+    // 8 j + 2t + 1; then acc = acc exp(m - m') + pv in f32
+    float pv[D / 8][4];
+    mma::zero<D / 8>(pv);
+#pragma unroll
+    for (int j = 0; j < kKeysF / 8; ++j) {
+      uint32_t ah[4], al[4];
+      tf32::split_a(s[j][0], s[j][2], s[j][1], s[j][3], ah, al);
+      const float* vp = Vs + (8 * j + 2 * t) * L + gr;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) tf32::mma_split(pv[c], ah, al, vp[8 * c], vp[L + 8 * c]);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], pv[j][e]);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = q0 + 16 * warp + gr + 8 * i;
+    if (n >= N) continue;
+    const float inv = __frcp_rn(l[i]);
+    float* row = out + (((long long)b * N + n) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(__fmul_rn(acc[j][2 * i], inv), __fmul_rn(acc[j][2 * i + 1], inv));
+    if (t == 0) lse[((long long)b * H + h) * N + n] = m[i] + logf(l[i]);
+  }
+}
+
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out, float* lse,
+                        const long long* st, int B, int H, int N, float scale,
+                        cudaStream_t stream) {
+  const size_t bytes = tf32::tile_bytes<D>(kOwn + 4 * tf32::kKeysF);
+  auto kernel = flash_fwd_tf32_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid_for(B, H, N), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse,
-      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+  const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  wmz::note_launch(kernel);
+  kernel<<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, H, N, scale);
   return cudaGetLastError();
 }
@@ -339,6 +499,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((N + kOwn - 1) / kOwn), (unsigned)H, (unsigned)B);
+  wmz::note_launch(kernel);
   kernel<<<grid, 32 * kWarps, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
@@ -351,9 +512,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
 
 // strides: int64 [9], the b, h, n element strides of q, k, v. block: the
 // stock kernel's key block (a multiple of 128); normalise: 1 when one
-// block covers the padded N. dtype: 0 = float32 (the CUDA-core kernel,
-// which ignores block and normalise), 1 = bfloat16 (the tensor-core
-// kernel). Returns the launch's cudaError_t.
+// block covers the padded N. dtype: 0 = float32 (flash_fwd_tf32_kernel, in
+// split TF32 on the tensor cores; it ignores block and normalise), 1 =
+// bfloat16 (flash_fwd_mma_kernel). Returns the launch's cudaError_t.
 extern "C" int wmz_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const long long* strides,
                              int B, int H, int N, int D, float scale, int block,
@@ -362,8 +523,8 @@ extern "C" int wmz_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   if (dtype == 0) {
-    if (D == 64) return (int)launch<float, 64>(q, k, v, out, ls, strides, B, H, N, scale, st);
-    return (int)launch<float, 128>(q, k, v, out, ls, strides, B, H, N, scale, st);
+    if (D == 64) return (int)launch_tf32<64>(q, k, v, out, ls, strides, B, H, N, scale, st);
+    return (int)launch_tf32<128>(q, k, v, out, ls, strides, B, H, N, scale, st);
   }
   if (dtype != 1 || block <= 0 || block % 128 || (normalise && block < N))
     return (int)cudaErrorInvalidValue;

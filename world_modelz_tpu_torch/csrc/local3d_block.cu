@@ -27,34 +27,66 @@
 // both (the chip_smoke kernel line computes the bound from each run's
 // shapes).
 //
-// Design: simple and right first. One cooperative launch
-// (cudaLaunchCooperativeKernel) of as many 256-thread blocks as can be
-// resident at once, in three phases joined by grid-wide barriers
-// (cooperative_groups::this_grid().sync()); blocks walk each phase's work
-// with grid-stride loops.
-//  1. Projections: 64 x 64 tiles of [q | k | v] (R, 3 * inner), each a
-//     product whose depth is staged through shared memory in 64-wide f32
-//     chunks and multiplied on the CUDA cores with flash_tile.cuh's 16 x 16
-//     thread layout (tile_dots_acc). Rounded to T (v: + bv after the
-//     rounding) into a scratch buffer the wrapper allocates; at the serving
-//     and training shapes it is 2.4 and 18.9 MB, inside the 50 MB L2.
+// Design. One cooperative launch (cudaLaunchCooperativeKernel) of as
+// many blocks as can be resident at once, in three phases joined by
+// grid-wide barriers (cooperative_groups::this_grid().sync()); blocks walk
+// each phase's work with grid-stride loops. The attention is a phase of
+// its own, not the prologue of the output tiles, so that every resident
+// block takes part in it. Weights are read in place in their (out, in)
+// layout, which is already the K-major operand of x w^T: no transposed
+// copies. No atomics: every output element is written by one thread after
+// a fixed sum, so two launches are bitwise equal. Phase 1 writes [q | k |
+// v] to a scratch buffer (R, 3 * inner) and phase 2 the attention output
+// to another (R, inner), which the wrapper allocates; at the serving and
+// training shapes they are 3.1 and 25 MB, inside the 50 MB L2.
+//
+// bf16 at dh = 64 and 128, with dim, dim_q and out_dim multiples of 8 and
+// dim, dim_q and inner at most 1,024 (local3d_block_mma_kernel): the
+// tensor cores.
+//  1. Projections: tiles of 64 rows (32 with two warps) by 64 columns of
+//     [q | k | v], each section apart, on mma.sync m16n8k16 with
+//     flash_mma.cuh's tools (cp.async, ldmatrix), summed in f32; a warp
+//     owns 16 rows and 64 (or, with eight warps, 32) columns. A block
+//     keeps its column's weight slice resident in shared memory (the grid
+//     walks a row's column tiles side by side, so their rows of x share
+//     the L2) and streams its rows of x through a ring of two 64-deep
+//     chunks; chunks are zero past the depth, so a width such as 200
+//     needs no other care. Each 16-deep step's products are summed apart
+//     and added in f32, so that q, k and v round to bf16 as an f32 sum
+//     does. Rounded to bf16 (v: + bv after the rounding) and written to
+//     the scratch buffer through the ring's idle chunk, in 16-byte stores.
+//  2. Attention: the bf16 forward's block on the tensor cores
+//     (local3d_mma.cuh:fwd_block, which local3d_fwd.cu runs too), over
+//     the scratch buffer's q, k and v at their row stride 3 * inner, with
+//     P normalised before it is rounded (the TPU block, :196; the
+//     forward's route 2). The block has that kernel's shape for the same
+//     attention: 4 query warps, or 2 where a 64-position key band would
+//     not fit one tile, and two groups of them where the work items fit
+//     the SMs at once.
+//  3. Output projection: a wo^T + bo as in phase 1, bo added in f32.
+// What bounds it on the card (PERF.md): the
+// projections run at ~130 TFLOP/s, each warp a chain of ldmatrix, mma
+// and f32 adds with few warps beside it (the attention phase's three
+// blocks of four warps an SM, 168 registers each); a wider or deeper
+// ring, prefetch across tiles and 128-column tiles did not move them. The
+// attention phase is bound by the chain of staged tiles per work item
+// (local3d_fwd.cu), and at serving by its 48 work items, which leave most
+// SMs idle at the second grid barrier.
+//
+// f32, other head sizes and widths (local3d_block_kernel): the CUDA
+// cores, in blocks of 256 threads.
+//  1. Projections: 64 x 64 tiles of [q | k | v], each a product whose
+//     depth is staged through shared memory in 64-wide f32 chunks and
+//     multiplied with flash_tile.cuh's 16 x 16 thread layout
+//     (tile_dots_acc).
 //  2. Attention: one warp per (row, head), with local3d_window.cuh's
 //     window and warp layout (four groups of eight lanes, each group on its
 //     own key). A first sweep over the window gives the softmax's max and
 //     normaliser; a second recomputes each score, rounds P = exp(s - m) / l
 //     to T, as the TPU kernel does before its product with V, and
-//     accumulates P v in f32. The result, rounded to T, goes to a second
-//     scratch buffer (R, inner).
+//     accumulates P v in f32.
 //  3. Output projection: 64 x 64 tiles of a wo^T + bo as in phase 1.
-// The attention is a phase of its own, not the prologue of the output
-// tiles, so that every resident warp takes part in it: at the serving
-// shape there are only 48 row tiles of 64 but 3,072 (row, head) pairs.
-// Weights are read in place in their (out, in) layout: no transposed
-// copies. Shared memory is two 64 x 65 f32 tiles (33,280 B, static). No
-// atomics: every output element is written by one thread after a fixed
-// sum, so two launches are bitwise equal. Tensor-core products
-// (mma.sync/wgmma), TMA staging and keeping q/k/v in shared memory are
-// later work.
+// Shared memory is two 64 x 65 f32 tiles (33,280 B, static).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -65,7 +97,10 @@
 
 #include <algorithm>
 
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
+#include "launch_log.cuh"
+#include "local3d_mma.cuh"
 #include "local3d_window.cuh"
 #include "vec.cuh"
 
@@ -322,62 +357,374 @@ local3d_block_kernel(const Args a) {
   }
 }
 
-// blocks of the kernel that fit on the device at once (0 on error), found
-// once per instantiation and device
-template <typename T, int E>
-int resident_blocks() {
-  static int cached[64] = {0};
+// ---------------------------------------------------------------- bf16
+// The tensor-core route.
+
+namespace mma = wmz::mma;
+using mma::bf16;
+
+constexpr int kDepthChunk = 64;               // depth of a staged chunk
+constexpr int kCL = kDepthChunk + mma::kPad;  // padded bf16 row of a chunk
+constexpr int kProjCols = 64;                 // output columns of a tile
+constexpr int kProjStages = 2;                // A chunks in the ring, >= 2
+
+// The projection tiles of a block of NW warps: kRowsT rows by kProjCols
+// columns, warp (wr, wc) owning rows 16 wr .. 16 wr + 15 and columns
+// kColsW wc .. kColsW (wc + 1) - 1
+template <int NW>
+struct ProjTile {
+  static constexpr int kWC = NW >= 8 ? 2 : 1;
+  static constexpr int kRowsT = 16 * NW / kWC;
+  static constexpr int kColsW = kProjCols / kWC;
+  static constexpr int kStage = kRowsT * kCL;  // bf16 of an A chunk
+};
+
+// the row stride (bf16) of a resident weight slice of `depth`: whole
+// chunks plus the pad, so that ldmatrix rows fall in distinct banks
+__host__ __device__ inline int slice_ld(int depth) {
+  return (depth + kDepthChunk - 1) / kDepthChunk * kDepthChunk + mma::kPad;
+}
+
+// shared memory of the projection phases: a weight slice of kProjCols rows
+// of up to `depth` values, and the ring of A chunks
+template <int NW>
+size_t proj_smem_bytes(int depth) {
+  return ((size_t)kProjCols * slice_ld(depth) + (size_t)kProjStages * ProjTile<NW>::kStage) *
+         sizeof(bf16);
+}
+
+// rows [row0, row0 + Rows) x depth [k0, k0 + 64) of the row-major bf16
+// (rows, depth) matrix `src` -> `dst` (row stride ld), asynchronously;
+// zero outside the matrix (depth % 8 == 0, 16-byte aligned rows)
+template <int Rows>
+__device__ __forceinline__ void load_chunk_async(bf16* dst, int ld, const bf16* __restrict__ src,
+                                                 int rows, int depth, int row0, int k0) {
+  constexpr int kChunks = kDepthChunk / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < Rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool valid = row0 + r < rows && k0 + c < depth;
+    mma::cp_async16(dst + r * ld + c,
+                    src + (valid ? (long long)(row0 + r) * depth + k0 + c : 0), valid);
+  }
+}
+
+// rows [col0, col0 + kProjCols) of the weight w (wrows, depth), all of its
+// depth -> the resident slice `ws` (row stride slice_ld(depth)), as one
+// cp.async group; the caller syncs the block first
+__device__ __forceinline__ void load_slice_async(bf16* ws, const bf16* __restrict__ w,
+                                                 int wrows, int depth, int col0) {
+  const int ld = slice_ld(depth);
+  for (int k0 = 0; k0 < depth; k0 += kDepthChunk)
+    load_chunk_async<kProjCols>(ws + k0, ld, w, wrows, depth, col0, k0);
+  mma::cp_async_commit();
+}
+
+// acc = this warp's part of rows [row0, row0 + kRowsT) of a (rows, depth)
+// times the resident weight slice `ws` (kProjCols rows of depth values,
+// loaded by load_slice_async), transposed: acc[j] holds the m16n8 tile of
+// the slice's rows kColsW wc + 8 j .. + 7. A is staged in 64-deep chunks
+// through the ring `ring`. Every thread of the block takes part.
+template <int NW>
+__device__ __forceinline__ void proj_tile(const bf16* __restrict__ a, int rows, int depth,
+                                          int row0, const bf16* ws, bf16* ring,
+                                          float acc[ProjTile<NW>::kColsW / 8][4]) {
+  using P = ProjTile<NW>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp / P::kWC, wc = warp % P::kWC;
+  const int chunks = (depth + kDepthChunk - 1) / kDepthChunk;
+  auto issue = [&](int c) {
+    load_chunk_async<P::kRowsT>(ring + c % kProjStages * P::kStage, kCL, a, rows, depth, row0,
+                                c * kDepthChunk);
+  };
+  mma::zero<P::kColsW / 8>(acc);
+  __syncthreads();  // the ring's previous readers are done
+  for (int c = 0; c < kProjStages - 1; ++c) {
+    if (c < chunks) issue(c);
+    mma::cp_async_commit();
+  }
+  // ldmatrix rows (flash_mma.cuh:warp_dots): A's four matrices are
+  // (rows 0-7 | 8-15) x (depth 0-7 | 8-15), B's two n8 tiles x the halves
+  const int a_off = (16 * wr + (lane & 15)) * kCL + (lane >> 4) * 8;
+  const bf16* b_row = ws + (P::kColsW * wc + (lane & 7) + (lane >> 4) * 8) * slice_ld(depth) +
+                      ((lane >> 3) & 1) * 8;
+  for (int c = 0; c < chunks; ++c) {
+    mma::cp_async_wait<kProjStages - 2>();  // chunk c (and the slice) landed
+    __syncthreads();  // for every thread, and chunk c - 1 is read
+    if (c + kProjStages - 1 < chunks) issue(c + kProjStages - 1);
+    mma::cp_async_commit();
+    const bf16* st = ring + c % kProjStages * P::kStage;
+    // each 16-deep step's products summed apart, then added in f32: the
+    // tensor cores' sum of a running total and 16 products rounds less
+    // well than an f32 add, and q, k and v are rounded to bf16 next
+#pragma unroll
+    for (int kc = 0; kc < kDepthChunk / 16; ++kc) {
+      uint32_t a_frag[4];
+      mma::ldmatrix_x4(a_frag, st + a_off + kc * 16);
+      float part[P::kColsW / 8][4];
+      mma::zero<P::kColsW / 8>(part);
+#pragma unroll
+      for (int j = 0; j < P::kColsW / 16; ++j) {
+        uint32_t b[4];
+        mma::ldmatrix_x4(b, b_row + j * 16 * slice_ld(depth) + c * kDepthChunk + kc * 16);
+        mma::mma_16816(part[2 * j], a_frag, b[0], b[1]);
+        mma::mma_16816(part[2 * j + 1], a_frag, b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < P::kColsW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    }
+  }
+}
+
+// The staging chunk of a tile's epilogue: the ring's stage that its last
+// chunk does not use (its readers passed the last chunk's barrier)
+template <int NW>
+__device__ __forceinline__ bf16* staging(bf16* ring, int depth) {
+  return ring + (depth + kDepthChunk - 1) / kDepthChunk % kProjStages * ProjTile<NW>::kStage;
+}
+
+// Two outputs of this lane (row gr + 8 i, columns 8 j + 2t, + 1 of its
+// warp's part), rounded to bf16, into the staging chunk `st`
+template <int NW>
+__device__ __forceinline__ void stage_pair(bf16* st, int i, int j, float y0, float y1) {
+  using P = ProjTile<NW>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * (warp / P::kWC) + (lane >> 2) + 8 * i;
+  const int col = P::kColsW * (warp % P::kWC) + 8 * j + 2 * (lane & 3);
+  *reinterpret_cast<uint32_t*>(st + row * kCL + col) = mma::pack_bf16(y0, y1);
+}
+
+// This warp's 16 x kColsW part of a tile, staged by stage_pair, -> rows
+// row0 + 16 wr + r and columns col0 + kColsW wc + ... of dst (row stride
+// ld) in 16-byte stores; rows at or past `rows` and columns at or past
+// `cols` (a multiple of 8) are not written
+template <int NW>
+__device__ __forceinline__ void store_staged(const bf16* st, bf16* dst, long long ld, int rows,
+                                             int cols, int row0, int col0) {
+  using P = ProjTile<NW>;
+  constexpr int kPerRow = P::kColsW / 8;  // 16-byte chunks of a warp's row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * (warp / P::kWC), c0 = P::kColsW * (warp % P::kWC);
+  __syncwarp();
+#pragma unroll
+  for (int q = lane; q < 16 * kPerRow; q += 32) {
+    const int r = q / kPerRow, c = q % kPerRow * 8;
+    if (row0 + r0 + r < rows && col0 + c0 + c < cols)
+      *reinterpret_cast<uint4*>(dst + (row0 + r0 + r) * ld + col0 + c0 + c) =
+          *reinterpret_cast<const uint4*>(st + (r0 + r) * kCL + c0 + c);
+  }
+}
+
+// Args.dh = D; kWarps query warps in kGroups groups (fwd_block)
+template <int D, int kWarps, int kGroups>
+__global__ void __launch_bounds__(32 * kWarps * kGroups, kGroups == 1 ? 3 : 1)
+local3d_block_mma_kernel(const Args a) {
+  constexpr int NW = kWarps * kGroups;
+  using P = ProjTile<NW>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  cg::grid_group grid = cg::this_grid();
+
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* bv = static_cast<const bf16*>(a.bv);
+  const bf16* bo = static_cast<const bf16*>(a.bo);
+  bf16* qkv = static_cast<bf16*>(a.qkv);
+  bf16* attn = static_cast<bf16*>(a.attn);
+  bf16* out = static_cast<bf16*>(a.out);
+  const int rows = a.B * a.S * a.H * a.W;
+  const int inner = a.heads * D;
+  const int ld3 = 3 * inner;
+  // this lane's first column of its warp's part of a tile
+  const int col_w = P::kColsW * (threadIdx.x / 32 % P::kWC) + 2 * (threadIdx.x & 3);
+  const int row_tiles = (rows + P::kRowsT - 1) / P::kRowsT;
+  // the projections' weight slice, then their ring of A chunks
+  bf16* ws = smem;
+  bf16* ring = smem + kProjCols * slice_ld(max(max(a.dim, a.dim_q), inner));
+
+  // phase 1: [q | k | v], column tiles of each section apart; a block
+  // keeps its weight slice while its tiles' column stays (the grid walks
+  // a row's column tiles side by side, so their A rows share the L2)
+  const int sec_tiles = (inner + kProjCols - 1) / kProjCols;
+  int resident = -1;
+  for (int tile = blockIdx.x; tile < row_tiles * 3 * sec_tiles; tile += gridDim.x) {
+    const int row0 = tile / (3 * sec_tiles) * P::kRowsT;
+    const int slice = tile % (3 * sec_tiles);
+    const int sec = slice / sec_tiles;  // 0 q, 1 k, 2 v
+    const int col0 = slice % sec_tiles * kProjCols;
+    const bf16* src = sec == 0 ? static_cast<const bf16*>(a.q_in) : x;
+    const int depth = sec == 0 ? a.dim_q : a.dim;
+    if (slice != resident) {
+      __syncthreads();  // the previous slice's readers are done
+      load_slice_async(ws, static_cast<const bf16*>(sec == 0 ? a.wq : sec == 1 ? a.wk : a.wv),
+                       inner, depth, col0);
+      resident = slice;
+    }
+    float acc[P::kColsW / 8][4];
+    proj_tile<NW>(src, rows, depth, row0, ws, ring, acc);
+    bf16* st = staging<NW>(ring, depth);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < P::kColsW / 8; ++j) {
+        const int c = min(col0 + col_w + 8 * j, inner - 2);
+        float y0 = acc[j][2 * i], y1 = acc[j][2 * i + 1];
+        if (sec == 2) {  // v = T(T(x wv^T) + bv)
+          y0 = round_to<bf16>(y0) + __bfloat162float(bv[c]);
+          y1 = round_to<bf16>(y1) + __bfloat162float(bv[c + 1]);
+        }
+        stage_pair<NW>(st, i, j, y0, y1);
+      }
+    store_staged<NW>(st, qkv + sec * inner, ld3, rows, inner, row0, col0);
+  }
+  grid.sync();
+
+  // phase 2: the bf16 forward's blocks over the scratch buffer's q, k, v
+  {
+    const int pblocks = (a.H * a.W + 16 * kWarps - 1) / (16 * kWarps);
+    const int items = pblocks * a.S * a.B * a.heads;
+    const float scale = 1.0f / sqrtf((float)D);
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int pb = item % pblocks, fs = item / pblocks % a.S, bh = item / pblocks / a.S;
+      wmz::l3d::fwd_block<D, kWarps, kGroups, false>(
+          qkv, qkv + inner, qkv + 2 * inner, ld3, attn, inner, a.S, a.H, a.W, a.heads, a.es,
+          a.eh, a.ew, scale, pb, fs, bh / a.heads, bh % a.heads, smem_raw);
+      __syncthreads();  // group 0 may still read the shared P V sums
+    }
+  }
+  grid.sync();
+
+  // phase 3: out = attn wo^T + bo, bo added in f32, rounded once
+  const int out_tiles = (a.out_dim + kProjCols - 1) / kProjCols;
+  resident = -1;
+  for (int tile = blockIdx.x; tile < row_tiles * out_tiles; tile += gridDim.x) {
+    const int row0 = tile / out_tiles * P::kRowsT;
+    const int col0 = tile % out_tiles * kProjCols;
+    if (tile % out_tiles != resident) {
+      __syncthreads();
+      load_slice_async(ws, static_cast<const bf16*>(a.wo), a.out_dim, inner, col0);
+      resident = tile % out_tiles;
+    }
+    float acc[P::kColsW / 8][4];
+    proj_tile<NW>(attn, rows, inner, row0, ws, ring, acc);
+    bf16* st = staging<NW>(ring, inner);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < P::kColsW / 8; ++j) {
+        // columns past out_dim are staged (from its last bias) and not stored
+        const int c = min(col0 + col_w + 8 * j, a.out_dim - 2);
+        stage_pair<NW>(st, i, j, acc[j][2 * i] + __bfloat162float(bo[c]),
+                       acc[j][2 * i + 1] + __bfloat162float(bo[c + 1]));
+      }
+    store_staged<NW>(st, out, a.out_dim, rows, a.out_dim, row0, col0);
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// A cooperative launch: the kernel, its grid (no more blocks than fit at
+// once, nor than the largest phase has work for), block and shared memory
+struct Plan {
+  const void* kernel;
+  unsigned grid, threads;
+  size_t smem;
+};
+
+// blocks of `kernel` that fit on the device at once with `smem` bytes of
+// dynamic shared memory (0 on error), found once per instantiation, device
+// and size: `cached` is the instantiation's own
+struct Resident {
+  size_t smem;
+  int blocks;
+};
+int resident_blocks(const void* kernel, int threads, size_t smem, Resident cached[64]) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  if (dev < 64 && cached[dev].blocks > 0 && cached[dev].smem == smem) return cached[dev].blocks;
   int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, local3d_block_kernel<T, E>, kThreads, 0) != cudaSuccess)
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess)
+    return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess)
     return 0;
   const int n = sms * per_sm;
-  if (dev < 64) cached[dev] = n;
+  if (dev < 64) cached[dev] = Resident{smem, n};
   return n;
 }
 
 template <typename T, int E>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int resident = resident_blocks<T, E>();
+cudaError_t plan_cores(const Args& a, Plan* p) {
+  static Resident cached[64] = {};
+  const void* kernel = (const void*)local3d_block_kernel<T, E>;
+  const int resident = resident_blocks(kernel, kThreads, 0, cached);
   if (resident <= 0) return cudaErrorCooperativeLaunchTooLarge;
-  // no more blocks than the largest phase has work for
   const long long rows = (long long)a.B * a.S * a.H * a.W;
   const long long row_tiles = (rows + kTile - 1) / kTile;
   const long long inner = (long long)a.heads * a.dh;
   const long long work = std::max(
       std::max(row_tiles * 3 * ((inner + kTile - 1) / kTile),
-          row_tiles * ((a.out_dim + kTile - 1) / kTile)),
+               row_tiles * ((a.out_dim + kTile - 1) / kTile)),
       (rows * a.heads + kWarps - 1) / kWarps);
-  const unsigned grid = (unsigned)std::min((long long)resident, work);
-  void* args[] = {const_cast<Args*>(&a)};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)local3d_block_kernel<T, E>, dim3(grid), dim3(kThreads),
-      args, 0, stream);
+  *p = Plan{kernel, (unsigned)std::min((long long)resident, work), kThreads, 0};
+  return cudaSuccess;
+}
+
+template <int D, int kWarpsQ, int kGroups>
+cudaError_t plan_mma(const Args& a, Plan* p) {
+  static Resident cached[64] = {};
+  using P = ProjTile<kWarpsQ * kGroups>;
+  const size_t smem =
+      std::max(wmz::l3d::fwd_smem_bytes<D, kWarpsQ, kGroups>(),
+               proj_smem_bytes<kWarpsQ * kGroups>(std::max(std::max(a.dim, a.dim_q), a.heads * D)));
+  const int threads = 32 * kWarpsQ * kGroups;
+  const void* kernel = (const void*)local3d_block_mma_kernel<D, kWarpsQ, kGroups>;
+  const int resident = resident_blocks(kernel, threads, smem, cached);
+  if (resident <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  const long long rows = (long long)a.B * a.S * a.H * a.W;
+  const long long row_tiles = (rows + P::kRowsT - 1) / P::kRowsT;
+  const long long items = (long long)(a.H * a.W + 16 * kWarpsQ - 1) / (16 * kWarpsQ) * a.S *
+                          a.B * a.heads;
+  const long long work =
+      std::max(std::max(row_tiles * 3 * ((a.heads * D + kProjCols - 1) / kProjCols),
+                        row_tiles * ((a.out_dim + kProjCols - 1) / kProjCols)),
+               items);
+  *p = Plan{kernel, (unsigned)std::min((long long)resident, work), (unsigned)threads, smem};
+  return cudaSuccess;
+}
+
+// whether the tensor-core route takes the block: bf16 at dh 64 or 128,
+// widths in whole 16-byte copies and every product's depth (dim, dim_q,
+// and inner for the output projection) no deeper than kMaxWidth, so that
+// a weight slice of 64 rows fits the shared memory beside the ring
+constexpr int kMaxWidth = 1024;
+bool tensor_cores(const Args& a, int dtype) {
+  return dtype == 1 && (a.dh == 64 || a.dh == 128) && a.dim % 8 == 0 && a.dim_q % 8 == 0 &&
+         a.out_dim % 8 == 0 && a.dim <= kMaxWidth && a.dim_q <= kMaxWidth &&
+         a.heads * a.dh <= kMaxWidth;
+}
+
+template <int D>
+cudaError_t plan_mma_shape(const Args& a, Plan* p) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const wmz::l3d::FwdShape shape = wmz::l3d::fwd_shape(a.B, a.S, a.H, a.W, a.heads, a.eh, sms);
+  if (shape.warps == 4) return shape.groups == 2 ? plan_mma<D, 4, 2>(a, p) : plan_mma<D, 4, 1>(a, p);
+  return shape.groups == 2 ? plan_mma<D, 2, 2>(a, p) : plan_mma<D, 2, 1>(a, p);
 }
 
-template <typename T>
-cudaError_t launch_dtype(const Args& a, cudaStream_t stream) {
-#define WMZ_BLOCK_CASE(EE) \
-  case EE:                 \
-    return launch<T, EE>(a, stream);
+cudaError_t plan(const Args& a, int dtype, Plan* p) {
+  if (tensor_cores(a, dtype)) return a.dh == 64 ? plan_mma_shape<64>(a, p) : plan_mma_shape<128>(a, p);
+#define WMZ_BLOCK_CASE(EE)                                                     \
+  case EE:                                                                     \
+    return dtype == 0 ? plan_cores<float, EE>(a, p) : plan_cores<__nv_bfloat16, EE>(a, p);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   WMZ_L3D_E_SWITCH(a.dh, WMZ_BLOCK_CASE)
-#undef WMZ_BLOCK_CASE
-}
-
-template <typename T>
-cudaError_t resident_dtype(int dh, int* n) {
-#define WMZ_BLOCK_CASE(EE)             \
-  case EE:                             \
-    *n = resident_blocks<T, EE>();     \
-    return cudaSuccess;
-  WMZ_L3D_E_SWITCH(dh, WMZ_BLOCK_CASE)
 #undef WMZ_BLOCK_CASE
 }
 
@@ -385,7 +732,10 @@ cudaError_t resident_dtype(int dh, int* n) {
 
 // x, q_in, the six weights and biases, out, and the two scratch buffers
 // qkv (R, 3 * inner) and attn (R, inner) of the operand type; dtype: 0 =
-// float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// float32, 1 = bfloat16. bfloat16 at dh 64 and 128 with dim, dim_q and
+// out_dim multiples of 8 and dim, dim_q, heads * dh at most kMaxWidth
+// takes the tensor-core kernel, the rest the CUDA-core one. Returns the launch's
+// cudaError_t.
 extern "C" int wmz_local3d_block(const void* x, const void* q_in,
                                  const void* wk, const void* wv,
                                  const void* bv, const void* wq,
@@ -396,28 +746,30 @@ extern "C" int wmz_local3d_block(const void* x, const void* q_in,
                                  int dtype, void* stream) {
   if (wmz::bad_dh(dh) || dim % 4 || dim_q % 4 || out_dim % 4)
     return (int)cudaErrorInvalidValue;
-  const Args a{x,  q_in, wk,  wv,    bv,    wq,  wo,    bo,
-               out, qkv, attn, B,   S,     H,     W,   heads, dh,
-               dim, dim_q, out_dim, es, eh, ew};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_dtype<float>(a, st);
-  } else if (dtype == 1) {
-    err = launch_dtype<__nv_bfloat16>(a, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  Args a{x, q_in, wk, wv, bv, wq, wo, bo, out, qkv, attn, B, S, H, W, heads, dh, dim, dim_q,
+         out_dim, es, eh, ew};
+  Plan p;
+  cudaError_t err = plan(a, dtype, &p);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  wmz::note_launch(p.kernel);
+  err = cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(p.threads), args, p.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// The cooperative grid's cap on this device: the kernel's blocks that fit
-// at once (negative for a dtype or head size the kernel does not take).
-extern "C" int wmz_local3d_block_grid(int dh, int dtype) {
-  int n = -1;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (wmz::bad_dh(dh)) return -1;
-  if (dtype == 0) err = resident_dtype<float>(dh, &n);
-  if (dtype == 1) err = resident_dtype<__nv_bfloat16>(dh, &n);
-  return err == cudaSuccess ? n : -1;
+// The cooperative grid wmz_local3d_block launches for the shape: blocks
+// (negative for a shape the kernel does not take), and their threads in
+// *threads.
+extern "C" int wmz_local3d_block_grid(int B, int S, int H, int W, int heads, int dh, int dim,
+                                      int dim_q, int out_dim, int es, int eh, int ew, int dtype,
+                                      int* threads) {
+  if (wmz::bad_dh(dh) || dim % 4 || dim_q % 4 || out_dim % 4) return -1;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, B, S, H, W, heads, dh, dim, dim_q, out_dim, es, eh, ew};
+  Plan p;
+  if (plan(a, dtype, &p) != cudaSuccess) return -1;
+  *threads = (int)p.threads;
+  return (int)p.grid;
 }

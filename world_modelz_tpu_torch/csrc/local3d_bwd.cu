@@ -95,6 +95,7 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "launch_log.cuh"
 #include "local3d_mma.cuh"
 #include "local3d_window.cuh"
 #include "vec.cuh"
@@ -1096,6 +1097,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
 #define WMZ_DQ_CASE(EE)                                                    \
   case EE:                                                                 \
+    wmz::note_launch(local3d_bwd_dq_kernel<EE>);                        \
     local3d_bwd_dq_kernel<EE><<<grid, block, 0, stream>>>(              \
         qq, kk, vv, gg, out, lse, delta, B, S, H, W, heads, es, eh, ew,    \
         scale);                                                            \
@@ -1105,6 +1107,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   } else {
 #define WMZ_DQ_CASE(EE)                                                    \
   case EE:                                                                 \
+    wmz::note_launch(local3d_bwd_dq_round_kernel<EE>);                     \
     local3d_bwd_dq_round_kernel<EE><<<grid, block, 0, stream>>>(           \
         qq, kk, vv, gg, out, lse, delta, B, S, H, W, heads, es, eh, ew,    \
         scale);                                                            \
@@ -1133,6 +1136,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
 #define WMZ_DKV_CASE(EE)                                                   \
   case EE:                                                                 \
+    wmz::note_launch(local3d_bwd_dkv_kernel<EE>);                       \
     local3d_bwd_dkv_kernel<EE><<<grid, block, 0, stream>>>(             \
         qq, kk, vv, gg, lse, delta, dko, dvo, B, S, H, W, heads, es, eh,   \
         ew, scale);                                                        \
@@ -1142,6 +1146,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   } else {
 #define WMZ_DKV_CASE(EE)                                                   \
   case EE:                                                                 \
+    wmz::note_launch(local3d_bwd_dkv_round_kernel<EE>);                    \
     local3d_bwd_dkv_round_kernel<EE><<<grid, block, 0, stream>>>(          \
         qq, kk, vv, gg, lse, delta, dko, dvo, B, S, H, W, heads, es, eh,   \
         ew, partial_rows, scale);                                          \
@@ -1183,6 +1188,7 @@ cudaError_t launch_dq_shape(const void* q, const void* k, const void* v, const v
   constexpr int own = kRows / kFrames;
   const dim3 grid((unsigned)((H * W + own - 1) / own), (unsigned)((S + kFrames - 1) / kFrames),
                   (unsigned)(B * heads));
+  wmz::note_launch(kernel);
   kernel<<<grid, 128, bytes, stream>>>(static_cast<const bf16*>(q), kmap, vmap,
                                        static_cast<const bf16*>(g), static_cast<bf16*>(dq), lse,
                                        delta, S, H, W, heads, es, eh, ew,
@@ -1208,6 +1214,7 @@ cudaError_t launch_dkv_shape(const void* q, const void* k, const void* v, const 
   constexpr int own = kRows / kFrames;
   const dim3 grid((unsigned)((H * W + own - 1) / own), (unsigned)((S + kFrames - 1) / kFrames),
                   (unsigned)(B * heads));
+  wmz::note_launch(kernel);
   kernel<<<grid, 128, bytes, stream>>>(qmap, static_cast<const bf16*>(k),
                                        static_cast<const bf16*>(v), gmap, lse, delta,
                                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, W,

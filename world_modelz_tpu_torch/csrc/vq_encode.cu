@@ -47,6 +47,7 @@ cudaError_t launch(const void* x, const float* codebook, float* e_t,
   cudaError_t err = launch_prep(codebook, e_t, e_sq, K, D, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((N + kRows - 1) / kRows)), block(kThreads);
+  wmz::note_launch(vq_encode_kernel<T>);
   vq_encode_kernel<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), e_t, e_sq, idx, N, K, D);
   return cudaGetLastError();

@@ -28,6 +28,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
 
 constexpr int kRows = 16;          // rows per CTA
@@ -74,6 +76,7 @@ __global__ void vq_prep_kernel(const float* __restrict__ codebook,
 
 inline cudaError_t launch_prep(const float* codebook, float* e_t, float* e_sq,
                                int K, int D, cudaStream_t stream) {
+  wmz::note_launch(vq_prep_kernel);
   vq_prep_kernel<<<(K + 7) / 8, 256, 0, stream>>>(codebook, e_t, e_sq, K, D);
   return cudaGetLastError();
 }

@@ -201,12 +201,14 @@ extern "C" int wmz_vq_train_stats(
   float* er = static_cast<float*>(err_row);
   cudaError_t status = launch_prep(cb, et, sq, K, D, st);
   if (status != cudaSuccess) return (int)status;
+  wmz::note_launch(vq_train_search_kernel);
   vq_train_search_kernel<<<(N + kRows - 1) / kRows, kThreads, 0, st>>>(
       xf, cb, et, sq, ix, static_cast<float*>(q), er, N, K, D);
   status = cudaGetLastError();
   if (status != cudaSuccess) return (int)status;
   const int splits = wmz_vq_train_splits(N);
   const dim3 grid((K + kStatCodes - 1) / kStatCodes, splits);
+  wmz::note_launch(vq_stats_kernel);
   vq_stats_kernel<<<grid, kStatWarps * 32, 0, st>>>(
       xf, ix, er, static_cast<float*>(part_dw),
       static_cast<int32_t*>(part_cnt), static_cast<float*>(part_err), N, K,
@@ -214,6 +216,7 @@ extern "C" int wmz_vq_train_stats(
   status = cudaGetLastError();
   if (status != cudaSuccess) return (int)status;
   const long long kd = (long long)K * D;
+  wmz::note_launch(vq_fold_kernel);
   vq_fold_kernel<<<(unsigned)((kd + kFoldThreads - 1) / kFoldThreads),
                    kFoldThreads, 0, st>>>(
       static_cast<const float*>(part_dw),

@@ -10,7 +10,8 @@ as it is. Nothing is built when a module is imported: the first kernel
 launch (or an explicit ``load_library()``) builds. A failed build raises.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else. ``on_cpu``, ``stream`` and ``check``
+launches its kernel and nowhere else. ``kernels_launched`` says which
+kernels a call launched, from the library's own launch log. ``on_cpu``, ``stream`` and ``check``
 are the wrappers' shared plumbing: the CPU-or-one-CUDA-device rule, the
 stream to launch on, and the launch status check.
 """
@@ -61,8 +62,9 @@ _SIGNATURES = {
     # x, q_in, wk, wv, bv, wq, wo, bo, out, qkv, attn, B, S, H, W, heads,
     # dh, dim, dim_q, out_dim, es, eh, ew, dtype, stream
     "wmz_local3d_block": ([_VP] * 11 + [_INT] * 13 + [_VP], _INT),
-    # dh, dtype -> the cooperative grid's cap (blocks resident at once)
-    "wmz_local3d_block_grid": ([_INT] * 2, _INT),
+    # B, S, H, W, heads, dh, dim, dim_q, out_dim, es, eh, ew, dtype, threads
+    # (int out) -> the cooperative grid wmz_local3d_block launches (blocks)
+    "wmz_local3d_block_grid": ([_INT] * 13 + [ctypes.POINTER(_INT)], _INT),
     # x, codebook, e_t, e_sq, idx, N, K, D, x_dtype, stream
     "wmz_vq_encode": ([_VP] * 5 + [_INT] * 4 + [_VP], _INT),
     # x, codebook, e_t, e_sq, idx, q, err_row, part_dw, part_cnt, part_err,
@@ -79,6 +81,9 @@ _SIGNATURES = {
     # B, H, N, D, scale, dtype, stream
     "wmz_flash_bwd_dkv": ([_VP] * 9 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
     "wmz_cuda_error_string": ([_INT], ctypes.c_char_p),
+    "wmz_launch_log_reset": ([], None),
+    # buf, its bytes -> launches since the reset (-1: a name not read)
+    "wmz_launch_log": ([ctypes.POINTER(ctypes.c_char), _INT], _INT),
 }
 
 
@@ -177,6 +182,23 @@ def load_library() -> ctypes.CDLL:
         )
         _lib = lib
         return lib
+
+
+def kernels_launched(fn) -> List[str]:
+    """The kernels one call of ``fn`` launches through the library, in
+    order, by demangled name (``void (anonymous namespace)::name<args>(
+    params)``): which kernel each C entry picked, as the entries note it
+    in the launch log (``csrc/launch_log.cu``), with no profiler. The log
+    is the process's, so launches from other threads show too; it names
+    the first 64 launches."""
+    lib = load_library()
+    lib.wmz_launch_log_reset()
+    fn()
+    buf = ctypes.create_string_buffer(1 << 16)
+    n = lib.wmz_launch_log(buf, len(buf))
+    if n < 0:
+        raise RuntimeError("the launch log could not name a kernel")
+    return buf.value.decode().splitlines()
 
 
 def on_cpu(what: str, *tensors) -> bool:

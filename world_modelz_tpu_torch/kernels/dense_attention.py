@@ -15,7 +15,11 @@ the strided head views of a fused QKV projection. The bfloat16 kernels run
 on the tensor cores and round P (forward and dV) and dS to bfloat16 before
 their products, as the stock TPU kernels do; the forward rounds P against
 the running max of each key block of ``flash_block_size`` keys, the stock
-forward's blocking. float32 keeps f32 arithmetic on the CUDA cores. Every
+forward's blocking. The float32 forward runs on the tensor cores too, in
+split TF32: each operand x as hi = tf32(x) plus lo = tf32(x - hi), each
+product as lo hi + hi lo + hi hi summed in f32, which keeps f32 accuracy
+whatever ``torch.backends.cuda.matmul.allow_tf32`` says; the float32
+backward pair keeps f32 FMAs on the CUDA cores. Every
 output (out, dq, dk, dv) is a (B, H, N, D) view of a (B, N, H,
 D)-contiguous buffer, so that merging the heads back into (B, N, H * D)
 copies nothing.
@@ -117,7 +121,7 @@ def flash_attention_fwd(
     Returns:
       out (B, H, N, D) in the input dtype, and lse (B, H, N) float32. No
       autograd graph on CUDA: training goes through ``flash_attention``.
-      bfloat16 launches the tensor-core kernel, float32 the CUDA-core one.
+      Both dtypes launch tensor-core kernels.
     """
     _check_shapes(q, k, v)
     if on_cpu("flash attention", q, k, v):
