@@ -43,8 +43,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # operand type (bf16 and TF32 tensor cores, f32 CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
-# TF32 products the split-TF32 f32 flash forward executes per f32 product
-# (lo hi + hi lo + hi hi)
+# TF32 products the split-TF32 kernels (the f32 flash forward, the VQ
+# search) execute per f32 product (lo hi + hi lo + hi hi); the VQ search
+# drops lo hi for a bf16 x, which is exact in TF32
 SPLIT_TF32_PRODUCTS = 3
 
 # serve/m3_g8 (benchmarks/serve_bench.py): 64x64x1 frames, S = 6 context
@@ -165,8 +166,9 @@ PIXEL_RTOL = 1e-4  # f32 convolutions, cuDNN vs CPU, relative to max |pixel|
 VQ_GAP = 1e-3  # rows whose two nearest codes differ by more must agree
 # vq_train_stats vs float64 sums over the kernel's own indices: the
 # worst-case f32 rounding of the kernel's sums (at most 141 adds in one
-# chain; 64-term dot products and norms per row), relative to sum |x| for
-# dw and to sum (|x|^2 + |e_k|^2) for err
+# chain; the kernel's longest is 72 at N = 6,144; 64-term dot products and
+# norms per row), relative to sum |x| for dw and to sum (|x|^2 + |e_k|^2)
+# for err
 VQ_DW_RTOL = 1e-5
 VQ_ERR_RTOL = 3e-5
 # one f32 tokenizer train step, card vs CPU: loss and BatchNorm running
@@ -726,7 +728,7 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
         ("clip34", (2, 34, 8, 8), 1, 128, (3, 1, 1), ("bfloat16",), True),
         ("clip34_multihead", (2, 34, 8, 8), 2, 64, (1, 2, 1), ("bfloat16",), False),
         ("frames32_split", (1, 2, 32, 32), 1, 128, (3, 1, 1), ("bfloat16",), False),
-        ("frames64x32_tiled", (1, 2, 64, 32), 1, 128, (3, 1, 1), ("bfloat16",), False),
+        ("frames64x32_tiled", (1, 2, 64, 32), 1, 128, (3, 1, 1), ("bfloat16",), True),
         ("dh32", (8, 6, 8, 8), 2, 32, (1, 2, 1), ("float32", "bfloat16"), True),
         ("dh32_clip34", (2, 34, 8, 8), 2, 32, (1, 1, 1), ("bfloat16",), False),
     ]
@@ -866,12 +868,53 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
     return records
 
 
+# pairs of equal codes (lower, higher) at K = 512: in one lane (12, 13), the
+# lower in a higher lane of the quad (20: lane 2, 25: lane 0), across a chunk
+# boundary (63, 64), across chunks and code splits (7, 300; 128, 511)
+VQ_TIED = ((12, 13), (20, 25), (63, 64), (7, 300), (128, 511))
+
+
+def vq_tie_case(torch, dev, n, dtype):
+    """A codebook whose codes VQ_TIED[i][1] repeat VQ_TIED[i][0], rows equal
+    to the higher copy (every other row), two rows all NaN, and the codes the
+    search must pick for those rows: the lower copy (ties go to the lowest
+    k), 0 for all-NaN distances. Returns (x, codebook, rows, want)."""
+    k, d = TOKENIZER["num_embeddings"], TOKENIZER["embedding_dim"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    codebook = torch.randn((k, d), generator=gen, device=dev)
+    for lo, hi in VQ_TIED:
+        codebook[hi] = codebook[lo]
+    x = torch.randn((n, d), generator=gen, device=dev)
+    rows = torch.arange(0, n, 2, device=dev)
+    pick = torch.tensor(VQ_TIED, device=dev)[rows % len(VQ_TIED)]
+    x[rows] = codebook[pick[:, 1]]
+    want = pick[:, 0]
+    nan_rows = torch.tensor([1, n - 1], device=dev)
+    x[nan_rows] = float("nan")
+    return (x.to(dtype), codebook, torch.cat([rows, nan_rows]),
+            torch.cat([want, torch.zeros_like(nan_rows)]))
+
+
+def check_vq_ties(torch, name, got, rows, want):
+    """The search's picks for vq_tie_case's rows: the lower of two equal
+    codes, 0 for an all-NaN row."""
+    wrong = int((got[rows].long() != want).sum())
+    if wrong:
+        raise AssertionError(
+            f"{name}: {wrong} of {rows.numel()} tied or all-NaN rows did not "
+            f"take the lowest code")
+
+
 def check_vq(torch, dev):
     """Kernel B against its plain version at the serving encode batch (f32,
     as the tokenizer feeds it, and bf16), at the training step's encode
-    batch (64 clips of S frames), at the tokenize-benchmark batch and at
-    the sparse trainer's encode batch (N = 65,536). Returns the serving f32
-    record."""
+    batch (64 clips of S frames), at the tokenize-benchmark batch, at
+    the sparse trainer's encode batch (N = 65,536) and at a shape off the
+    main paths (K not a whole number of 64-code chunks, D below 64, a
+    ragged N); then ties and all-NaN rows (vq_tie_case) at the serving
+    batch (f32, bf16: at K = 512 the plan splits a 128-row tile's codes over
+    four CTAs) and the sparse trainer's (one split). Returns the serving
+    f32 record."""
     from world_modelz_tpu_torch.kernels import vq_encode_nearest
     from world_modelz_tpu_torch.ops.vq import vq_encode
 
@@ -879,16 +922,33 @@ def check_vq(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     codebook = torch.randn((k, d), generator=gen, device=dev)
     serving = None
-    cases = [("serving", 8 * SEQ * GRID * GRID, torch.float32),
-             ("serving", 8 * SEQ * GRID * GRID, torch.bfloat16),
-             ("train", TRAIN["batch_size"] * SEQ * GRID * GRID, torch.float32),
-             ("bench", 256 * GRID * GRID, torch.float32),
+    # its own generator: the other cases keep their inputs
+    odd = torch.randn((101, 24), generator=torch.Generator(device=dev).manual_seed(2),
+                      device=dev)
+    cases = [("serving", 8 * SEQ * GRID * GRID, torch.float32, codebook),
+             ("serving", 8 * SEQ * GRID * GRID, torch.bfloat16, codebook),
+             ("train", TRAIN["batch_size"] * SEQ * GRID * GRID, torch.float32, codebook),
+             ("bench", 256 * GRID * GRID, torch.float32, codebook),
              # the sparse trainer's encode: 16 clips of 16 frames, 16x16
              ("sparse_train", SPARSE_TRAIN["batch_size"] * SPARSE_TRAIN["S"]
-              * SPARSE_TRAIN["H"] * SPARSE_TRAIN["W"], torch.float32)]
-    for name, n, dtype in cases:
+              * SPARSE_TRAIN["H"] * SPARSE_TRAIN["W"], torch.float32, codebook),
+             ("odd_shape", 1000, torch.float32, odd)]
+    for name, n, dtype, codebook in cases:
+        k, d = codebook.shape
+        e_sq = (codebook * codebook).sum(-1)
         x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
-        got = vq_encode_nearest(x, codebook).long()
+        got = vq_encode_nearest(x, codebook)
+        if not torch.equal(got, vq_encode_nearest(x, codebook)):
+            raise AssertionError(f"vq {name}: two launches differ")
+        ran = kernels_run(torch, lambda: vq_encode_nearest(x, codebook), 2)
+        if not any(r.startswith("vq_encode_kernel") for r in ran):
+            raise AssertionError(f"vq {name}: the search kernel did not run: {ran}")
+        if dtype == torch.bfloat16 and not torch.equal(
+                got, vq_encode_nearest(x.float(), codebook)):
+            # bf16 drops the lo_x product, which is all zeros for these values
+            raise AssertionError(
+                f"vq {name}: bf16 x and the same values in f32 pick other codes")
+        got = got.long()
         want = vq_encode(codebook[None], x[:, None]).reshape(-1).long()
         dist = ((x.double()[:, None, :] - codebook.double()[None]) ** 2).sum(-1)
         top2 = dist.topk(2, dim=-1, largest=False).values
@@ -908,27 +968,49 @@ def check_vq(torch, dev):
         launch_ms = cuda_ms(torch, kernel, 200)
         plain_ms = device_ms(
             torch, lambda: vq_encode(codebook[None], x[:, None]), 10)
+        # the cuBLAS route (two calls, so no library_ms): f32 GEMM, TF32 off
+        xf = x.float()
+        cublas_ms = device_ms(torch, lambda: torch.addmm(
+            e_sq, xf, codebook.T, alpha=-2.0).argmin(1), 100)
         nbytes = n * d * x.element_size() + k * d * 4 + n * 4
-        ops = 2 * n * k * d + 2 * k * d + 2 * n * k
-        bound_ms, bound_by = bound(nbytes, ops, "float32")  # f32 FMAs
+        products = SPLIT_TF32_PRODUCTS - (dtype == torch.bfloat16)
+        bound_ms, bound_by = bound(nbytes, products * 2 * n * k * d, "tf32")
+        f32_bound_ms = bound(nbytes, 2 * n * k * d + 2 * k * d + 2 * n * k, "float32")[0]
         tname = str(dtype).replace("torch.", "")
         log(f"vq_encode {name} {tname} N={n} K={k} D={d}: agree={share:.5f} "
-            f"max_abs_err={regret:.3g} (distance) kernel_ms={ms:.5f} "
+            f"max_abs_err={regret:.3g} (distance) repeat bitwise; kernels "
+            f"{', '.join(ran)} | kernel_ms={ms:.5f} "
             f"back_to_back_ms={launch_ms:.5f} plain_ms={plain_ms:.5f} "
-            f"library_ms=null "
-            f"bound_us={bound_ms * 1e3:.4f} ({bound_by})")
+            f"library_ms=null cublas_route_ms={cublas_ms:.5f} "
+            f"(kernel/route {ms / cublas_ms:.4f}) | bound_us={bound_ms * 1e3:.4f} "
+            f"({bound_by}; {products} TF32 products at the TF32 peak), on the "
+            f"CUDA cores at the f32 peak {f32_bound_ms * 1e3:.4f}")
         if name == "serving" and dtype == torch.float32:
             serving = dict(max_abs_err=regret, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
+                           library_ms=None, cublas_route_ms=cublas_ms)
+        del x, xf
+    for n in (8 * SEQ * GRID * GRID, SPARSE_TRAIN["batch_size"] * SPARSE_TRAIN["S"]
+              * SPARSE_TRAIN["H"] * SPARSE_TRAIN["W"]):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, codebook, rows, want = vq_tie_case(torch, dev, n, dtype)
+            name = f"vq ties N={n} {str(dtype).replace('torch.', '')}"
+            check_vq_ties(torch, name, vq_encode_nearest(x, codebook), rows, want)
+            plain = vq_encode(codebook[None], x[:, None]).reshape(-1)
+            check_vq_ties(torch, f"{name} (plain version)", plain, rows, want)
+            log(f"{name}: {rows.numel() - 2} tied rows took the lower code, "
+                f"2 all-NaN rows code 0")
     return serving
 
 
 def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
     """Kernel C (``vq_train_stats``) against its plain version and float64
     sums at the tokenizer trainer's batch (96 frames of 8x8 latents), at a
-    ragged N and with a codebook whose codes but 12 lie far from the data.
-    Returns the training-shape record."""
+    ragged N, with a codebook whose codes but 12 lie far from the data,
+    and at a shape off the main paths (K = 101, D = 24, N = 1,000); then
+    ties and all-NaN rows (vq_tie_case) at N = 3,072 (four code splits at
+    K = 512) and at the training batch. Returns the training-shape
+    record."""
     from world_modelz_tpu_torch.kernels import vq_encode_nearest, vq_train_stats
     from world_modelz_tpu_torch.ops.vq import vq_train_stats_reference
 
@@ -940,9 +1022,18 @@ def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
     record = None
     for name, n, cb in (("train", n_train, codebook),
                         ("ragged", n_train + 37, codebook),
-                        ("mostly_dead", n_train, far)):
+                        ("mostly_dead", n_train, far),
+                        ("odd_shape", 1000, torch.randn(
+                            (101, 24), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(7)))):
+        k, d = cb.shape
         x = torch.randn((n, d), generator=gen, device=dev)
         idx, q, cnt, err, dw = vq_train_stats(x, cb)
+        ran = kernels_run(torch, lambda: vq_train_stats(x, cb), 3)
+        if len(ran) != 3 or "vq_train_search_kernel" not in ran:
+            raise AssertionError(
+                f"vq_train {name}: expected the prep, search and statistics "
+                f"launches, the log names {ran}")
         p_idx = vq_train_stats_reference(x, cb)[0]
         enc = vq_encode_nearest(x, cb)
         again = vq_train_stats(x, cb)
@@ -985,10 +1076,14 @@ def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
         ms = device_ms(torch, kernel, 100, label=f"vq_train_stats {name}")
         launch_ms = cuda_ms(torch, kernel, 200)
         plain_ms = device_ms(torch, lambda: vq_train_stats_reference(x, cb), 10)
+        e_sq32 = (cb * cb).sum(-1)
+        cublas_ms = device_ms(torch, lambda: torch.addmm(
+            e_sq32, x, cb.T, alpha=-2.0).argmin(1), 100)
         # x in; idx, q out; codebook in; cnt, err, dw out
         nbytes = n * d * 4 + n * 4 + n * d * 4 + k * d * 4 + 2 * k * 4 + k * d * 4
         ops = 2 * n * k * d + 2 * k * d + 2 * n * k + 2 * n * d + n * d
-        bound_ms, bound_by = bound(nbytes, ops, "float32")
+        bound_ms, bound_by = bound(nbytes, SPLIT_TF32_PRODUCTS * 2 * n * k * d, "tf32")
+        f32_bound_ms = bound(nbytes, ops, "float32")[0]
         err_max = float(max(dw_err.max(), err_err.max()))
         log(f"vq_train_stats {name} float32 N={n} K={k} D={d}: agree={share:.5f} "
             f"dead codes {dead}; idx/q equal vq_encode_nearest + gather, cnt "
@@ -997,12 +1092,33 @@ def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
             f"{VQ_ERR_RTOL} x sum(|x|^2+|e|^2); worst used "
             f"{float((dw_err / dw_lim.clamp_min(1e-30)).max()):.3g}, "
             f"{float((err_err / err_lim.clamp_min(1e-30)).max()):.3g}) "
+            f"kernels {', '.join(ran)} | "
             f"kernel_ms={ms:.5f} back_to_back_ms={launch_ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms=null "
-            f"bound_us={bound_ms * 1e3:.4f} ({bound_by})")
+            f"cublas_route_ms={cublas_ms:.5f} (search only; kernel/route "
+            f"{ms / cublas_ms:.4f}) | bound_us={bound_ms * 1e3:.4f} ({bound_by}; "
+            f"{SPLIT_TF32_PRODUCTS} TF32 products at the TF32 peak), on the CUDA "
+            f"cores at the f32 peak {f32_bound_ms * 1e3:.4f}")
         if name == "train":
             record = dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                          cublas_route_ms=cublas_ms)
+    for n in (8 * SEQ * GRID * GRID, n_train):
+        x, cb, rows, want = vq_tie_case(torch, dev, n, torch.float32)
+        name = f"vq_train ties N={n}"
+        idx, q, cnt, _, _ = vq_train_stats(x, cb)
+        check_vq_ties(torch, name, idx, rows, want)
+        check_vq_ties(torch, f"{name} (plain version)",
+                      vq_train_stats_reference(x, cb)[0], rows, want)
+        il = idx.long()
+        if not (torch.equal(idx, vq_encode_nearest(x, cb)) and torch.equal(q, cb[il])
+                and torch.equal(cnt, torch.bincount(il, minlength=cb.shape[0]).float())):
+            raise AssertionError(
+                f"{name}: idx/q/cnt differ from vq_encode_nearest, its gather "
+                f"and its counts")
+        log(f"{name}: {rows.numel() - 2} tied rows took the lower code, 2 "
+            f"all-NaN rows code 0; idx equal vq_encode_nearest, q its gather, "
+            f"cnt exact")
     return record
 
 

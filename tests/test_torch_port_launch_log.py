@@ -22,7 +22,7 @@ def _sources():
 
 @pytest.mark.parametrize("path", _sources(), ids=os.path.basename)
 def test_every_launch_notes_its_kernel(path):
-    """Each ``kernel<<<...>>>`` and cooperative launch is preceded by
+    """Each ``kernel<<<...>>>``, cooperative and ``cudaLaunchKernelEx`` launch is preceded by
     ``wmz::note_launch`` of the same kernel, so the log names every
     kernel the library launches."""
     lines = open(path).read().splitlines()
@@ -33,6 +33,9 @@ def test_every_launch_notes_its_kernel(path):
                 f"{os.path.basename(path)}:{i + 1} launches {m.group(1)} unnoted")
         if "cudaLaunchCooperativeKernel(p.kernel" in line:
             assert "wmz::note_launch(p.kernel);" in lines[i - 1]
+        if "cudaLaunchKernelEx(" in line:
+            assert "wmz::note_launch(" in lines[i - 1], (
+                f"{os.path.basename(path)}:{i + 1} launches unnoted")
 
 
 class _FakeLog:
@@ -54,7 +57,7 @@ class _FakeLog:
 
 def test_kernels_launched_reads_the_log(monkeypatch):
     names = ["void (anonymous namespace)::flash_fwd_tf32_kernel<64>(float const*)",
-             "(anonymous namespace)::vq_fold_kernel(float const*, int)"]
+             "(anonymous namespace)::vq_stats_kernel(float const*, int)"]
     lib = _FakeLog(names)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     calls = []

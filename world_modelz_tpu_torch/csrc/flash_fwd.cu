@@ -89,6 +89,7 @@
 #include "flash_mma.cuh"
 #include "flash_tile.cuh"
 #include "launch_log.cuh"
+#include "split_tf32.cuh"
 
 namespace {
 
@@ -304,18 +305,7 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* __restr
   }
 }
 
-// x = hi + lo: hi = tf32(x) and lo = tf32(x - hi), each rounded to nearest
-// with ties away (cvt.rna); the low 13 bits of hi are cleared so that x - hi
-// is exact
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x) & 0xffffe000u;
-  lo = to_tf32(x - __uint_as_float(hi));
-}
+using wmz::split_tf32::split;
 
 // c += a b for one m16n8k8 tile: TF32 operands, f32 sums
 __device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[4], uint32_t b0,

@@ -15,213 +15,229 @@
 //   dw[k]  = sum over those n of x_n (raw input sums, (K, D)).
 //
 // What bounds it on the H100. At the training shape (N = 96 x 8 x 8 =
-// 6,144 rows, K = 512, D = 64) the search is 2 N K D = 4.0e8 f32
-// operations (~6.0 us at the 67 TFLOP/s f32 CUDA-core rate) against ~3.4
-// MB of traffic (x in, q out, codebook, dw: ~1.0 us at 3.35 TB/s): bound by
-// operations. The statistics add only O(N D).
+// 6,144 rows, K = 512, D = 64) the search is 2 N K D = 4.0e8 operations,
+// taken as three TF32 products each (split TF32, vq_search.cuh): 2.44 us at
+// the 495 TFLOP/s TF32 rate (6.12 us for the same search on the f32 CUDA
+// cores at 67), against ~3.4 MB of traffic (x in, q out, codebook, dw:
+// ~1.0 us at 3.35 TB/s): bound by operations. The statistics add only
+// O(N D).
 //
 // Design. The TPU kernel adds one tile's one-hot products into resident
 // accumulators over its sequential grid; Hopper's blocks run in no order
-// and float atomics would make the sums depend on it. Four launches, every
-// sum in a fixed order, so two launches on one input give bitwise-equal
-// cnt, err and dw:
-//   1. prep: the transposed codebook and code norms (vq_search.cuh);
-//   2. search: one CTA per 16 rows writes idx, q and each row's error;
-//   3. stats: a code-centric pass. Block (g, s) owns codes
-//      [8g, 8g + 8) and rows [1024s, 1024s + 1024); its 8 warps take
-//      32-row chunks in turn, find their rows of the block's codes with a
-//      ballot, and add each such row (in row order) into per-warp sums in
-//      shared memory; the warps' sums are then folded in warp order into
-//      the split's partial sums. Rows are read only by the block that owns
-//      their code, so x is read once; a code with many rows is spread over
-//      the splits and the warps;
-//   4. fold: the splits' partials, added in split order.
-// Counts are integers until the fold writes them as f32 (exact below
-// 2^24). The longest chain of f32 adds for one sum is 128 rows of a warp +
-// 8 warps + the splits: 142 at N = 6,144.
+// and float atomics would make the sums depend on it. Three launches,
+// every sum in a fixed order, so two launches on one input give
+// bitwise-equal idx, q, cnt, err and dw:
+//   1. prep: the codebook's split planes and code norms (vq_search.cuh);
+//   2. search: one CTA per 128-row tile and code split (vq_search.cuh); the
+//      cluster's first CTA writes the tile's idx, q and each row's err =
+//      max(min dist + |x|^2, 0), |x|^2 summed in f32 in d order;
+//   3. statistics, code-centric, no cross-block sums: block g owns codes
+//      [2 g, 2 g + 2) and walks every row. Its 16 warps take 32-row chunks
+//      in turn, 16 chunks a round: a warp loads their codes, lists its rows
+//      of the block's codes in row order (ballots, shared memory) and adds
+//      them 8 at a time, the batch's loads issued first: a batch's rows of a
+//      code are added in order into zeroed sums, which are added to the
+//      warp's totals; the block adds the warps' totals in warp order.
+// Counts are integers until written as f32 (exact below 2^24). No float
+// atomics. The longest chain of f32 adds for one sum is 8 rows of a batch +
+// the warp's batches (at most N / 128) + 16 warps: 72 at N = 6,144.
 
 #include "vq_search.cuh"
 
 namespace {
 
-constexpr int kStatCodes = 8;      // codes per stats block
-constexpr int kStatWarps = 8;      // warps per stats block
-constexpr int kSplitRows = 1024;   // rows per stats split
-constexpr int kFoldThreads = 256;
+constexpr int kStatCodes = 2;    // codes of a statistics block
+constexpr int kStatWarps = 16;   // its warps
+constexpr int kStatThreads = kStatWarps * 32;
+constexpr int kRound = 16;       // 32-row chunks a warp lists at a time
+constexpr int kBatch = 8;        // listed rows whose loads are issued together
 
-__global__ void __launch_bounds__(kThreads)
-vq_train_search_kernel(const float* __restrict__ x,
-                       const float* __restrict__ codebook,
-                       const float* __restrict__ e_t,
-                       const float* __restrict__ e_sq,
-                       int32_t* __restrict__ idx, float* __restrict__ q,
-                       float* __restrict__ err_row, int N, int K, int D) {
-  __shared__ SearchSmem sm;
-  __shared__ int k_s[kRows];
-  const long long row0 = (long long)blockIdx.x * kRows;
-  float best_d;
-  int best_k;
-  search_rows<float>(x, e_t, e_sq, N, K, D, row0, sm, best_d, best_k);
-  if (threadIdx.x < kRows) {
-    const int r = threadIdx.x;
-    const long long row = row0 + r;
-    float x_sq = 0.f;  // |x|^2 in d order from the staged row
-    for (int d = 0; d < D; ++d) {
-      const float v = sm.x_s[d * kXStride + r];
-      x_sq = fmaf(v, v, x_sq);
+__global__ void __launch_bounds__(kThreads, 1)
+vq_train_search_kernel(const float* __restrict__ x, const float* __restrict__ codebook,
+                       Scratch s, int32_t* __restrict__ idx, float* __restrict__ q, int N,
+                       int D, bool vec, int chunks, int per_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SearchSmem& sm = search_smem(smem_raw);
+  search<float, true>(x, s.planes, s.e_sq, N, D, vec, chunks, per_split, sm,
+                      [&](long long row0) {
+    for (int r = threadIdx.x; r < kRows; r += kThreads) {
+      const long long row = row0 + r;
+      if (row >= N) continue;
+      float x_sq = 0.f;  // |x|^2 in d order
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d)
+        if (d < D) x_sq = fmaf(sm.x[r * kXStride + d], sm.x[r * kXStride + d], x_sq);
+      idx[row] = sm.best_k[r];
+      s.err_row[row] = fmaxf(sm.best_d[r] + x_sq, 0.f);
     }
-    k_s[r] = best_k;
-    if (row < N) {
-      idx[row] = best_k;
-      err_row[row] = fmaxf(best_d + x_sq, 0.f);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const long long row = row0 + r;
-    if (row < N) q[row * D + d] = codebook[(long long)k_s[r] * D + d];
-  }
-}
-
-__global__ void __launch_bounds__(kStatWarps * 32)
-vq_stats_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
-                const float* __restrict__ err_row,
-                float* __restrict__ part_dw, int32_t* __restrict__ part_cnt,
-                float* __restrict__ part_err, int N, int K, int D) {
-  __shared__ float acc_dw[kStatWarps][kStatCodes][kMaxD];
-  __shared__ float acc_err[kStatWarps][kStatCodes];
-  __shared__ int acc_cnt[kStatWarps][kStatCodes];
-
-  const int c0 = blockIdx.x * kStatCodes;
-  const int split = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < kStatWarps * kStatCodes * kMaxD;
-       i += blockDim.x)
-    (&acc_dw[0][0][0])[i] = 0.f;
-  if (threadIdx.x < kStatWarps * kStatCodes) {
-    (&acc_err[0][0])[threadIdx.x] = 0.f;
-    (&acc_cnt[0][0])[threadIdx.x] = 0;
-  }
-  __syncthreads();
-
-  const long long r_begin = (long long)split * kSplitRows;
-  const long long r_end = min((long long)N, r_begin + kSplitRows);
-  for (long long base = r_begin + warp * 32; base < r_end;
-       base += kStatWarps * 32) {
-    const long long row = base + lane;
-    const int code = row < r_end ? idx[row] - c0 : -1;
-    const bool mine = code >= 0 && code < kStatCodes;
-    const float e = mine ? err_row[row] : 0.f;
-    unsigned m = __ballot_sync(0xffffffffu, mine);
-    while (m) {  // this chunk's rows of the block's codes, in row order
-      const int j = __ffs(m) - 1;
-      m &= m - 1;
-      const int c = __shfl_sync(0xffffffffu, code, j);
-      const float ej = __shfl_sync(0xffffffffu, e, j);
-      const float* xr = x + (base + j) * D;
-      for (int d = lane; d < D; d += 32) acc_dw[warp][c][d] += xr[d];
-      if (lane == 0) {
-        acc_err[warp][c] += ej;
-        acc_cnt[warp][c] += 1;
+    // q: the rows' codes, every load of a thread issued before its stores;
+    // 16-byte vectors when the rows are kMaxD long and aligned
+    constexpr int kGather = kRows * kMaxD / kThreads;
+    if (vec && reinterpret_cast<uintptr_t>(codebook) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(q) % 16 == 0) {
+      constexpr int kVecs = kGather / 4;
+      float4 v[kVecs];
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int i = threadIdx.x + u * kThreads, r = i / (kMaxD / 4);
+        v[u] = row0 + r < N ? wmz::load4(codebook + (long long)sm.best_k[r] * kMaxD +
+                                         (i % (kMaxD / 4)) * 4)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int i = threadIdx.x + u * kThreads, r = i / (kMaxD / 4);
+        if (row0 + r < N) wmz::store4(q + (row0 + r) * kMaxD + (i % (kMaxD / 4)) * 4, v[u]);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+        const int r = i / D;
+        if (row0 + r < N) q[(row0 + r) * D + i % D] = codebook[(long long)sm.best_k[r] * D + i % D];
       }
     }
+  });
+}
+
+// Block g owns codes [kStatCodes g, kStatCodes (g + 1)) and walks every row.
+// Warp w takes the 32-row chunks w, w + kStatWarps, ..., kRound chunks a
+// round: it loads their codes, lists its rows of the block's codes in row
+// order (shared memory), and adds them kBatch at a time, each batch's loads
+// issued first: a batch's rows of a code are added in order into zeroed
+// sums, which are added to the warp's totals. Each lane holds dims lane and
+// lane + 32. The block then adds the warps' totals in warp order.
+__global__ void __launch_bounds__(kStatThreads)
+vq_stats_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+                const float* __restrict__ err_row, float* __restrict__ cnt,
+                float* __restrict__ err, float* __restrict__ dw, int N, int K, int D) {
+  constexpr int kH = kMaxD / 32;  // dims of a lane
+  // each warp's list of rows; after the walk, the warps' totals
+  __shared__ union {
+    int list_row[kStatWarps][kRound * 32];
+    float tot_dw[kStatWarps][kStatCodes][kMaxD];
+  } sh;
+  __shared__ int8_t list_code[kStatWarps][kRound * 32];
+  __shared__ float tot_err[kStatWarps][kStatCodes];
+  __shared__ int tot_cnt[kStatWarps][kStatCodes];
+  auto& list_row = sh.list_row;
+  auto& tot_dw = sh.tot_dw;
+
+  const int c0 = blockIdx.x * kStatCodes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = (N + 31) / 32;
+  const int my_chunks = (chunks - warp + kStatWarps - 1) / kStatWarps;
+  float w_dw[kStatCodes][kH] = {}, w_err[kStatCodes] = {};
+  int w_cnt[kStatCodes] = {};
+  for (int r0 = 0; r0 < my_chunks; r0 += kRound) {
+    int code[kRound];
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const long long row = ((long long)(r0 + u) * kStatWarps + warp) * 32 + lane;
+      code[u] = r0 + u < my_chunks && row < N ? idx[row] - c0 : -1;
+    }
+    int n = 0;
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const bool mine = code[u] >= 0 && code[u] < kStatCodes;
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (mine) {
+        const int at = n + __popc(m & ((1u << lane) - 1u));
+        list_row[warp][at] = ((r0 + u) * kStatWarps + warp) * 32 + lane;
+        list_code[warp][at] = (int8_t)code[u];
+      }
+      n += __popc(m);
+    }
+    __syncwarp();
+    for (int i = 0; i < n; i += kBatch) {
+      int c[kBatch];
+      float xv[kBatch][kH], ev[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        c[b] = i + b < n ? list_code[warp][i + b] : -1;
+        const long long row = i + b < n ? list_row[warp][i + b] : 0;
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+          const int d = lane + 32 * h;
+          xv[b][h] = c[b] >= 0 && d < D ? x[row * D + d] : 0.f;
+        }
+        ev[b] = c[b] >= 0 ? err_row[row] : 0.f;
+      }
+#pragma unroll
+      for (int cc = 0; cc < kStatCodes; ++cc) {
+        float g_dw[kH] = {}, g_err = 0.f;
+        int g_cnt = 0;
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+          if (c[b] == cc) {
+#pragma unroll
+            for (int h = 0; h < kH; ++h) g_dw[h] += xv[b][h];
+            g_err += ev[b];
+            g_cnt += 1;
+          }
+#pragma unroll
+        for (int h = 0; h < kH; ++h) w_dw[cc][h] += g_dw[h];
+        w_err[cc] += g_err;
+        w_cnt[cc] += g_cnt;
+      }
+    }
+    __syncwarp();  // the list is read before the next round writes it
+  }
+  __syncthreads();  // every list is read before the totals take its place
+#pragma unroll
+  for (int cc = 0; cc < kStatCodes; ++cc) {
+#pragma unroll
+    for (int h = 0; h < kH; ++h) tot_dw[warp][cc][lane + 32 * h] = w_dw[cc][h];
+    if (lane == 0) {
+      tot_err[warp][cc] = w_err[cc];
+      tot_cnt[warp][cc] = w_cnt[cc];
+    }
   }
   __syncthreads();
-
-  for (int i = threadIdx.x; i < kStatCodes * D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kStatCodes * D; i += kStatThreads) {
     const int c = i / D, d = i % D;
     if (c0 + c >= K) continue;
-    float s = acc_dw[0][c][d];
-    for (int w = 1; w < kStatWarps; ++w) s += acc_dw[w][c][d];
-    part_dw[((long long)split * K + c0 + c) * D + d] = s;
+    float sum = tot_dw[0][c][d];
+    for (int w = 1; w < kStatWarps; ++w) sum += tot_dw[w][c][d];
+    dw[(long long)(c0 + c) * D + d] = sum;
   }
   if (threadIdx.x < kStatCodes && c0 + (int)threadIdx.x < K) {
     const int c = threadIdx.x;
-    float s = acc_err[0][c];
-    int n = acc_cnt[0][c];
+    float sum = tot_err[0][c];
+    int n = tot_cnt[0][c];
     for (int w = 1; w < kStatWarps; ++w) {
-      s += acc_err[w][c];
-      n += acc_cnt[w][c];
+      sum += tot_err[w][c];
+      n += tot_cnt[w][c];
     }
-    part_err[(long long)split * K + c0 + c] = s;
-    part_cnt[(long long)split * K + c0 + c] = n;
-  }
-}
-
-__global__ void __launch_bounds__(kFoldThreads)
-vq_fold_kernel(const float* __restrict__ part_dw,
-               const int32_t* __restrict__ part_cnt,
-               const float* __restrict__ part_err, float* __restrict__ cnt,
-               float* __restrict__ err, float* __restrict__ dw, int splits,
-               int K, int D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long kd = (long long)K * D;
-  if (i < kd) {
-    float s = part_dw[i];
-    for (int p = 1; p < splits; ++p) s += part_dw[p * kd + i];
-    dw[i] = s;
-  }
-  if (i < K) {
-    float s = part_err[i];
-    int n = part_cnt[i];
-    for (int p = 1; p < splits; ++p) {
-      s += part_err[(long long)p * K + i];
-      n += part_cnt[(long long)p * K + i];
-    }
-    err[i] = s;
-    cnt[i] = (float)n;
+    err[c0 + c] = sum;
+    cnt[c0 + c] = (float)n;
   }
 }
 
 }  // namespace
 
-// Number of row splits of the stats pass; the wrapper sizes the partial
-// buffers with it.
-extern "C" int wmz_vq_train_splits(int N) {
-  return (N + kSplitRows - 1) / kSplitRows;
-}
-
 // x (N, D) and codebook (K, D) f32 in; idx (N,) int32, q (N, D), cnt (K,),
-// err (K,), dw (K, D) f32 out. Scratch, allocated by the wrapper: e_t
-// (D, K), e_sq (K,), err_row (N,) f32; part_dw (splits, K, D) f32,
-// part_cnt (splits, K) int32, part_err (splits, K) f32 with splits =
-// wmz_vq_train_splits(N). Returns the cudaError_t of the launches.
-extern "C" int wmz_vq_train_stats(
-    const void* x, const void* codebook, void* e_t, void* e_sq, void* idx,
-    void* q, void* err_row, void* part_dw, void* part_cnt, void* part_err,
-    void* cnt, void* err, void* dw, int N, int K, int D, void* stream) {
+// err (K,), dw (K, D) f32 out. scratch: wmz_vq_scratch_bytes(N, K, 1)
+// bytes, 256-byte aligned. Returns the cudaError_t of the launches.
+extern "C" int wmz_vq_train_stats(const void* x, const void* codebook, void* scratch, void* idx,
+                                  void* q, void* cnt, void* err, void* dw, int N, int K, int D,
+                                  void* stream) {
   if (N <= 0 || K <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* cb = static_cast<const float*>(codebook);
-  float* et = static_cast<float*>(e_t);
-  float* sq = static_cast<float*>(e_sq);
   int32_t* ix = static_cast<int32_t*>(idx);
-  float* er = static_cast<float*>(err_row);
-  cudaError_t status = launch_prep(cb, et, sq, K, D, st);
+  Plan p;
+  cudaError_t status = make_plan(N, K, p);
   if (status != cudaSuccess) return (int)status;
-  wmz::note_launch(vq_train_search_kernel);
-  vq_train_search_kernel<<<(N + kRows - 1) / kRows, kThreads, 0, st>>>(
-      xf, cb, et, sq, ix, static_cast<float*>(q), er, N, K, D);
-  status = cudaGetLastError();
+  const Scratch s = carve(static_cast<char*>(scratch), p.chunks, N, true);
+  status = launch_prep(cb, s, p, K, D, st);
   if (status != cudaSuccess) return (int)status;
-  const int splits = wmz_vq_train_splits(N);
-  const dim3 grid((K + kStatCodes - 1) / kStatCodes, splits);
+  status = launch_search<vq_train_search_kernel>(p, st, xf, cb, s, ix, static_cast<float*>(q), N,
+                                                 D, vector_rows<float>(x, D), p.chunks,
+                                                 p.per_split);
+  if (status != cudaSuccess) return (int)status;
   wmz::note_launch(vq_stats_kernel);
-  vq_stats_kernel<<<grid, kStatWarps * 32, 0, st>>>(
-      xf, ix, er, static_cast<float*>(part_dw),
-      static_cast<int32_t*>(part_cnt), static_cast<float*>(part_err), N, K,
-      D);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return (int)status;
-  const long long kd = (long long)K * D;
-  wmz::note_launch(vq_fold_kernel);
-  vq_fold_kernel<<<(unsigned)((kd + kFoldThreads - 1) / kFoldThreads),
-                   kFoldThreads, 0, st>>>(
-      static_cast<const float*>(part_dw),
-      static_cast<const int32_t*>(part_cnt),
-      static_cast<const float*>(part_err), static_cast<float*>(cnt),
-      static_cast<float*>(err), static_cast<float*>(dw), splits, K, D);
+  vq_stats_kernel<<<(K + kStatCodes - 1) / kStatCodes, kStatThreads, 0, st>>>(
+      xf, ix, s.err_row, static_cast<float*>(cnt), static_cast<float*>(err),
+      static_cast<float*>(dw), N, K, D);
   return (int)cudaGetLastError();
 }

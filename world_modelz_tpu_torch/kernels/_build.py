@@ -65,12 +65,12 @@ _SIGNATURES = {
     # B, S, H, W, heads, dh, dim, dim_q, out_dim, es, eh, ew, dtype, threads
     # (int out) -> the cooperative grid wmz_local3d_block launches (blocks)
     "wmz_local3d_block_grid": ([_INT] * 13 + [ctypes.POINTER(_INT)], _INT),
-    # x, codebook, e_t, e_sq, idx, N, K, D, x_dtype, stream
-    "wmz_vq_encode": ([_VP] * 5 + [_INT] * 4 + [_VP], _INT),
-    # x, codebook, e_t, e_sq, idx, q, err_row, part_dw, part_cnt, part_err,
-    # cnt, err, dw, N, K, D, stream
-    "wmz_vq_train_stats": ([_VP] * 13 + [_INT] * 3 + [_VP], _INT),
-    "wmz_vq_train_splits": ([_INT], _INT),
+    # N, K, train -> bytes of scratch of wmz_vq_encode / wmz_vq_train_stats
+    "wmz_vq_scratch_bytes": ([_INT] * 3, ctypes.c_longlong),
+    # x, codebook, scratch, idx, N, K, D, x_dtype, stream
+    "wmz_vq_encode": ([_VP] * 4 + [_INT] * 4 + [_VP], _INT),
+    # x, codebook, scratch, idx, q, cnt, err, dw, N, K, D, stream
+    "wmz_vq_train_stats": ([_VP] * 8 + [_INT] * 3 + [_VP], _INT),
     # q, k, v, out, lse, strides (int64 [9]: b, h, n of q, k, v), B, H, N,
     # D, scale, key block, normalise, dtype, stream
     "wmz_flash_fwd": ([_VP] * 6 + [_INT] * 4 + [_FLOAT] + [_INT] * 3 + [_VP], _INT),

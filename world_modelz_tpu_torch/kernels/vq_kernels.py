@@ -63,6 +63,13 @@ def _check_kernel_inputs(x: torch.Tensor, codebook: torch.Tensor, dtypes) -> Non
         raise ValueError(f"vq kernel indexes with int32, got N={n}, K={k}")
 
 
+def _scratch(lib, x: torch.Tensor, k: int, train: bool) -> torch.Tensor:
+    """The kernel's device scratch (the codebook's split planes and code
+    norms and, for the statistics, per-row errors), sized by the C entry."""
+    nbytes = lib.wmz_vq_scratch_bytes(x.shape[0], k, int(train))
+    return torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+
+
 def vq_encode_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-code indices for flat inputs (D <= 64 on CUDA).
 
@@ -81,15 +88,12 @@ def vq_encode_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     idx = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n == 0:
         return idx
-    # scratch: the transposed codebook and the code norms
-    e_t = torch.empty((d, k), dtype=torch.float32, device=x.device)
-    e_sq = torch.empty((k,), dtype=torch.float32, device=x.device)
     lib = load_library()
+    scratch = _scratch(lib, x, k, train=False)
     LAUNCHES["vq_encode"] += 1
     status = lib.wmz_vq_encode(
-        x.data_ptr(), codebook.data_ptr(), e_t.data_ptr(), e_sq.data_ptr(),
-        idx.data_ptr(), n, k, d, _DTYPES[x.dtype],
-        stream(x),
+        x.data_ptr(), codebook.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+        n, k, d, _DTYPES[x.dtype], stream(x),
     )
     check(status, "vq_encode")
     return idx
@@ -126,19 +130,11 @@ def vq_train_stats(
     cnt, err = torch.empty((k,), **f32), torch.empty((k,), **f32)
     dw = torch.empty((k, d), **f32)
     lib = load_library()
-    splits = lib.wmz_vq_train_splits(n)
-    # scratch: transposed codebook, code norms, per-row errors, and the
-    # per-split partial sums the fold adds in order
-    e_t, e_sq, err_row = (torch.empty(s, **f32) for s in ((d, k), (k,), (n,)))
-    part_dw = torch.empty((splits, k, d), **f32)
-    part_cnt = torch.empty((splits, k), dtype=torch.int32, device=dev)
-    part_err = torch.empty((splits, k), **f32)
+    scratch = _scratch(lib, x, k, train=True)
     LAUNCHES["vq_train_stats"] += 1
     status = lib.wmz_vq_train_stats(
-        x.data_ptr(), codebook.data_ptr(), e_t.data_ptr(), e_sq.data_ptr(),
-        idx.data_ptr(), q.data_ptr(), err_row.data_ptr(), part_dw.data_ptr(),
-        part_cnt.data_ptr(), part_err.data_ptr(), cnt.data_ptr(),
-        err.data_ptr(), dw.data_ptr(), n, k, d,
+        x.data_ptr(), codebook.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+        q.data_ptr(), cnt.data_ptr(), err.data_ptr(), dw.data_ptr(), n, k, d,
         stream(x),
     )
     check(status, "vq_train_stats")
