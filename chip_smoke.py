@@ -9,7 +9,10 @@ denoisers' parameter gradients through the backward kernels), drives the serving
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
 ``serve/m3_g8`` configuration, drives the masked-diffusion trainer
 (``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
-steps, drives both again with the whole-block fused attention
+steps, drives the rollout CLI (``cli.rollout.run``: the f32 denoiser of
+that run's checkpoint, PNGs, GIF, FVD with both extractors, PSNR/SSIM)
+and the trainer's ``--eval`` on it, drives serving and training again with
+the whole-block fused attention
 (``backend="fused"``, the ``local3d_block`` kernel), drives the tokenizer
 trainer (``cli.train_vqae.train``) at ``train_vqae/mnist_b96`` for 200
 steps, and drives the sparse space-time
@@ -69,6 +72,11 @@ TRAIN = dict(
     dim_head=DENOISER["dim_head"], heads=DENOISER["heads"],
     mlp_dim=DENOISER["mlp_dim"], extents=DENOISER["extents"], dropout=0.0,
 )
+
+# the rollout CLI (cli.rollout) on drive_training's step-60 checkpoint:
+# serve/m3_g8's batch of 8 clips and 8 frames; FVD over 64 clips a side
+# (8 batches), each extractor's features 8 clips at a time
+ROLLOUT = dict(batch_size=8, num_frames=8, fvd_clips=64, fvd_batch_size=8)
 
 # train_vqae/mnist_b96: the tokenizer that serve/m3_g8 and
 # train_step/m3_b64_g8_full consume (TOKENIZER), trained on MovingMNIST
@@ -147,6 +155,9 @@ FLASH_BWD_BF16_EQUAL = 0.99
 # out bitwise equal
 FWD_BF16_TOL = 2.0**-7
 FWD_BF16_EQUAL = 0.99
+# the FVD harness's tiny features, card vs CPU (f32 convolutions with TF32
+# off), relative to max |feature|
+FEATURE_RTOL = 1e-4
 STAT_TOL = 1e-4  # lse and delta (f32 in both), times max(1, max |stat|)
 # card vs CPU gradient of each parameter tensor, times max(max |its CPU
 # gradient|, GRAD_FLOOR x the largest gradient of any tensor)
@@ -450,8 +461,8 @@ def check_local3d(torch, dev):
     32, both rounding P where the TPU kernel does). bf16 must lie within
     FWD_BF16_TOL x max |out| and be
     at least FWD_BF16_EQUAL bitwise equal, f32 within F32_TOL; two
-    launches must be bitwise equal. Returns the serving-shape bf16
-    record."""
+    launches must be bitwise equal. Returns the serving-shape records, bf16
+    (the serving path's) and f32 (the rollout CLI's)."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import local3d as kl
@@ -470,7 +481,7 @@ def check_local3d(torch, dev):
         ("clip34_dh32", (2, 34, 8, 8), 2, 32, (1, 1, 1)),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
-    serving = None
+    serving = {}
     for name, (b, s, h, w), heads, dh, ext in cases:
         for dtype in (torch.float32, torch.bfloat16):
             shape = (b, s, h, w, heads * dh)
@@ -528,11 +539,11 @@ def check_local3d(torch, dev):
                 f"back_to_back_ms={launch_ms:.5f} plain_ms={plain_ms:.5f} "
                 f"library_ms={lib_ms:.5f} (kernel/SDPA {ms / lib_ms:.4f}) "
                 f"bound_us={bound_ms * 1e3:.4f} ({bound_by})")
-            if name == "serving" and bf16:
-                serving = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=lib_ms)
-    return serving
+            if name == "serving":
+                serving[tname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=lib_ms)
+    return serving["bfloat16"], serving["float32"]
 
 
 def block_operands(torch, gen, dev, b, s, h, w, dim, heads, dh, dtype):
@@ -1551,10 +1562,13 @@ def profile_busy(torch, label, fn, wall_s, reps) -> None:
     """``fn`` once more under torch.profiler: device time by kernel, and
     the device's busy share of ``wall_s``, the unprofiled wall of one call
     (mean of ``reps``; kernels run in order on one stream, so their sum is
-    the busy time)."""
+    the busy time). Only the device is traced: the host's operators are
+    not needed for the sum, and recording them slows a profile of tens of
+    thousands of launches by tens of seconds."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
@@ -1565,7 +1579,8 @@ def profile_busy(torch, label, fn, wall_s, reps) -> None:
     log(f"profile: {label}, device busy {busy_us / 1e3:.3f} ms of "
         f"{wall_s * 1e3:.3f} ms unprofiled wall (mean of {reps}) = "
         f"{busy_us / 1e6 / wall_s:.4f} busy share; "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"{sum(e.count for e in kernels)} kernel launches; profiled in "
+        f"{time.perf_counter() - t0:.1f} s")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
         log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:7d} x  {e.key[:90]}")
@@ -1606,6 +1621,248 @@ def profile_training(torch, dev, cfg, result, tokenizer, backend, n=5) -> None:
     step_s = (time.perf_counter() - t0) / n
     profile_busy(torch, f"one train step ({backend})",
                  lambda: one_step(batches[-1]), step_s, n)
+
+
+def drive_rollout(torch, dev, launches, smi, train=TRAIN,
+                  root=os.path.join(HERE, "build", "smoke"), rollout=ROLLOUT):
+    """The rollout CLI (``cli.rollout.run``) on ``drive_training``'s final
+    checkpoint and tokenizer under ``root``, then the trainer's ``--eval``
+    on it. Three rollouts: the reference preset (30 iterations) with FVD
+    over ``fvd_clips`` clips and the gt metrics, once under PyTorch's
+    default TF32 settings (cuDNN on) with the tiny extractor and once with
+    TF32 off and the tokenizer extractor; then the fast preset (10
+    iterations, top-k 25) with the gt metrics. Gates: the files land, each
+    GIF decodes to its PNG grids bit for bit, FVD, PSNR and SSIM are finite
+    (lo <= fvd <= hi), the exact launch counts, and on the card the launch
+    log names the f32 ``local3d_fwd_kernel``. Logs the wall and clips/s of
+    a batch, its device time and busy share, the tiny features card vs
+    CPU, and the share of tokens the tokenizer's encode keeps with cuDNN
+    TF32 on and off, with FVD and PSNR under both. Returns the launch
+    counts of the four runs, summed."""
+    import dataclasses
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli import rollout as ro
+    from world_modelz_tpu_torch.cli.video_diffusion import VideoDiffusionConfig
+    from world_modelz_tpu_torch.cli.video_diffusion import train as run_train
+    from world_modelz_tpu_torch.train import latest_checkpoint
+    from world_modelz_tpu_torch.utils.image import read_gif, read_png
+
+    on_card = dev.type == "cuda"
+    ckpt = latest_checkpoint(os.path.join(root, "run"))
+    tok_path = latest_checkpoint(os.path.join(root, "tokenizer"))
+    out = os.path.join(root, "rollout")
+    b, frames = rollout["batch_size"], rollout["num_frames"]
+    base = ro.RolloutConfig(
+        checkpoint=ckpt, platform="" if on_card else dev.type, batch_size=b,
+        num_frames=frames, output_dir=out, fvd_clips=rollout["fvd_clips"],
+        fvd_batch_size=rollout["fvd_batch_size"])
+    runs = {  # name: (config, cuDNN TF32)
+        "reference": (dataclasses.replace(
+            base, preset="reference", name="reference", fvd=True,
+            gt_metrics=True), True),
+        "reference_tf32_off": (dataclasses.replace(
+            base, preset="reference", name="reference_tf32_off", fvd=True,
+            fvd_feature_net="tokenizer", fvd_weights=tok_path,
+            gt_metrics=True), False),
+        "fast": (dataclasses.replace(base, preset="fast", name="fast",
+                                     gt_metrics=True), True),
+    }
+    results, counts, walls = {}, {}, {}
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    depth = train["depth"]
+    try:
+        for name, (cfg, cudnn_tf32) in runs.items():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            launches.clear()
+            t0 = time.perf_counter()
+            results[name] = res = ro.run(cfg)
+            walls[name] = time.perf_counter() - t0
+            counts[name] = dict(launches)
+            iters = ro.SAMPLER_PRESETS[cfg.preset]["num_eval_iterations"]
+            batches = len(res.batch_seconds)
+            # an encode per batch, and the ceiling's encode of the gt clips
+            want = {"local3d_fwd": depth * frames * iters * batches,
+                    "vq_encode": batches + 1, "local3d_block": 0}
+            for key, n in want.items() if on_card else ():
+                if counts[name].get(key, 0) != n:
+                    raise AssertionError(f"rollout {name}: {key} launched "
+                                         f"{counts[name].get(key, 0)} times, expected {n}")
+            check_rollout_files(cfg, res)
+            log(f"rollout {name} ({cfg.preset}: {iters} iterations, topk "
+                f"{ro.SAMPLER_PRESETS[cfg.preset]['topk']}; cuDNN TF32 "
+                f"{'on' if cudnn_tf32 else 'off'}): {batches} batches of {b} clips x "
+                f"{frames} frames in {walls[name]:.3f} s; batch walls "
+                + " ".join(f"{x:.3f}" for x in res.batch_seconds)
+                + f" s; launches {counts[name]} (per batch {depth * frames * iters} "
+                f"local3d_fwd = {depth} layers x {frames} frames x {iters} "
+                f"iterations); FVD {res.fvd}; gt mean PSNR "
+                f"{res.gt_metrics['mean_psnr']:.4f} dB, SSIM "
+                f"{res.gt_metrics['mean_ssim']:.5f}, per horizon PSNR "
+                + " ".join(f"{h['psnr']:.3f}" for h in res.gt_metrics["per_horizon"])
+                + ", tokenizer ceiling "
+                + " ".join(f"{h['tokenizer_ceiling_psnr']:.3f}"
+                           for h in res.gt_metrics["per_horizon"]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        ref = results["reference"]
+        steady = sorted(ref.batch_seconds[1:rollout["fvd_clips"] // b])
+        med = steady[len(steady) // 2]
+        log(f"rollout reference (f32 denoiser, untrained: {ref.step} steps): one "
+            f"batch of {b} clips x {frames} frames, median wall {med:.3f} s of "
+            f"{len(steady)} = {b / med:.4f} clips/s, {b * frames / med:.3f} "
+            f"frames/s; on {smi}")
+        if on_card:
+            ro_obj = ref.rollout
+            def forward():
+                with torch.no_grad():
+                    return ro_obj.model(torch.zeros(
+                        (b, *ro_obj.token_shape), dtype=torch.long, device=dev))
+            names = kernels_run(torch, forward, launches=depth)
+            if not names or not all(n.startswith("local3d_fwd_kernel<float") for n in names):
+                raise AssertionError(f"the rollout's denoiser launched {names}, not "
+                                     "the f32 local3d_fwd_kernel alone")
+            log(f"rollout: the launch log names {sorted(set(names))} "
+                f"({len(names)} launches for one forward of {depth} layers)")
+            profile_busy(torch, f"one rollout batch (reference, f32, {b} clips)",
+                         ro_obj.generate, med, len(steady))
+        compare_rollout_tf32(torch, dev, results, tok_path, base, smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # the trainer's --eval on the same checkpoint (the f32 masters; the
+    # tokenizer bf16-rounded as the trainer runs it)
+    cfg = VideoDiffusionConfig(
+        **train, decoder_model=tok_path, output_dir=os.path.join(root, "eval"),
+        checkpoint=ckpt, eval=True, platform="" if on_card else dev.type)
+    launches.clear()
+    t0 = time.perf_counter()
+    result = run_train(cfg)
+    wall = time.perf_counter() - t0
+    counts["eval"] = dict(launches)
+    step = result.state.step
+    want = {"local3d_fwd": depth * cfg.eval_timesteps * cfg.num_eval_iterations,
+            "vq_encode": 2}  # the token-grid probe, then the clips
+    for key, n in want.items() if on_card else ():
+        if counts["eval"].get(key, 0) != n:
+            raise AssertionError(f"--eval: {key} launched "
+                                 f"{counts['eval'].get(key, 0)} times, expected {n}")
+    png = os.path.join(cfg.output_dir, f"{cfg.name}_eval_{step:07d}_base.png")
+    grid = read_png(png)
+    rows = read_gif(png[:-4] + ".gif")
+    with open(os.path.join(cfg.output_dir, f"{cfg.name}_metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    image = [r for r in records if r.get("image") == "reconstruction_base"]
+    if len(image) != 1 or image[0]["step"] != step:
+        raise AssertionError(f"--eval: the metric log holds {records}")
+    logged = read_png(os.path.join(cfg.output_dir, image[0]["path"]))
+    size = grid.shape[0] // rows.shape[0]
+    if not (np.array_equal(logged, grid) and rows.shape[0] == cfg.eval_timesteps + 1
+            and all(np.array_equal(rows[i, ..., :1],
+                                   grid[i * size:(i + 1) * size + 2])
+                    for i in range(rows.shape[0]))):
+        raise AssertionError("--eval: the GIF's frames or the logged image are not "
+                             "the PNG grid's")
+    log(f"trainer --eval (step {step}): {cfg.eval_batch_size} clips x "
+        f"{cfg.eval_timesteps} frames, {cfg.num_eval_iterations} iterations in "
+        f"{wall:.3f} s; {os.path.basename(png)} {grid.shape}, its GIF "
+        f"({rows.shape[0]} frames, the grid's rows), "
+        f"{sum(n.startswith(f'{cfg.name}_base_frame_') for n in os.listdir(cfg.output_dir))} "
+        f"frame PNGs, log_image record {image[0]['path']}; launches {counts['eval']}")
+    log(f"rollout and evaluation phase: {time.perf_counter() - t_phase:.1f} s")
+    return {key: sum(c.get(key, 0) for c in counts.values())
+            for key in set().union(*counts.values())}
+
+
+def check_rollout_files(cfg, res) -> None:
+    """A rollout's files: one PNG grid per frame, the GIF of those grids
+    (decoded bit for bit), the FVD and gt-metric records with finite
+    values and lo <= fvd <= hi."""
+    import numpy as np
+
+    from world_modelz_tpu_torch.utils.image import read_gif, read_png
+
+    frames, img = res.decoded.shape[1], res.rollout.train_cfg.image_size
+    shape = (cfg.batch_size, cfg.num_frames, img, img, res.rollout.tok.in_channels)
+    if res.decoded.shape != shape or not np.isfinite(res.decoded).all():
+        raise AssertionError(f"rollout {cfg.name}: decoded {res.decoded.shape}, "
+                             "or pixels not finite")
+    gif = read_gif(os.path.join(cfg.output_dir, f"{cfg.name}.gif"))
+    if gif.shape[0] != frames:
+        raise AssertionError(f"rollout {cfg.name}: the GIF has {gif.shape[0]} frames")
+    for i in range(frames):
+        png = read_png(os.path.join(cfg.output_dir, f"{cfg.name}_frame_{i:04d}.png"))
+        if not np.array_equal(gif[i], np.broadcast_to(png, gif[i].shape)):
+            raise AssertionError(f"rollout {cfg.name}: GIF frame {i} is not its PNG")
+    for key, suffix in (("fvd", "_fvd.json"), ("gt_metrics", "_gt_metrics.json")):
+        rec = getattr(res, key)
+        if not getattr(cfg, key):
+            continue
+        with open(os.path.join(cfg.output_dir, cfg.name + suffix)) as f:
+            if json.load(f) != rec:
+                raise AssertionError(f"rollout {cfg.name}: {suffix} is not the record")
+    if cfg.fvd:
+        fvd, (lo, hi) = res.fvd["fvd"], res.fvd["fvd_ci95"]
+        if not (math.isfinite(fvd) and lo <= fvd <= hi) or res.fvd["clips"] != cfg.fvd_clips:
+            raise AssertionError(f"rollout {cfg.name}: FVD record {res.fvd}")
+    values = [v for h in res.gt_metrics["per_horizon"]
+              for v in (h["psnr"], h["ssim"], h["tokenizer_ceiling_psnr"])]
+    if len(res.gt_metrics["per_horizon"]) != frames or not all(map(math.isfinite, values)):
+        raise AssertionError(f"rollout {cfg.name}: gt metrics {res.gt_metrics}")
+
+
+def compare_rollout_tf32(torch, dev, results, tok_path, base, smi) -> None:
+    """The tiny features on the card against the CPU (gate FEATURE_RTOL),
+    and what PyTorch's default TF32 (cuDNN convolutions) changes: the share
+    of the real clips' tokens that the f32 tokenizer's encode keeps, and
+    both extractors' FVD and the gt PSNR of the rollouts under each
+    setting (same seeds, same clips)."""
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli.train_vqae import load_tokenizer
+    from world_modelz_tpu_torch.utils import fvd as fvd_lib
+
+    t0 = time.perf_counter()
+    on, off = results["reference"], results["reference_tf32_off"]
+    clips = on.real_videos[: base.fvd_batch_size]
+    feats = {d: fvd_lib.tiny_video_features(torch.from_numpy(clips).to(d)).cpu().numpy()
+             for d in (dev, torch.device("cpu"))}
+    ref = feats[torch.device("cpu")]
+    rel = float(np.abs(feats[dev] - ref).max() / np.abs(ref).max())
+    log(f"FVD tiny features {ref.shape} of {len(clips)} real clips, {dev.type} vs "
+        f"CPU (TF32 off inside): max abs err / max |f| = {rel:.3g} (tol {FEATURE_RTOL})")
+    if not rel <= FEATURE_RTOL:
+        raise AssertionError(f"tiny features differ by {rel} of their span")
+    tok, _ = load_tokenizer(tok_path, dev)
+    real = torch.from_numpy(on.real_videos.reshape(-1, *on.real_videos.shape[2:]))
+    tokens = {}
+    for setting in (True, False):
+        torch.backends.cudnn.allow_tf32 = setting
+        tokens[setting] = torch.cat([tok.encode(real[i:i + 256].to(dev)).cpu()
+                                     for i in range(0, len(real), 256)])
+    torch.backends.cudnn.allow_tf32 = True
+    share = float((tokens[True] == tokens[False]).float().mean())
+    extractors = {"tiny": fvd_lib.make_extractor("tiny", device=dev),
+                  "tokenizer": fvd_lib.make_extractor("tokenizer", tok_path, dev)}
+    scores = {}  # point estimates (each run's CLI record has its interval)
+    for name, res in (("TF32 on", on), ("TF32 off", off)):
+        for net, ex in extractors.items():
+            real_f = fvd_lib.extract_features(ex, res.real_videos, base.fvd_batch_size)
+            gen_f = fvd_lib.extract_features(ex, res.gen_videos, base.fvd_batch_size)
+            scores[name, net] = fvd_lib.fvd_from_features(real_f, gen_f)
+    log(f"TF32 token agreement ({time.perf_counter() - t0:.1f} s): {share:.6f} of "
+        f"{tokens[True].numel()} tokens "
+        f"({len(real)} frames of the {len(on.real_videos)} real clips) equal with "
+        f"cuDNN TF32 on and off; FVD "
+        + "; ".join(f"{name} {net} {score:.6f}" for (name, net), score in scores.items())
+        + f"; gt mean PSNR TF32 on {on.gt_metrics['mean_psnr']:.4f} dB, off "
+        f"{off.gt_metrics['mean_psnr']:.4f} dB; SSIM on "
+        f"{on.gt_metrics['mean_ssim']:.5f}, off {off.gt_metrics['mean_ssim']:.5f}; "
+        f"generated pixels differ by up to "
+        f"{float(np.abs(on.gen_videos - off.gen_videos).max()):.4g}; on {smi}")
 
 
 def check_tokenizer_train_step(torch, dev, launches, train=VQAE_TRAIN, batch=8):
@@ -2252,7 +2509,7 @@ def main() -> int:
     for line in ptxas_summary(str(info["log"])):
         log(f"  ptxas: {line}")
 
-    a = check_local3d(torch, dev)
+    a, a_f32 = check_local3d(torch, dev)
     b = check_vq(torch, dev)
     bwd = check_local3d_bwd(torch, dev)
     c = check_vq_train(torch, dev)
@@ -2270,18 +2527,20 @@ def main() -> int:
     log(f"serving (fused): measured on {smi}")
     compare_serving(torch, dev)
     training = drive_training(torch, dev, _build.LAUNCHES, smi)
+    rollout = drive_rollout(torch, dev, _build.LAUNCHES, smi)
     training_fused = drive_training(
         torch, dev, _build.LAUNCHES, smi, backend="fused",
         root=os.path.join(HERE, "build", "smoke_fused"))
     tokenizer = drive_tokenizer_training(torch, dev, _build.LAUNCHES, smi)
     sparse = drive_sparse_training(torch, dev, _build.LAUNCHES, smi)
-    # launches of the six main paths, each counted in its own run
-    paths = (serving, serving_fused, training, training_fused, tokenizer, sparse)
+    # launches of the seven main paths, each counted in its own runs
+    paths = (serving, serving_fused, training, rollout, training_fused, tokenizer,
+             sparse)
     counts = {key: sum(p.get(key, 0) for p in paths)
               for key in set().union(*paths)}
     log(f"launches: serving {serving}, fused serving {serving_fused}, training "
-        f"{training}, fused training {training_fused}, tokenizer training "
-        f"{tokenizer}, sparse training {sparse}")
+        f"{training}, rollout and evaluation {rollout}, fused training "
+        f"{training_fused}, tokenizer training {tokenizer}, sparse training {sparse}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -2319,6 +2578,10 @@ def main() -> int:
     ]
     # the f32 forward of the evaluation sweep, beside the bf16 training record
     next(k for k in kernels if k["name"] == "flash_fwd")["eval_f32"] = flash["flash_fwd_eval"]
+    # the f32 local-3D forward the rollout CLI runs, beside the bf16 serving
+    # record (its launches: the rollout phase's, all f32)
+    next(k for k in kernels if k["name"] == "local3d_fwd")["rollout_f32"] = dict(
+        a_f32, launches=rollout["local3d_fwd"])
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

@@ -15,6 +15,7 @@ rtol 1e-6 (as tests/test_torch_port_train.py); clips exact.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -443,6 +444,28 @@ def test_train_evaluates_checkpoints_and_resumes(tok_path, tmp_path, capsys):
         assert torch.equal(v, want[k]), k
 
 
+@pytest.mark.parametrize("uniform_noise", [False, True])
+def test_train_logs_sampler_histograms_unless_uniform_noise(tok_path, tmp_path, uniform_noise):
+    """C.9: the sampler weights' histogram every histogram_interval steps,
+    as JAX writes it (cli/sparse_diffusion.py:775-783), and none under
+    uniform_noise (no sampler)."""
+    result = sd.train(_tiny(tok_path, tmp_path, histogram_interval=2, eval_interval=0,
+                            uniform_noise=uniform_noise))
+    with open(os.path.join(str(tmp_path), "sparse_diffusion_metrics.jsonl")) as f:
+        rec = [json.loads(line) for line in f]
+    assert [r["step"] for r in rec if "loss" in r] == [1, 2, 4]
+    hists = [r for r in rec if "histogram" in r]
+    if uniform_noise:
+        assert hists == []
+        return
+    assert [(r["step"], r["histogram"]) for r in hists] == [(2, "sampler_weights"),
+                                                            (4, "sampler_weights")]
+    counts, edges = np.histogram(
+        ptrain.loss_aware_weights(result.state.sampler).numpy(), bins=64)
+    assert hists[-1]["counts"] == counts.tolist()
+    assert hists[-1]["edges"] == np.round(edges, 6).tolist()
+
+
 def test_single_batch_writes_gt_and_frames(tok_path, tmp_path):
     result = sd.train(_tiny(tok_path, tmp_path, single_batch=True, max_steps=2,
                             eval_interval=2, ema_decay=0.0, save_frames=True,
@@ -469,7 +492,7 @@ UNPORTED = [
     dict(timing_report="t.json"), dict(wandb=True), dict(moe_experts=2),
     dict(moe_capacity_factor=2.0), dict(moe_aux_weight=0.1), dict(n_model=2),
     dict(n_pipe=2), dict(fsdp=True), dict(n_micro=2), dict(mlr_data_dir="/d"),
-    dict(histogram_interval=0), dict(probe_interval=10),
+    dict(probe_interval=10),
 ]
 
 

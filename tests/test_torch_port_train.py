@@ -482,7 +482,8 @@ def test_train_logs_finite_losses_and_checkpoints(tok_path, tmp_path, capsys):
     for line in logged:
         assert np.isfinite(float(line.split("loss ")[1].split()[0])), line
         assert "lr " in line and "grad_norm " in line
-    assert sorted(os.listdir(tmp_path)) == ["step_0000002", "step_0000004"]
+    assert sorted(os.listdir(tmp_path)) == [
+        "step_0000002", "step_0000004", "vq_diffusion_metrics.jsonl"]
     assert ptrain.latest_checkpoint(str(tmp_path)).endswith("step_0000004")
     assert result.state.step == 4 and result.rejected == 0
     assert len(result.history) == 4 and result.token_shape == (S, GRID, GRID)
@@ -511,12 +512,9 @@ UNPORTED = [
     dict(device_composite=True), dict(n_model=2), dict(n_seq=2),
     dict(fsdp=True), dict(wandb=True), dict(accumulation_steps=2),
     dict(steps_per_dispatch=2), dict(timing_report="t.json"),
-    dict(eval=True), dict(eval_interval=2),
     # flags kept for CLI parity with nothing behind them
     dict(data_workers=2), dict(buffer_size=10), dict(skip_frames=1),
-    dict(histogram_interval=0), dict(probe_interval=10), dict(topk=5),
-    dict(eval_timesteps=2), dict(eval_batch_size=2),
-    dict(num_eval_iterations=2),
+    dict(probe_interval=10),
 ]
 
 

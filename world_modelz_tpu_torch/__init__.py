@@ -1,6 +1,6 @@
 """world_modelz_tpu_torch — the PyTorch/CUDA port of world_modelz_tpu.
 
-Four paths run here. Serving: tokenizer encode (conv encoder +
+Five paths run here. Serving: tokenizer encode (conv encoder +
 nearest-code search) -> iterative-unmask rollout over the
 local-3D-attention denoiser -> tokenizer decode. Training: the
 masked-diffusion trainer (``cli.video_diffusion``) over frozen-tokenizer
@@ -9,7 +9,9 @@ training: the VQ-VAE trainer (``cli.train_vqae``), with the fused VQ
 search + EMA statistics kernel. Sparse space-time diffusion: the trainer
 ``cli.sparse_diffusion`` (a dense transformer over token subsets of
 synthetic trajectory volumes, with the flash-attention kernels) and its
-chunked volume sweep. Layouts at public functions follow the
+chunked volume sweep. Evaluation: the rollout CLI (``cli.rollout``) from a
+trained checkpoint to frames, GIFs, FVD and PSNR/SSIM, and the denoiser
+trainer's periodic evaluation. Layouts at public functions follow the
 JAX package: NHWC images in [0, 1], (B, S, H, W) token grids,
 (B, S, H, W, heads * dh) attention operands.
 
@@ -37,8 +39,10 @@ data       MovingMNIST and synthetic trajectory sources, the buffered clip
            sampler, the prefetching device feeder
 cli        the trainers (``python -m ...cli.video_diffusion``,
            ``python -m ...cli.train_vqae``,
-           ``python -m ...cli.sparse_diffusion``)
-utils      dataclass CLI configs, image grids and PNGs, the JSONL logger
+           ``python -m ...cli.sparse_diffusion``), the rollout
+           (``...cli.rollout``) and ``...cli.make_gif``
+utils      dataclass CLI configs, image grids, PNGs and GIFs, the JSONL
+           logger, PSNR/SSIM, the FVD harness
 convert    weight bridge from the JAX package's numpy parameter trees
 """
 

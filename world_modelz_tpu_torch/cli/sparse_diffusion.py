@@ -19,7 +19,10 @@ uniformly, with
 - evaluation: the chunked volume sweep (``sparse_denoise_volume``), decoded
   to frames and written as a PNG grid, for the base and the EMA weights;
 - async checkpoints with the embedded config, resume, warm start and
-  ``--single_batch`` (with its ``gt.png``).
+  ``--single_batch`` (with its ``gt.png``);
+- a JSONL metric log: loss, grad norm, lr and steps/s at each log point,
+  and the sampler weights' histogram every ``histogram_interval`` steps
+  (none under ``--uniform_noise``).
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports them: the MineRL and video datasets, the external tokenizer, the
@@ -69,6 +72,7 @@ from world_modelz_tpu_torch.train import (
     CheckpointGuard,
     host_schedule,
     loss_aware_sample,
+    loss_aware_weights,
     restore_checkpoint,
     uniform_sample,
 )
@@ -125,7 +129,8 @@ class SparseDiffusionConfig:
     # "deferred" or "sync": the port reads each step's stats on the host,
     # so both modes log the step's own values (JAX's "sync" behaviour)
     log_fence: str = "deferred"
-    histogram_interval: int = 50  # sampler-weight histograms: not ported
+    # sampler-weight histograms (none under uniform_noise)
+    histogram_interval: int = 50
     timing_report: str = ""  # not ported
     probe_interval: int = 200  # timing-report probes: not ported
 
@@ -167,7 +172,6 @@ class SparseDiffusionConfig:
 _UNPORTED_FIELDS = {
     "mlr_data_dir": ("the MineRL / video datasets", "A.8"),
     "data_workers": ("grain worker processes", "A.8"),
-    "histogram_interval": ("sampler-weight histograms (the metric logger)", "A.8"),
     "probe_interval": ("the timing report's device probes", "A.8"),
     "moe_capacity_factor": ("mixture-of-experts FFNs", "A.5"),
     "moe_aux_weight": ("mixture-of-experts FFNs", "A.5"),
@@ -483,6 +487,10 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
                 logger.log(step, **m)
                 print(f"{step}: loss {loss:.3e} lr {m['lr']:.3e} "
                       f"grad_norm {gn:.3e}")
+            if (cfg.histogram_interval and not cfg.uniform_noise
+                    and step % cfg.histogram_interval == 0):
+                logger.log_histogram(step, "sampler_weights",
+                                     loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                 path = saver.save(cfg.output_dir, step, state.state_dict(), config)
                 print("checkpoint:", path)

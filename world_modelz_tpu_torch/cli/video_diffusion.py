@@ -1,7 +1,7 @@
 """Masked video-diffusion training CLI (next-frame prediction).
 
 Port of ``world_modelz_tpu.cli.video_diffusion`` (reference:
-vq-video-diffusion/main.py, minecraft/main2.py), training half:
+vq-video-diffusion/main.py, minecraft/main2.py):
 - frozen VQ tokenizer loaded from a checkpoint's embedded config
   (main2.py:390-396; ``cli.train_vqae.load_tokenizer``, so the tokenizer
   trainer's checkpoints feed it), encoded through the ``vq_encode`` kernel
@@ -13,6 +13,15 @@ vq-video-diffusion/main.py, minecraft/main2.py), training half:
 - warmup + cosine AdamW, optional EMA of the weights, the non-finite guard
 - checkpoints that bundle params / EMA / optimizer / sampler and the config
   (main2.py:302-314), resume and warm start
+- a JSONL metric log (``{output_dir}/{name}_metrics.jsonl``): loss, grad
+  norm, lr and steps/s at each log point, the sampler weights' histogram
+  every ``histogram_interval`` steps, and the evaluation grids
+- evaluation every ``eval_interval`` steps, for the f32 masters and the
+  EMA (``evaluate_and_save``, main2.py:59-146): an iterative-unmask rollout
+  of ``eval_timesteps`` frames from ``eval_batch_size`` clips of its own
+  data stream, decoded and written as a PNG grid and a GIF; ``--eval``
+  evaluates a checkpoint's weights once (and writes each frame's grid) and
+  returns
 
 With ``bf16`` the f32 master weights are cast to a bf16 copy for the
 forward (``torch.func.functional_call``); the cast is differentiable, so
@@ -24,23 +33,23 @@ and the EMA, which leaves the whole state bitwise unchanged, as the JAX
 package's on-device select does.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports them: evaluation (``--eval``, ``eval_interval``), other
-datasets, the grain pipeline and device compositing, parallelism,
-gradient accumulation, fused dispatch, the timing report and wandb. The
-flags of those features that are kept only for parity with the JAX CLI
-raise at any value other than their default.
+that ports them: other datasets, the grain pipeline and device
+compositing, parallelism, gradient accumulation, fused dispatch, the
+timing report and wandb. The flags of those features that are kept only
+for parity with the JAX CLI raise at any value other than their default.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
     python -m world_modelz_tpu_torch.cli.video_diffusion \\
-        --decoder_model <tokenizer checkpoint> --eval_interval 0
+        --decoder_model <tokenizer checkpoint>
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +58,7 @@ import torch.nn.functional as F
 from world_modelz_tpu_torch._device import platform_device
 from world_modelz_tpu_torch.cli.train_vqae import load_tokenizer
 from world_modelz_tpu_torch.data import MovingMNIST, PrefetchIterator
-from world_modelz_tpu_torch.diffusion import corrupt_tokens
+from world_modelz_tpu_torch.diffusion import corrupt_tokens, rollout_frames
 from world_modelz_tpu_torch.models import (
     VQAutoEncoder,
     VqVideoDiffusionModel,
@@ -63,20 +72,25 @@ from world_modelz_tpu_torch.train import (
     ema_init,
     ema_update,
     global_grad_norm,
+    host_schedule,
     latest_checkpoint,
     loss_aware_init,
     loss_aware_sample,
     loss_aware_update,
+    loss_aware_weights,
     make_optimizer,
     restore_checkpoint,
     warmup_cosine_schedule,
 )
+from world_modelz_tpu_torch.serve import eval_mode
 from world_modelz_tpu_torch.utils.config import (
     check_defaults,
     config_to_dict,
     dataclass_cli,
     unported,
 )
+from world_modelz_tpu_torch.utils.image import make_grid, save_gif, save_image
+from world_modelz_tpu_torch.utils.logging import MetricLogger
 
 
 @dataclasses.dataclass
@@ -113,17 +127,16 @@ class VideoDiffusionConfig:
     accumulation_steps: int = 1  # > 1 not ported
     steps_per_dispatch: int = 1  # > 1 not ported
     checkpoint_interval: int = 25_000
-    eval_interval: int = 2000  # evaluation is not ported: 0 to train
-    eval_timesteps: int = 4  # evaluation: not ported
-    eval_batch_size: int = 8  # evaluation: not ported
-    num_eval_iterations: int = 30  # evaluation: not ported
+    eval_interval: int = 2000  # evaluation (base and EMA) every N steps
+    eval_timesteps: int = 4  # frames each evaluation rollout generates
+    eval_batch_size: int = 8  # clips each evaluation rolls out
+    num_eval_iterations: int = 30  # unmask iterations per frame
     p_max_uniform: float = 0.1
     log_interval: int = 10
     # "deferred" or "sync": the port reads each step's stats on the host,
     # so both modes log the step's own values (JAX's "sync" behaviour)
     log_fence: str = "deferred"
-    # sampler-weight histograms go to the metric logger: not ported
-    histogram_interval: int = 50
+    histogram_interval: int = 50  # sampler-weight histograms (main2.py:298)
     timing_report: str = ""  # not ported
     probe_interval: int = 200  # timing-report probes: not ported
 
@@ -149,8 +162,8 @@ class VideoDiffusionConfig:
     checkpoint: str = ""
     # weights-only warm start: params/EMA, fresh optimizer/sampler, step 0
     init_from: str = ""
-    eval: bool = False  # not ported
-    topk: int = -1  # evaluation sampling: not ported
+    eval: bool = False  # evaluate the --checkpoint's weights once, and exit
+    topk: int = -1  # evaluation sampling: top-k logits (-1 = off)
 
 
 # flags kept for parity with the JAX CLI whose features are not ported:
@@ -159,12 +172,7 @@ _UNPORTED_FIELDS = {
     "data_workers": ("grain worker processes", "A.8"),
     "buffer_size": ("the Minecraft dataset's shuffle buffer", "A.8"),
     "skip_frames": ("the Minecraft dataset's frame skip", "A.8"),
-    "histogram_interval": ("sampler-weight histograms (the metric logger)", "A.8"),
     "probe_interval": ("the timing report's device probes", "A.8"),
-    "topk": ("evaluation sampling", "A.2"),
-    "eval_timesteps": ("evaluation rollouts", "A.2"),
-    "eval_batch_size": ("evaluation rollouts", "A.2"),
-    "num_eval_iterations": ("evaluation rollouts", "A.2"),
 }
 
 
@@ -174,8 +182,6 @@ def check_supported(cfg: VideoDiffusionConfig) -> None:
     if cfg.log_fence not in ("deferred", "sync"):
         raise ValueError(
             f"--log_fence must be 'deferred' or 'sync', got {cfg.log_fence!r}")
-    if cfg.eval:
-        raise unported("--eval (rollout evaluation and artifacts)", "A.2")
     if cfg.dataset != "moving_mnist":
         raise unported(f"--dataset {cfg.dataset}", "A.8")
     if cfg.data_pipeline != "native":
@@ -426,6 +432,72 @@ def checkpoint_restorer(saver: AsyncCheckpointSaver, state: TrainState, cfg):
     return restore_latest
 
 
+def evaluate_and_save(
+    *,
+    cfg: VideoDiffusionConfig,
+    model: VqVideoDiffusionModel,
+    weights: Optional[Dict[str, torch.Tensor]],
+    tok: VQAutoEncoder,
+    clip_fn: Callable[[int], np.ndarray],
+    generator: torch.Generator,
+    tag: str,
+    step: int,
+    logger: Optional[MetricLogger] = None,
+    save_frames: bool = False,
+) -> str:
+    """Rollout, decode and artifacts (JAX ``evaluate_and_save``,
+    cli/video_diffusion.py:300-368; main2.py:59-146).
+
+    Encodes ``eval_batch_size`` clips of ``clip_fn``, rolls out
+    ``eval_timesteps`` frames (``num_eval_iterations`` unmask iterations,
+    top-k ``topk``) with the denoiser in eval mode, with ``weights`` (e.g.
+    the EMA's) in place of its own parameters when given, and noise from
+    ``generator``; decodes, and writes the PNG grid (one row per frame, the
+    seed frame first, one column per clip) and a GIF of its rows at 4 fps
+    under ``cfg.output_dir`` (with ``save_frames``, one PNG per row too).
+    ``logger`` records the grid (``log_image``). Returns the PNG's path."""
+    frames = as_frames(torch.from_numpy(clip_fn(cfg.eval_batch_size)).to(tok.device))
+    b, s, hh, ww, c = frames.shape
+    tokens = tok.encode(frames.reshape(b * s, hh, ww, c))
+    tokens = tokens.reshape(b, s, *tokens.shape[1:])
+    if weights is None:
+        logits_fn = model
+    else:
+        def logits_fn(z):
+            return torch.func.functional_call(model, weights, (z,))
+    k = tok.num_embeddings
+    with torch.no_grad(), eval_mode(model):
+        gen_tokens = rollout_frames(
+            logits_fn, tokens, num_frames=cfg.eval_timesteps, num_classes=k,
+            mask_token=k, num_iterations=cfg.num_eval_iterations,
+            sample_topk=cfg.topk, generator=generator,
+        )  # (B, T, h, w)
+    t = gen_tokens.shape[1]
+    decoded = tok.decode(gen_tokens.reshape(b * t, *gen_tokens.shape[2:]))
+    decoded = decoded.float().cpu().numpy().reshape(b, t, *decoded.shape[1:])
+    seed_frame = frames[:, -1].float().cpu().numpy()
+
+    # one row per frame, the clips across (eval_model_and_save's layout)
+    all_frames = np.concatenate([seed_frame[:, None], decoded], axis=1)
+    grid = make_grid(
+        all_frames.transpose(1, 0, 2, 3, 4).reshape(-1, *all_frames.shape[2:]),
+        nrow=b,
+    )
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    fn = os.path.join(cfg.output_dir, f"{cfg.name}_eval_{step:07d}_{tag}.png")
+    save_image(grid, fn)
+    rows = [make_grid(all_frames[:, i], nrow=b) for i in range(t + 1)]
+    save_gif(rows, fn[: -len(".png")] + ".gif", fps=4)
+    if save_frames:
+        for i, row in enumerate(rows):
+            save_image(row, os.path.join(
+                cfg.output_dir, f"{cfg.name}_{tag}_frame_{i:04d}.png"))
+    if logger is not None:
+        logger.log_image(step, f"reconstruction_{tag}", grid)
+    print("eval artifact:", fn)
+    return fn
+
+
 @dataclasses.dataclass
 class TrainResult:
     state: TrainState
@@ -433,13 +505,17 @@ class TrainResult:
     history: List[Tuple[int, float, float, bool, float]]
     rejected: int
     token_shape: Tuple[int, int, int]
+    # per evaluation: (step, tag, PNG path, wall seconds)
+    evals: List[Tuple[int, str, str, float]]
 
 
 def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
-    """Train as the JAX ``train`` does; returns the final state and each
-    step's (loss, grad norm, ok). ``backend`` is the denoiser's attention
-    backend (``"fused"``: the whole block in one kernel); the JAX trainer
-    has no flag for it, so it is a keyword here, not a config field."""
+    """Train as the JAX ``train`` does (or, with ``cfg.eval``, evaluate the
+    ``cfg.checkpoint``'s weights once); returns the final state, each
+    step's (loss, grad norm, ok) and the evaluations written. ``backend``
+    is the denoiser's attention backend (``"fused"``: the whole block in
+    one kernel); the JAX trainer has no flag for it, so it is a keyword
+    here, not a config field."""
     check_supported(cfg)
     device = platform_device(cfg.platform)
     if not cfg.decoder_model:
@@ -454,6 +530,10 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
         tokenizer_inference_cast(tok)
     num_embeddings = tok.num_embeddings
     clip_fn, _ = build_clip_fn(cfg, cfg.manual_seed)
+    # evaluation draws clips from a stream of its own (the training stream
+    # belongs to the prefetch thread) and noise from a generator of its own
+    eval_clip_fn, _ = build_clip_fn(cfg, cfg.manual_seed + 101)
+    eval_gen = torch.Generator(device=device).manual_seed(cfg.manual_seed + 101)
 
     # probe the token-grid shape from one encoded clip (main2.py:399-404)
     probe = as_frames(torch.from_numpy(clip_fn(1)).to(device))
@@ -470,23 +550,36 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     model = make_model(cfg, token_shape, num_embeddings, device, backend)
     print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
     state = init_state(cfg, model)
-    if cfg.init_from:
+    lr_of = host_schedule(state.optimizer.schedule)
+    if cfg.init_from and not cfg.eval:
         restored, at_step, _ = restore_checkpoint(cfg.init_from)
         state.load_weights(restored)
         print(f"warm start from {cfg.init_from} (step {at_step} weights; "
               "fresh optimizer, step 0)")
+    evals: List[Tuple[int, str, str, float]] = []
+    if cfg.eval:
+        # eval-only: the checkpoint's weights suffice (as JAX, :469-535);
+        # unlike the JAX CLI, the grid also goes to the metric log
+        if cfg.checkpoint:
+            restored, state.step, _ = restore_checkpoint(cfg.checkpoint)
+            model.load_state_dict(restored["params"], strict=True)
+            print(f"evaluating {cfg.checkpoint} (step {state.step})")
+        logger = MetricLogger(cfg.output_dir, cfg.name)
+        try:
+            te = time.perf_counter()
+            path = evaluate_and_save(
+                cfg=cfg, model=model, weights=None, tok=tok, clip_fn=clip_fn,
+                generator=torch.Generator(device=device).manual_seed(cfg.manual_seed),
+                tag="base", step=state.step, logger=logger, save_frames=True)
+            evals.append((state.step, "base", path, time.perf_counter() - te))
+        finally:
+            logger.close()
+        return TrainResult(state, [], 0, token_shape, evals)
     if cfg.checkpoint:
         restored, at_step, _ = restore_checkpoint(cfg.checkpoint)
         state.load_state_dict(restored, at_step)
         print(f"resumed from {cfg.checkpoint} at step {at_step}")
     start_step = state.step
-    if cfg.eval_interval and (
-        (start_step // cfg.eval_interval + 1) * cfg.eval_interval
-        <= cfg.max_steps
-    ):
-        raise unported(
-            f"evaluation at eval_interval={cfg.eval_interval} (pass "
-            "--eval_interval 0 to train without it)", "A.2")
 
     config = config_to_dict(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.manual_seed)
@@ -494,12 +587,15 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     n_buckets = state.sampler.weights.shape[0]
     batches = PrefetchIterator(
         lambda: clip_fn(cfg.batch_size), depth=2, device=device)
+    logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+                          project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
     # JAX trainer samples the flag at log points)
     guard = CheckpointGuard(checkpoint_restorer(saver, state, cfg))
     history: List[Tuple[int, float, float, bool, float]] = []
     rejected = 0
+    t0 = time.time()
     try:
         while state.step < cfg.max_steps:
             frames = next(batches)
@@ -514,18 +610,35 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
                 print(f"{step}: step REJECTED (non-finite loss/grads)")
             guard.record(accepted, step)
             if step % cfg.log_interval == 0 or step == start_step + 1:
-                lr = state.optimizer.schedule(step)
-                print(f"{step}: loss {loss:.3e} lr {lr:.3e} "
+                dt, t0 = time.time() - t0, time.time()
+                m = {"loss": loss, "grad_norm": gn, "lr": lr_of(step),
+                     "steps_per_sec": cfg.log_interval / max(dt, 1e-9)}
+                logger.log(step, **m)
+                print(f"{step}: loss {loss:.3e} lr {m['lr']:.3e} "
                       f"grad_norm {gn:.3e}")
+            if cfg.histogram_interval and step % cfg.histogram_interval == 0:
+                logger.log_histogram(step, "sampler_weights",
+                                     loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                 path = saver.save(cfg.output_dir, step, state.state_dict(), config)
                 print("checkpoint:", path)
+            if cfg.eval_interval and step % cfg.eval_interval == 0:
+                for tag, weights in (("base", None), ("ema", state.ema)):
+                    if tag == "ema" and weights is None:
+                        continue
+                    te = time.perf_counter()
+                    path = evaluate_and_save(
+                        cfg=cfg, model=model, weights=weights, tok=tok,
+                        clip_fn=eval_clip_fn, generator=eval_gen, tag=tag,
+                        step=step, logger=logger)
+                    evals.append((step, tag, path, time.perf_counter() - te))
     finally:
         try:
             saver.wait()  # the last save must land before exit
         finally:
             batches.close()
-    return TrainResult(state, history, rejected, token_shape)
+            logger.close()
+    return TrainResult(state, history, rejected, token_shape, evals)
 
 
 def main(argv=None):

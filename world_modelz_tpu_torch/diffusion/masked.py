@@ -113,12 +113,15 @@ def unmask_step(
     num_iterations: int,
     mask_token: int,
     sample_topk: int = -1,
+    topk_from_iteration: int = 1,
 ) -> torch.Tensor:
     """One unmask step (main2.py:89-124): draw a last frame from ``logits``
     with the given Gumbel noise, re-mask where ``uniform > alpha``, and
     return the new token grid (the model is queried by the caller). Top-k
-    filtering applies from iteration 1 on (main2.py:97-98)."""
-    if sample_topk > 0 and iteration >= 1:
+    filtering applies from iteration ``topk_from_iteration`` on
+    (main2.py:97-98; the MovingMNIST variant applies it from iteration 0,
+    main.py:83-84)."""
+    if sample_topk > 0 and iteration >= topk_from_iteration:
         logits = top_k_logits(logits, sample_topk)
     draw = (logits + gumbel).argmax(-1)
     # alpha as f32 division, as the JAX loop computes it
@@ -138,6 +141,7 @@ def unmask_frame(
     mask_token: int,
     num_iterations: int = 30,
     sample_topk: int = -1,
+    topk_from_iteration: int = 1,
     noise: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
 ) -> torch.Tensor:
     """Iteratively denoise the (masked) last frame of a token-grid clip.
@@ -163,7 +167,7 @@ def unmask_frame(
             i, batch_z, logits, gumbel.reshape(b, h, w, num_classes),
             uniform.reshape(b, h, w),
             num_iterations=num_iterations, mask_token=mask_token,
-            sample_topk=sample_topk,
+            sample_topk=sample_topk, topk_from_iteration=topk_from_iteration,
         )
         # f32: the sampling math stays full precision whatever the model's
         # compute dtype
@@ -180,6 +184,7 @@ def rollout_frames(
     mask_token: int,
     num_iterations: int = 30,
     sample_topk: int = -1,
+    topk_from_iteration: int = 1,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Noise] = None,
 ) -> torch.Tensor:
@@ -207,6 +212,7 @@ def rollout_frames(
             logits_fn, context,
             num_classes=num_classes, mask_token=mask_token,
             num_iterations=num_iterations, sample_topk=sample_topk,
+            topk_from_iteration=topk_from_iteration,
             noise=lambda i, t=t: noise(t, i),
         )
         frames.append(frame)

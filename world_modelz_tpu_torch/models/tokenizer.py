@@ -169,11 +169,18 @@ class VQAutoEncoder(nn.Module):
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) images -> (B, h, w) int32 tokens."""
-        x = torch.as_tensor(x, device=self.device)
-        h = self.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        h = self.encode_continuous(x)
         flat = h.reshape(-1, self.embedding_dim).contiguous()
         idx = vq_encode_nearest(flat, self.vq.embedding[0])
         return idx.reshape(h.shape[:-1])
+
+    @torch.no_grad()
+    def encode_continuous(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) images -> the pre-quantization encoder latents
+        (B, h, w, D), as ``encode`` runs the encoder: the learned feature
+        space of the FVD harness's ``tokenizer`` extractor."""
+        x = torch.as_tensor(x, device=self.device)
+        return self.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor) -> torch.Tensor:

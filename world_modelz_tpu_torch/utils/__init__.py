@@ -1,5 +1,6 @@
-"""Host utilities: dataclass CLI configs, image grids and PNGs, the JSONL
-metric logger."""
+"""Host utilities: dataclass CLI configs, image grids, PNGs and GIFs, the
+JSONL metric logger, evaluation metrics (PSNR, SSIM, codebook usage) and
+the FVD harness (``utils.fvd``)."""
 
 from world_modelz_tpu_torch.utils.config import (
     config_from_dict,
@@ -7,8 +8,15 @@ from world_modelz_tpu_torch.utils.config import (
     dataclass_cli,
     str2bool,
 )
-from world_modelz_tpu_torch.utils.image import make_grid, save_image
+from world_modelz_tpu_torch.utils.image import (
+    make_grid,
+    read_gif,
+    read_png,
+    save_gif,
+    save_image,
+)
 from world_modelz_tpu_torch.utils.logging import MetricLogger
+from world_modelz_tpu_torch.utils.metrics import codebook_usage, psnr, ssim
 
 __all__ = [
     "dataclass_cli",
@@ -17,5 +25,11 @@ __all__ = [
     "str2bool",
     "make_grid",
     "save_image",
+    "save_gif",
+    "read_png",
+    "read_gif",
     "MetricLogger",
+    "psnr",
+    "ssim",
+    "codebook_usage",
 ]
