@@ -135,6 +135,9 @@ BLOCK_CASES = [
 ]
 
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
+# the f32 local3d_fwd kernels, by the launch log's name: the cluster kernel
+# at head sizes 64 and 128, one warp a query at the others
+F32_CLUSTER, F32_CORES = "local3d_fwd_cluster_kernel<", "local3d_fwd_kernel<float"
 # backward kernels vs plain, times max(1, max |grad|): f32 sums in another
 # order
 BWD_F32_TOL = 1e-4
@@ -373,6 +376,39 @@ def local3d_executed_ops(b, s, h, w, heads, dh, extents) -> int:
     return keys * b * heads * 3 * 2 * 16 * dh
 
 
+def local3d_cluster_executed_ops(b, s, h, w, heads, dh, extents, step_keys) -> int:
+    """The products the f32 cluster local3d_fwd executes (2 flops per
+    multiply-add, f32 FMAs): per 64-query tile, frame of the window and
+    staged step of ``step_keys`` keys of the tile's key band, each group of
+    8 lanes serves two neighbouring queries and walks the keys of the box
+    that holds both windows in that step, both queries scoring every key;
+    a warp's 4 groups walk as many 4-key batches as the group with the most
+    keys needs, so q k is taken for every key of those batches, P V for
+    the group's own keys (csrc/local3d_fwd.cu:local3d_fwd_cluster_kernel)."""
+    es, eh, ew = extents
+    hw = h * w
+    macs = 0  # multiply-adds of one (batch, head), over its frames' windows
+    for f in range(s):
+        frames = min(f + es, s - 1) - max(f - es, 0) + 1
+        for p0 in range(0, hw, 64):
+            p1 = min(p0 + 64, hw)
+            lo = max(p0 // w - eh, 0) * w
+            hi = (min((p1 - 1) // w + eh, h - 1) + 1) * w
+            boxes = []  # each group's box: rows, first and last column
+            for g in range(32):
+                hq, wq = zip(*(divmod(min(p0 + 2 * g + i, p1 - 1), w) for i in range(2)))
+                boxes.append((range(max(min(hq) - eh, 0), min(max(hq) + eh, h - 1) + 1),
+                              max(min(wq) - ew, 0), min(max(wq) + ew, w - 1)))
+            for t0 in range(lo, hi, step_keys):
+                t1 = min(t0 + step_keys, hi)
+                n = [sum(max(min(t1, r * w + c1 + 1) - max(t0, r * w + c0), 0)
+                         for r in rows) for rows, c0, c1 in boxes]
+                for warp in range(8):
+                    most = max(n[4 * warp: 4 * warp + 4])
+                    macs += frames * (4 * -(-most // 4) * 4 + sum(n[4 * warp: 4 * warp + 4]))
+    return macs * b * heads * 2 * dh * 2
+
+
 def local3d_bwd_executed_ops(b, s, h, w, heads, dh, extents, partial_rows=0):
     """The products the tensor-core backward pair executes (2 flops per
     multiply-add), as (pass 1, pass 2): each block of 64 rows (64 positions
@@ -454,15 +490,22 @@ def check_local3d(torch, dev):
     """Kernel A against its plain version, ``local3d_attention_rounded``
     fed the same operands, at the serving, training and a multi-head
     asymmetric shape, at 34-frame clips (which the TPU forward normalises
-    P for), and at 16 x 16 frames at batch 8 and 2 (blocks of 32 queries,
-    with one and two groups of warps), and at head size 32 in both of the
-    TPU's rounding routes, in f32 (the CUDA-core kernel) and bf16 (the
+    P for), at 16 x 16 frames at batch 8 and 2 (blocks of 32 queries,
+    with one and two groups of warps), at a 12-frame clip with a frame
+    extent of 5 (a window of 11 frames: more than a cluster's 8 CTAs, so
+    a CTA takes several), at 64 x 32 frames (which the TPU forward takes
+    H-tiled in f32: `_attn_kernel_tiled`; key bands of 128 keys, two steps),
+    and at head size 32 in both of the TPU's rounding routes, in f32 (the
+    cluster kernel at dh 64 and 128, one warp a query at 32) and bf16 (the
     tensor-core kernel at dh 64 and 128, the rounding CUDA-core kernel at
-    32, both rounding P where the TPU kernel does). bf16 must lie within
-    FWD_BF16_TOL x max |out| and be
-    at least FWD_BF16_EQUAL bitwise equal, f32 within F32_TOL; two
-    launches must be bitwise equal. Returns the serving-shape records, bf16
-    (the serving path's) and f32 (the rollout CLI's)."""
+    32, both rounding P where the TPU kernel does).
+    The launch log must name the kernel each f32 case expects. bf16 must
+    lie within FWD_BF16_TOL x max |out| and be at least FWD_BF16_EQUAL
+    bitwise equal, f32 within F32_TOL; two launches must be bitwise equal.
+    Logs each case's time, bounds (bytes and operations) and share of the
+    bound, and the products each kernel executes.
+    Returns the serving-shape records, bf16 (the serving path's) and f32
+    (the rollout CLI's)."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.kernels import local3d as kl
@@ -477,6 +520,8 @@ def check_local3d(torch, dev):
         ("multihead", (8, 6, 8, 8), 2, 64, (1, 2, 1)),
         ("clip34", (2, 34, 8, 8), 1, 128, (3, 1, 1)),
         ("clip34_multihead", (2, 34, 8, 8), 2, 64, (1, 2, 1)),
+        ("frames12_es5", (2, 12, 8, 8), 1, 128, (5, 1, 1)),
+        ("frames64x32_tiled", (1, 2, 64, 32), 1, 128, (3, 1, 1)),
         ("multihead_dh32", (8, 6, 8, 8), 2, 32, (1, 2, 1)),
         ("clip34_dh32", (2, 34, 8, 8), 2, 32, (1, 1, 1)),
     ]
@@ -511,6 +556,10 @@ def check_local3d(torch, dev):
             tensor_cores = any("mma" in n for n in ran)
             if name == "train_m3_b64" and bf16 and not tensor_cores:
                 raise AssertionError(f"local3d {name} bf16 ran {ran}, not the tensor cores")
+            if not bf16:
+                want = F32_CLUSTER if dh in (64, 128) else F32_CORES
+                if not all(n.startswith(want) for n in ran):
+                    raise AssertionError(f"local3d {name} float32 ran {ran}, not {want}")
             ms = device_ms(torch, kernel, 100)
             launch_ms = cuda_ms(torch, kernel, 200)
             plain_ms = device_ms(torch, lambda: local3d_attention_rounded(
@@ -532,13 +581,23 @@ def check_local3d(torch, dev):
                 done = local3d_executed_ops(b, s, h, w, heads, dh, ext)
                 executed = (f" executed {done / ops:.3f}x the window's products "
                             f"({done / ms / 1e9:.2f} TFLOP/s)")
+            elif not bf16 and dh in (64, 128):
+                # the stages are the launch log's second template argument
+                stages = int(ran[0].rstrip(">").split(",")[-1])
+                done = local3d_cluster_executed_ops(b, s, h, w, heads, dh, ext,
+                                                    96 if stages == 2 else 64)
+                executed = (f" executed {done / ops:.3f}x the window's products "
+                            f"in f32 FMAs ({done / ms / 1e9:.2f} TFLOP/s)")
             log(f"local3d_fwd {name} {tname} {shape} extents={ext} kernel={ran} "
                 f"(divide_after={divide_after}): max_abs_err={err:.3g} (tol "
                 f"{lim:.3g}) bitwise_equal={equal:.5f}; repeat bitwise; "
                 f"kernel_ms={ms:.5f} ({ops / ms / 1e9:.2f} TFLOP/s;{executed}) "
                 f"back_to_back_ms={launch_ms:.5f} plain_ms={plain_ms:.5f} "
                 f"library_ms={lib_ms:.5f} (kernel/SDPA {ms / lib_ms:.4f}) "
-                f"bound_us={bound_ms * 1e3:.4f} ({bound_by})")
+                f"bound_us={bound_ms * 1e3:.4f} ({bound_by}; bytes "
+                f"{nbytes / HBM_BYTES_PER_S * 1e6:.4f}, operations "
+                f"{ops / PEAK_OPS_PER_S[tname] * 1e6:.4f}) share of the bound "
+                f"{bound_ms / ms:.4f}")
             if name == "serving":
                 serving[tname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
@@ -1634,11 +1693,11 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
     iterations, top-k 25) with the gt metrics. Gates: the files land, each
     GIF decodes to its PNG grids bit for bit, FVD, PSNR and SSIM are finite
     (lo <= fvd <= hi), the exact launch counts, and on the card the launch
-    log names the f32 ``local3d_fwd_kernel``. Logs the wall and clips/s of
-    a batch, its device time and busy share, the tiny features card vs
-    CPU, and the share of tokens the tokenizer's encode keeps with cuDNN
-    TF32 on and off, with FVD and PSNR under both. Returns the launch
-    counts of the four runs, summed."""
+    log names the f32 ``local3d_fwd_cluster_kernel`` alone. Logs the wall
+    and clips/s of a batch, its device time and busy share, the tiny
+    features card vs CPU, and the share of tokens the tokenizer's encode
+    keeps with cuDNN TF32 on and off, with FVD and PSNR under both. Returns
+    the launch counts of the four runs, summed."""
     import dataclasses
 
     import numpy as np
@@ -1722,9 +1781,9 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
                     return ro_obj.model(torch.zeros(
                         (b, *ro_obj.token_shape), dtype=torch.long, device=dev))
             names = kernels_run(torch, forward, launches=depth)
-            if not names or not all(n.startswith("local3d_fwd_kernel<float") for n in names):
+            if not names or not all(n.startswith(F32_CLUSTER) for n in names):
                 raise AssertionError(f"the rollout's denoiser launched {names}, not "
-                                     "the f32 local3d_fwd_kernel alone")
+                                     f"{F32_CLUSTER} alone")
             log(f"rollout: the launch log names {sorted(set(names))} "
                 f"({len(names)} launches for one forward of {depth} layers)")
             profile_busy(torch, f"one rollout batch (reference, f32, {b} clips)",
@@ -1775,6 +1834,54 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
     log(f"rollout and evaluation phase: {time.perf_counter() - t_phase:.1f} s")
     return {key: sum(c.get(key, 0) for c in counts.values())
             for key in set().union(*counts.values())}
+
+
+def time_rollout_batch(torch, dev, train=TRAIN, rollout=ROLLOUT, reps=5) -> float:
+    """One reference-preset rollout batch of the f32 denoiser
+    (``rollout_frames``, which ``cli.rollout`` runs between the tokenizer's
+    encode and decode) at random weights and seed tokens from a seed: the
+    median wall of ``reps`` batches after one that warms up, then its
+    device time and busy share (``profile_busy``). Gates nothing (those of
+    the rollout are ``drive_rollout``'s); it times one tree against another
+    (``chip_ab.py --phase time_rollout_batch --phase-here``). Returns the
+    median wall in seconds."""
+    from world_modelz_tpu_torch.cli.rollout import SAMPLER_PRESETS
+    from world_modelz_tpu_torch.cli.video_diffusion import VideoDiffusionConfig, make_model
+    from world_modelz_tpu_torch.diffusion import rollout_frames
+
+    preset = SAMPLER_PRESETS["reference"]
+    k = TOKENIZER["num_embeddings"]
+    shape = (SEQ, GRID, GRID)
+    b, frames = rollout["batch_size"], rollout["num_frames"]
+    torch.manual_seed(0)
+    model = make_model(VideoDiffusionConfig(**train), shape, k, dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, k, (b, *shape), generator=gen, device=dev)
+
+    def batch():
+        with torch.no_grad():
+            out = rollout_frames(model, tokens, num_frames=frames, num_classes=k,
+                                 mask_token=k, num_iterations=preset["num_eval_iterations"],
+                                 sample_topk=preset["topk"], generator=gen)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    if tuple(batch().shape) != (b, frames, *shape[1:]):
+        raise AssertionError("rollout_frames returned another shape")
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        batch()
+        walls.append(time.perf_counter() - t0)
+    med = sorted(walls)[len(walls) // 2]
+    log(f"rollout batch (reference, f32, random weights): {b} clips x {frames} frames, "
+        f"{preset['num_eval_iterations']} iterations, walls "
+        + " ".join(f"{x:.4f}" for x in walls) + f" s, median {med:.4f} s")
+    if dev.type == "cuda":
+        profile_busy(torch, f"one rollout batch (reference, f32, random weights, {b} clips)",
+                     batch, med, reps)
+    return med
 
 
 def check_rollout_files(cfg, res) -> None:
