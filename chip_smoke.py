@@ -11,7 +11,10 @@ denoisers' parameter gradients through the backward kernels), drives the serving
 (``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
 steps, drives the rollout CLI (``cli.rollout.run``: the f32 denoiser of
 that run's checkpoint, PNGs, GIF, FVD with both extractors, PSNR/SSIM)
-and the trainer's ``--eval`` on it, drives serving and training again with
+and the trainer's ``--eval`` on it, exports that checkpoint
+(``cli.export_rollout``) and serves the artifact over HTTP
+(``cli.serve_http``: its programs captured as CUDA graphs, held bitwise to
+the live service, timed against it), drives serving and training again with
 the whole-block fused attention
 (``backend="fused"``, the ``local3d_block`` kernel), drives the tokenizer
 trainer (``cli.train_vqae.train``) at ``train_vqae/mnist_b96`` for 200
@@ -2431,6 +2434,270 @@ def profile_sparse(torch, dev, cfg, result, tok, n=5, eval_iters=5) -> None:
                  f"incl.)", sweep, time.perf_counter() - t0, 1)
 
 
+# serving from an exported artifact (cli.export_rollout, then
+# cli.serve_http --exported) on drive_training's step-60 checkpoint:
+# serve/m3_g8's batch of 8, 8 frames, 30 iterations, top-k off; ladder
+# [1, 2, 4, 8]; the denoiser in f32, as a checkpoint is served
+SERVE_HTTP = dict(batch_size=8, num_frames=8, num_iterations=30, topk=-1)
+# the runtime calls that put work on the device, counted in a profile's
+# host events: each kernel launch, graph launch, copy and fill
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def kernel_counts(prof, names):
+    """Instances of each kernel of ``names`` (``name<args>``) among a
+    profile's device events."""
+    import re
+
+    seen = dict.fromkeys(names, 0)
+    for e in device_kernels(prof):
+        m = re.search(r"(\w+(?:<[^()]*>)?)\(", e.key)
+        if m and m.group(1) in seen:
+            seen[m.group(1)] += e.count
+    return seen
+
+
+def drive_serving_http(torch, dev, launches, smi, train=TRAIN, serve=SERVE_HTTP,
+                       root=os.path.join(HERE, "build", "smoke"), img=IMG,
+                       rounds=("live", "programs", "programs", "live")):
+    """Serving from an exported artifact behind the HTTP front end (A.4), on
+    ``drive_training``'s final checkpoint under ``root``:
+    ``cli.export_rollout`` writes the artifact (``root/serve_artifact``),
+    ``cli.serve_http.build_service(exported=...)`` loads it (on the card:
+    each ladder size's programs captured as CUDA graphs, capture times
+    logged) and a live ``RolloutService`` restores the same checkpoint.
+    Gates: at every ladder size the programs' encode and rollout equal the
+    live service's, tokens, context and pixels bitwise, from generators of
+    one seed; over HTTP with a bearer token, 8 concurrent generates (shapes,
+    finite pixels, coalesced in ``stats``), one session (two generates, the
+    DELETE; its tokens in [0, K)), healthz, stats and a 401 without the
+    token; on the card, the graphs captured what each program must launch,
+    no kernel launched outside a graph, and over one 8-clip batch the
+    profiler counts each kernel's instances as captured x replays. Logs one
+    8-clip batch of each service in the rounds ``rounds`` (A, B, B, A):
+    wall, device time, busy share and the host's launch calls. Runs under
+    PyTorch's default TF32 settings (cuDNN on), both services alike.
+    Returns (the launch counts of the HTTP traffic, the record of the
+    graphs for the kernels line)."""
+    import collections
+    import shutil
+    import threading
+    import urllib.error
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from world_modelz_tpu_torch.cli import export_rollout
+    from world_modelz_tpu_torch.cli import serve_http as serve_cli
+    from world_modelz_tpu_torch.serve import RolloutService
+    from world_modelz_tpu_torch.serve_http import (
+        HTTPSession,
+        RolloutHTTPServer,
+        _request,
+        http_generate,
+    )
+    from world_modelz_tpu_torch.train import latest_checkpoint
+
+    on_card = dev.type == "cuda"
+    platform = "" if on_card else dev.type
+    device = None if on_card else dev
+    ckpt = latest_checkpoint(os.path.join(root, "run"))
+    out = os.path.join(root, "serve_artifact")
+    shutil.rmtree(out, ignore_errors=True)
+    depth, b = train["depth"], serve["batch_size"]
+    frames, iters = serve["num_frames"], serve["num_iterations"]
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    services, server = [], None
+    try:
+        meta = export_rollout.run(export_rollout.ExportRolloutConfig(
+            checkpoint=ckpt, out=out, platform=platform, num_frames=frames,
+            num_iterations=iters, topk=serve["topk"], batch_size=b))
+        t0 = time.perf_counter()
+        svc, tag = serve_cli.build_service(serve_cli.ServeHTTPConfig(
+            exported=out, platform=platform, batch_size=b, manual_seed=0))
+        services.append(svc)
+        progs = svc._aot
+        log(f"serving_http: exported {tag} (sizes {meta['sizes']}, token grid "
+            f"{meta['token_hw']}, K {meta['num_embeddings']}); loaded in "
+            f"{time.perf_counter() - t0:.3f} s; capture s by size "
+            + " ".join(f"{s}: {progs.capture_seconds.get(s, math.nan):.3f}"
+                       for s in progs.sizes))
+        k = meta["num_embeddings"]
+        if on_card:
+            want = {"encode": ({"vq_encode": 1},
+                               {"vq_prep_kernel": 1, "vq_encode_kernel<float>": 1}),
+                    "step": ({"local3d_fwd": depth}, None), "finish": ({}, {})}
+            for (name, size), (wrappers, kernels) in sorted(progs.captured.items()):
+                want_w, want_k = want[name]
+                f32 = sum(n for key, n in kernels.items() if key.startswith(F32_CLUSTER))
+                if dict(wrappers) != want_w or (
+                        dict(kernels) != want_k if want_k is not None
+                        else f32 != depth or len(kernels) != 1):
+                    raise AssertionError(
+                        f"serving_http: the {name} graph at batch {size} captured "
+                        f"{dict(wrappers)} / {dict(kernels)}")
+                log(f"serving_http: graph {name} b={size}: {dict(kernels)}")
+
+        tok, model, _, _ = export_rollout.restore_denoiser(ckpt, False, device)
+        live = RolloutService(tok, model, num_frames=frames, num_iterations=iters,
+                              sample_topk=serve["topk"], batch_size=b,
+                              device=device, seed=0)
+        services.append(live)
+        s = meta["seed_frames"]
+        clips = np.random.default_rng(5).uniform(
+            size=(b, s, img, img, meta["channels"])).astype(np.float32)
+        for size in progs.sizes:
+            seeds = clips[:size]
+            tokens = live._encode_call(seeds)
+            got_tokens = progs.encode(seeds)
+            live._generator.manual_seed(100 + size)
+            pix, ctx = live._rollout_call(tokens)
+            gen = torch.Generator(device=progs.device).manual_seed(100 + size)
+            got_pix, got_ctx = progs.rollout(tokens, generator=gen)
+            if not (np.array_equal(got_tokens, tokens) and np.array_equal(got_ctx, ctx)
+                    and np.array_equal(got_pix, pix)):
+                raise AssertionError(
+                    f"serving_http: programs differ from the live service at batch "
+                    f"{size}: tokens {int((got_tokens != tokens).sum())}, context "
+                    f"{int((got_ctx != ctx).sum())} differ; pixels max "
+                    f"{float(np.abs(got_pix - pix).max())}")
+            if ctx.min() < 0 or ctx.max() >= k or not np.isfinite(pix).all():
+                raise AssertionError(f"serving_http: batch {size}: tokens out of "
+                                     f"[0, {k}) or pixels not finite")
+        log(f"serving_http: programs == live service bitwise (tokens, context, "
+            f"pixels) at sizes {progs.sizes}")
+
+        token = "smoke-token"
+        server = RolloutHTTPServer(svc, port=0, auth_token=token).start()
+        url = f"http://127.0.0.1:{server.port}"
+        outs = [None] * b
+        before = dict(svc.stats)
+        launches.clear()
+        progs.launches.clear()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i: outs.__setitem__(
+            i, http_generate(url, clips[i], timeout=600, token=token)), args=(i,))
+            for i in range(b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_http = time.perf_counter() - t0
+        with HTTPSession(url, clips[0], timeout=600, token=token) as sess:
+            seg = [sess.generate(), sess.generate()]
+            ctx = np.asarray(server._get_session(sess.session_id)._ctx)
+        counts = dict(progs.launches)
+        outside = {key: n for key, n in launches.items() if n}
+        health = _request(f"{url}/healthz")
+        stats = _request(f"{url}/stats", headers={"Authorization": f"Bearer {token}"})
+        try:
+            _request(f"{url}/stats")
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        delta = {key: svc.stats[key] - before[key] for key in before}
+        for o in outs + seg:
+            if o is None or o.shape != (frames, img, img, meta["channels"]) or not (
+                    np.isfinite(o).all() and np.abs(o).max() <= 1e4):
+                raise AssertionError("serving_http: an output's shape or pixels")
+        if ctx.min() < 0 or ctx.max() >= k:
+            raise AssertionError(f"serving_http: session tokens outside [0, {k})")
+        if (health != {"ok": True} or refused != 401 or stats["open_sessions"] != 0
+                or delta["requests"] != b + 2 or delta["session_rows"] != 2
+                or not delta["batches"] - 2 < b):
+            raise AssertionError(f"serving_http: healthz {health}, no-token status "
+                                 f"{refused}, stats {stats}, delta {delta}")
+        want = {"local3d_fwd": depth * iters * frames * delta["batches"],
+                "vq_encode": delta["encode_calls"]}
+        for key, n in want.items() if on_card else ():
+            if counts.get(key, 0) != n:
+                raise AssertionError(f"serving_http: {key} replayed {counts.get(key, 0)} "
+                                     f"launches, expected {n}")
+        if on_card and outside:
+            raise AssertionError(f"serving_http: kernels launched outside a graph: {outside}")
+        log(f"serving_http: {b} concurrent HTTP generates in {t_http:.3f} s, a session "
+            f"of 2 generates; stats delta {delta}; healthz {health}; no token: "
+            f"{refused}; launches (captured x replays) {counts}, outside a graph "
+            f"{outside}; pixel range [{min(o.min() for o in outs):.4g}, "
+            f"{max(o.max() for o in outs):.4g}]")
+
+        def one_batch(service):
+            futs = [service.submit(c) for c in clips]
+            res = [f.result(timeout=600) for f in futs]
+            if not all(np.isfinite(r).all() for r in res):
+                raise AssertionError("serving_http: pixels not finite")
+
+        record = dict(launches=counts.get("local3d_fwd", 0),
+                      capture_s={str(size): round(t, 4)
+                                 for size, t in progs.capture_seconds.items()})
+        if on_card:
+            for attempt in range(3):
+                progs.kernel_launches.clear()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    one_batch(svc)
+                    torch.cuda.synchronize()
+                noted = dict(progs.kernel_launches)
+                seen = kernel_counts(prof, noted)
+                if seen == noted:
+                    break
+                log(f"serving_http: profile {attempt + 1} counts {seen}, the graphs "
+                    f"noted {noted}; profiling again")
+            else:
+                raise AssertionError("serving_http: the profiler's kernel counts never "
+                                     "matched captured x replays")
+            l3d = [key for key in noted if key.startswith(F32_CLUSTER)]
+            want_k = {"vq_prep_kernel": 1, "vq_encode_kernel<float>": 1}
+            if (len(l3d) != 1 or noted[l3d[0]] != depth * iters * frames
+                    or {key: noted.get(key) for key in want_k} != want_k):
+                raise AssertionError(f"serving_http: one {b}-clip batch launched {noted}")
+            log(f"serving_http: one {b}-clip batch: the profiler counts {seen} = "
+                f"captured x replays ({depth} x {iters} x {frames} = "
+                f"{depth * iters * frames} {l3d[0]})")
+            record.update(kernel=l3d[0], per_batch=noted)
+
+        walls = {"live": [], "programs": []}
+        for name in rounds:
+            service = live if name == "live" else svc
+            t0 = time.perf_counter()
+            one_batch(service)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walls[name].append(wall)
+            if not on_card:
+                log(f"serving_http: {name} batch wall {wall:.4f} s (CPU)")
+                continue
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                one_batch(service)
+                torch.cuda.synchronize()
+            busy_ms = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+            calls = collections.Counter()
+            for e in prof.key_averages():
+                if e.key in HOST_LAUNCH_CALLS:
+                    calls[e.key] += e.count
+            log(f"serving_http: {name} batch of {b} clips x {frames} frames: wall "
+                f"{wall:.4f} s, device {busy_ms:.3f} ms, busy share "
+                f"{busy_ms / 1e3 / wall:.4f}, host launch calls "
+                f"{sum(calls.values())} {dict(calls)}; on {smi}")
+        med = {name: float(np.median(w)) for name, w in walls.items()}
+        log(f"serving_http: ABBA ({' '.join(rounds)}) medians live {med['live']:.4f} s, "
+            f"programs {med['programs']:.4f} s (programs / live "
+            f"{med['programs'] / med['live']:.4f}); phase "
+            f"{time.perf_counter() - t_phase:.1f} s; on {smi}")
+        record.update(walls_s={n: [round(x, 4) for x in w] for n, w in walls.items()})
+        return counts, record
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        if server is not None:
+            server.shutdown()
+        for service in services:
+            service.close()
+
+
 def drive_serving(torch, dev, launches, tokenizer=TOKENIZER,
                   denoiser=DENOISER, service=SERVICE, img=IMG, backend="auto"):
     """The serving path at full width with a bf16 denoiser whose attention
@@ -2635,18 +2902,21 @@ def main() -> int:
     compare_serving(torch, dev)
     training = drive_training(torch, dev, _build.LAUNCHES, smi)
     rollout = drive_rollout(torch, dev, _build.LAUNCHES, smi)
+    serving_http, graphs = drive_serving_http(torch, dev, _build.LAUNCHES, smi)
     training_fused = drive_training(
         torch, dev, _build.LAUNCHES, smi, backend="fused",
         root=os.path.join(HERE, "build", "smoke_fused"))
     tokenizer = drive_tokenizer_training(torch, dev, _build.LAUNCHES, smi)
     sparse = drive_sparse_training(torch, dev, _build.LAUNCHES, smi)
-    # launches of the seven main paths, each counted in its own runs
-    paths = (serving, serving_fused, training, rollout, training_fused, tokenizer,
-             sparse)
+    # launches of the eight main paths, each counted in its own runs (the
+    # exported programs' as captured x replays)
+    paths = (serving, serving_fused, training, rollout, serving_http,
+             training_fused, tokenizer, sparse)
     counts = {key: sum(p.get(key, 0) for p in paths)
               for key in set().union(*paths)}
     log(f"launches: serving {serving}, fused serving {serving_fused}, training "
-        f"{training}, rollout and evaluation {rollout}, fused training "
+        f"{training}, rollout and evaluation {rollout}, exported programs over "
+        f"HTTP {serving_http}, fused training "
         f"{training_fused}, tokenizer training {tokenizer}, sparse training {sparse}")
 
     kernels = [
@@ -2689,6 +2959,12 @@ def main() -> int:
     # record (its launches: the rollout phase's, all f32)
     next(k for k in kernels if k["name"] == "local3d_fwd")["rollout_f32"] = dict(
         a_f32, launches=rollout["local3d_fwd"])
+    # the exported programs' launches, replayed from CUDA graphs (in the
+    # totals above), with the f32 kernel the graphs captured
+    next(k for k in kernels if k["name"] == "local3d_fwd")["serving_graphs"] = graphs
+    next(k for k in kernels if k["name"] == "vq_encode")["serving_graphs"] = dict(
+        launches=serving_http["vq_encode"],
+        kernels=["vq_prep_kernel", "vq_encode_kernel<float>"])
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

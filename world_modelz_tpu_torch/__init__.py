@@ -2,7 +2,9 @@
 
 Five paths run here. Serving: tokenizer encode (conv encoder +
 nearest-code search) -> iterative-unmask rollout over the
-local-3D-attention denoiser -> tokenizer decode. Training: the
+local-3D-attention denoiser -> tokenizer decode, from the modules or from
+an exported artifact whose programs replay as CUDA graphs, behind an HTTP
+front end. Training: the
 masked-diffusion trainer (``cli.video_diffusion``) over frozen-tokenizer
 MovingMNIST clips, with the attention's backward kernels. Tokenizer
 training: the VQ-VAE trainer (``cli.train_vqae``), with the fused VQ
@@ -34,13 +36,16 @@ models     tokenizer convs, local-3D and dense attention transformers, the
 diffusion  corruption, iterative-unmask sampler and multi-frame rollout;
            sparse position samplers and the volume sweep
 serve      batched rollout service (request coalescing, sessions)
+serve_http the stdlib HTTP front end and its client
+aot        serving artifacts: export, and the programs as CUDA graphs
 train      optimizer, schedules, EMA, loss-aware sampler, guard, checkpoints
 data       MovingMNIST and synthetic trajectory sources, the buffered clip
            sampler, the prefetching device feeder
 cli        the trainers (``python -m ...cli.video_diffusion``,
            ``python -m ...cli.train_vqae``,
            ``python -m ...cli.sparse_diffusion``), the rollout
-           (``...cli.rollout``) and ``...cli.make_gif``
+           (``...cli.rollout``), ``...cli.make_gif``, and serving:
+           ``...cli.export_rollout``, ``...cli.serve_http``
 utils      dataclass CLI configs, image grids, PNGs and GIFs, the JSONL
            logger, PSNR/SSIM, the FVD harness
 convert    weight bridge from the JAX package's numpy parameter trees

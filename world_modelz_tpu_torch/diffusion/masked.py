@@ -15,7 +15,8 @@ uniforms, resample uniforms, uniform class ids) as tensors. One unmask step
 consumes a Gumbel tensor (B, H, W, K) — ``jax.random.categorical`` is
 ``argmax(logits + gumbel)`` — and a re-mask uniform tensor (B, H, W). By
 default they come from a ``torch.Generator``; a caller (the tests) may hand
-in its own draws.
+in its own draws. ``draw_last_frame`` is a step's draw with ``alpha`` a
+float or a 0-d tensor: the form a captured step (``aot.py``) replays.
 """
 
 from __future__ import annotations
@@ -103,6 +104,35 @@ def generator_noise(
     return draw
 
 
+def unmask_alpha(iteration: int, num_iterations: int) -> float:
+    """The kept fraction of step ``iteration``: ``(iteration + 1) /
+    num_iterations`` as f32 division, clipped to [0, 1], as the JAX loop
+    computes it (an f32 value, held in a Python float)."""
+    frac = np.float32(iteration + 1) / np.float32(num_iterations)
+    return float(min(max(frac, 0.0), 1.0))
+
+
+def draw_last_frame(
+    logits: torch.Tensor,
+    gumbel: torch.Tensor,
+    uniform: torch.Tensor,
+    alpha,
+    *,
+    mask_token: int,
+    sample_topk: int = -1,
+) -> torch.Tensor:
+    """A step's new last frame: ``argmax(logits + gumbel)`` over the top
+    ``sample_topk`` logits (all where <= 0), re-masked where ``uniform >
+    alpha``. ``alpha`` is a Python float or a 0-d f32 tensor on the
+    logits' device (what a captured step reads from its static buffer):
+    either way the comparison is made in f32, so the tokens are the
+    same."""
+    if sample_topk > 0:
+        logits = top_k_logits(logits, sample_topk)
+    draw = (logits + gumbel).argmax(-1)
+    return torch.where(uniform > alpha, mask_token, draw)
+
+
 def unmask_step(
     iteration: int,
     batch_z: torch.Tensor,
@@ -121,13 +151,11 @@ def unmask_step(
     filtering applies from iteration ``topk_from_iteration`` on
     (main2.py:97-98; the MovingMNIST variant applies it from iteration 0,
     main.py:83-84)."""
-    if sample_topk > 0 and iteration >= topk_from_iteration:
-        logits = top_k_logits(logits, sample_topk)
-    draw = (logits + gumbel).argmax(-1)
-    # alpha as f32 division, as the JAX loop computes it
-    frac = np.float32(iteration + 1) / np.float32(num_iterations)
-    alpha = float(min(max(frac, 0.0), 1.0))
-    draw = torch.where(uniform > alpha, mask_token, draw)
+    draw = draw_last_frame(
+        logits, gumbel, uniform, unmask_alpha(iteration, num_iterations),
+        mask_token=mask_token,
+        sample_topk=sample_topk if iteration >= topk_from_iteration else -1,
+    )
     batch_z = batch_z.clone()
     batch_z[:, -1] = draw
     return batch_z
@@ -216,7 +244,12 @@ def rollout_frames(
             noise=lambda i, t=t: noise(t, i),
         )
         frames.append(frame)
-        context = torch.cat(
-            [context[:, 1:-1], frame[:, None], context[:, -1:]], dim=1
-        )
+        context = shift_context(context, frame)
     return torch.stack(frames, dim=1)
+
+
+def shift_context(context: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """The context after generating ``frame`` (B, H, W): the oldest frame
+    dropped, ``frame`` appended, the last (generation) slot kept
+    (main2.py:128-129)."""
+    return torch.cat([context[:, 1:-1], frame[:, None], context[:, -1:]], dim=1)

@@ -124,6 +124,11 @@ class VQAutoEncoder(nn.Module):
         self.num_embeddings = num_embeddings
         self.downscale_steps = downscale_steps
         self.in_channels = in_channels
+        # the constructor's arguments (a serving artifact rebuilds the model)
+        self.config = dict(
+            embedding_dim=embedding_dim, num_embeddings=num_embeddings,
+            downscale_steps=downscale_steps, hidden_planes=hidden_planes,
+            in_channels=in_channels)
         self.encoder = SimpleResidualEncoder(
             in_channels, embedding_dim, downscale_steps, hidden_planes
         )
@@ -137,6 +142,11 @@ class VQAutoEncoder(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.vq.embedding.device
+
+    def token_grid_shape(self, image_hw: Tuple[int, int]) -> Tuple[int, int]:
+        """The token grid of an (H, W) image, as the JAX tokenizer's."""
+        f = 2 ** self.downscale_steps
+        return (image_hw[0] // f, image_hw[1] // f)
 
     def forward(
         self, x: torch.Tensor, train: bool = True

@@ -58,6 +58,12 @@ class VqVideoDiffusionModel(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.num_classes = num_classes
+        # the constructor's arguments (a serving artifact rebuilds the model)
+        self.config = dict(
+            data_shape=tuple(int(x) for x in data_shape), dim=dim,
+            num_classes=num_classes, extents=tuple(int(e) for e in extents),
+            depth=depth, dim_head=dim_head, mlp_dim=mlp_dim, heads=heads,
+            dropout=dropout, backend=backend)
         self.transformer = Local3dAttentionTransformer(
             data_shape=data_shape,
             dim=dim,

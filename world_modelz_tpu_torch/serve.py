@@ -1,7 +1,7 @@
 """Batched continuous rollout service (the serving path).
 
-Port of ``world_modelz_tpu.serve`` without the AOT ``programs=`` argument
-and the HTTP layer:
+Port of ``world_modelz_tpu.serve`` (the HTTP front end is
+``serve_http.py``):
 
 - Two programs: a seed-clip ENCODER (pixels -> token context) and a
   ROLLOUT (iterative unmask over the token grid for ``num_frames`` frames ->
@@ -15,12 +15,19 @@ and the HTTP layer:
 - Both programs run the tokenizer and the denoiser in eval mode (flax's
   ``train=False``, as the JAX service applies them), whatever mode the
   caller left them in, and give every submodule its own mode back after.
+- ``programs=`` (an ``aot.AOTPrograms``) serves an exported artifact
+  instead of the modules: on the GPU each program is a replay of CUDA
+  graphs. Frames, iterations, top-k and the ladder are the artifact's;
+  ``batch_size`` may only cap the ladder. Under one seed both kinds of
+  service give the same clips, bit for bit.
 
 Example:
     svc = RolloutService(tok, model, num_frames=8)
     futs = [svc.submit(clip) for clip in clips]   # (S, H, W, C) each
     videos = [f.result() for f in futs]           # (T, H, W, C) each
     svc.close()
+
+    svc = RolloutService(programs=AOTPrograms.load("artifact"))
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,6 +61,17 @@ def rolled_context(tokens: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
         return tokens  # the context is just the generation slot
     full = torch.cat([tokens[:, :-1], gen.to(tokens.dtype)], dim=1)
     return torch.cat([full[:, -(s - 1):], tokens[:, -1:]], dim=1)
+
+
+def ladder(batch_size: int) -> List[int]:
+    """The rollout sizes: the powers of two below ``batch_size``, and
+    ``batch_size``."""
+    sizes, s = [], 1
+    while s < batch_size:
+        sizes.append(s)
+        s *= 2
+    sizes.append(batch_size)
+    return sorted(set(sizes))
 
 
 @contextlib.contextmanager
@@ -104,45 +122,70 @@ class RolloutService:
     """Request-coalescing batched video rollout.
 
     Args:
-      tok: frozen ``VQAutoEncoder`` (the tokenizer).
-      model: the denoiser, ``VqVideoDiffusionModel``.
-      num_frames: generated frames per request.
+      tok: frozen ``VQAutoEncoder`` (the tokenizer); not with ``programs``.
+      model: the denoiser, ``VqVideoDiffusionModel``; not with
+        ``programs``.
+      num_frames: generated frames per request (the artifact's with
+        ``programs``).
       num_iterations: unmask iterations per frame (main2.py:81 uses 30).
       sample_topk: top-k logit truncation (-1 = off).
-      batch_size: max coalesced batch; rollouts run at the powers of two up
-        to it.
+      batch_size: max coalesced batch (default 8); rollouts run at the
+        powers of two up to it. With ``programs`` it caps the artifact's
+        ladder (default: its largest size), and raises below every size.
       max_wait_s: max time the worker waits to fill a batch after the
         first request arrives.
       adaptive_wait: skip the coalescing wait when the EWMA request arrival
         rate cannot fill the batch within max_wait_s anyway.
       seed: seed of the sampler's ``torch.Generator``.
       device: ``None`` means ``"cuda"`` (raises without a GPU); ``tok`` and
-        ``model`` must already live there.
+        ``model`` must already live there. With ``programs``, their device.
+      programs: an ``aot.AOTPrograms`` to serve in place of the modules.
     """
 
     def __init__(
         self,
-        tok: VQAutoEncoder,
-        model: VqVideoDiffusionModel,
+        tok: Optional[VQAutoEncoder] = None,
+        model: Optional[VqVideoDiffusionModel] = None,
         *,
-        num_frames: int,
+        num_frames: Optional[int] = None,
         num_iterations: int = 30,
         sample_topk: int = -1,
-        batch_size: int = 8,
+        batch_size: Optional[int] = None,
         max_wait_s: float = 0.05,
         adaptive_wait: bool = False,
         seed: int = 0,
         device: DeviceLike = None,
+        programs=None,
     ):
-        dev = resolve_device(device)
-        for name, module in (("tok", tok), ("model", model)):
-            if module.device.type != dev.type:
+        if programs is not None:
+            dev = programs.device
+            if device is not None and torch.device(device) != dev:
+                raise ValueError(f"the programs run on {dev}, not {device}")
+            # frames, iterations and the ladder are the artifact's; the
+            # caller may only cap the batch size
+            num_frames = programs.meta["num_frames"]
+            cap = max(programs.sizes) if batch_size is None else int(batch_size)
+            sizes = sorted(s for s in programs.sizes if s <= cap)
+            if not sizes:
                 raise ValueError(
-                    f"{name} lives on {module.device}, the service on {dev}"
-                )
+                    f"batch_size {batch_size} below every exported size "
+                    f"{programs.sizes}")
+            batch_size = sizes[-1]
+        else:
+            if num_frames is None:
+                raise TypeError("num_frames is required without `programs`")
+            dev = resolve_device(device)
+            for name, module in (("tok", tok), ("model", model)):
+                if module.device.type != dev.type:
+                    raise ValueError(
+                        f"{name} lives on {module.device}, the service on {dev}"
+                    )
+            batch_size = 8 if batch_size is None else int(batch_size)
+            sizes = ladder(batch_size)
         self._device = dev
         self._tok = tok
         self._model = model
+        self._aot = programs
         self.num_frames = int(num_frames)
         self._num_iterations = int(num_iterations)
         self._sample_topk = int(sample_topk)
@@ -166,18 +209,12 @@ class RolloutService:
         }
         self._ewma_gap: Optional[float] = None
         self._last_arrival: Optional[float] = None
-
-        # size ladder: powers of two up to batch_size
-        sizes = []
-        s = 1
-        while s < self._batch_size:
-            sizes.append(s)
-            s *= 2
-        sizes.append(self._batch_size)
-        self._sizes = sorted(set(sizes))
+        self._sizes = sizes
         self._lifecycle = threading.Lock()  # orders submit() vs close()
         # one program at a time: open_session encodes on the caller's
-        # thread, the worker runs the rest, and each switches the modes
+        # thread, the worker runs the rest; each switches the modes, or
+        # replays graphs over static buffers whose outputs are copied off
+        # before the lock is let go
         self._programs = threading.Lock()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -187,6 +224,11 @@ class RolloutService:
     @torch.inference_mode()
     def _encode_call(self, seeds: np.ndarray) -> np.ndarray:
         """(b, S, H, W, C) pixels -> (b, S, th, tw) tokens."""
+        if self._aot is not None:
+            with self._programs:
+                tokens = self._aot.encode(seeds)
+            self.stats["encode_calls"] += 1
+            return tokens
         x = torch.as_tensor(seeds, dtype=torch.float32, device=self._device)
         b, s = x.shape[:2]
         with self._programs, eval_mode(self._tok):
@@ -197,6 +239,9 @@ class RolloutService:
     @torch.inference_mode()
     def _rollout_call(self, ctx: np.ndarray):
         """(b, S, th, tw) tokens -> ((b, T, H, W, C) pixels, rolled context)."""
+        if self._aot is not None:
+            with self._programs:
+                return self._aot.rollout(ctx, generator=self._generator)
         tokens = torch.as_tensor(ctx, device=self._device).long()
         k = self._tok.num_embeddings
         with self._programs, eval_mode(self._tok, self._model):
