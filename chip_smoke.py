@@ -7,10 +7,16 @@ the card, checks the full-width denoiser, the tokenizer and the sparse
 denoiser on the card against the same modules on the CPU (logits, and the
 denoisers' parameter gradients through the backward kernels), drives the serving path
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
-``serve/m3_g8`` configuration, drives the masked-diffusion trainer
-(``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
-steps, drives the rollout CLI (``cli.rollout.run``: the f32 denoiser of
-that run's checkpoint, PNGs, GIF, FVD with both extractors, PSNR/SSIM)
+``serve/m3_g8`` configuration, holds each trainer's step program (its whole
+train step captured as one CUDA graph) bitwise to its eager step at full
+width (auto, fused, gradient accumulation, sparse) and times the two,
+holds the I3D FVD network to the CPU on seeded random weights, drives the
+masked-diffusion trainer (``cli.video_diffusion.train``) at
+``train_step/m3_b64_g8_full`` for 60 steps at ``--steps_per_dispatch`` 1,
+10, 10, 1 (losses and checkpoints bitwise equal, the k = 10 run with its
+timing report), drives the rollout CLI (``cli.rollout.run``: the f32
+denoiser of that run's checkpoint, PNGs, GIF, FVD with three extractors,
+PSNR/SSIM)
 and the trainer's ``--eval`` on it, exports that checkpoint
 (``cli.export_rollout``) and serves the artifact over HTTP
 (``cli.serve_http``: its programs captured as CUDA graphs, held bitwise to
@@ -20,7 +26,10 @@ the whole-block fused attention
 trainer (``cli.train_vqae.train``) at ``train_vqae/mnist_b96`` for 200
 steps, and drives the sparse space-time
 trainer (``cli.sparse_diffusion.train``) at ``train_sparse/s16_n1024_b16``
-for 60 steps with its evaluation sweep, all with random seeded weights.
+for 60 steps with its evaluation sweep, and again at ``--steps_per_dispatch``
+4 (bitwise equal), all with random seeded weights. The trainers' kernel
+launches from their step graphs are counted as captured x replays and held
+to the profiler's counts.
 
 Run from the repository root, on a machine with a GPU and the CUDA toolkit
 (no network needed):
@@ -1525,28 +1534,20 @@ def check_train_grads(torch, dev, launches, denoiser=DENOISER, batch=2,
             f"{worst}: gradient differs by {rows[worst][1]} > {rows[worst][2]}")
 
 
-def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
-                   root=os.path.join(HERE, "build", "smoke"), backend="auto"):
-    """The trainer at full width (``cli.video_diffusion.train``) with the
-    denoiser's attention ``backend``, from a seeded tokenizer checkpoint
-    (random convs, a codebook of their latents). Returns the launch counts
-    of the run."""
-    import shutil
-
+def seeded_tokenizer_checkpoint(torch, root, tokenizer=TOKENIZER, train=TRAIN):
+    """A seeded tokenizer (random convs) whose codebook is its encoder's own
+    latents of seeded MovingMNIST patches (a k-means-style init, so tokens
+    vary with the content; a random codebook sends nearly every patch to
+    one code and the task is trivial), saved as a port tokenizer checkpoint
+    under ``root``; returns its path."""
     import numpy as np
 
-    from world_modelz_tpu_torch.cli.video_diffusion import VideoDiffusionConfig
-    from world_modelz_tpu_torch.cli.video_diffusion import train as run_train
     from world_modelz_tpu_torch.data import MovingMNIST
     from world_modelz_tpu_torch.models import VQAutoEncoder
-    from world_modelz_tpu_torch.train import latest_checkpoint, save_checkpoint
+    from world_modelz_tpu_torch.train import save_checkpoint
 
-    shutil.rmtree(root, ignore_errors=True)
     torch.manual_seed(3)
     tok = VQAutoEncoder(**tokenizer, device="cpu")
-    # codebook: the encoder's own latents of seeded MovingMNIST patches (a
-    # k-means-style init), so tokens vary with the content; a random
-    # codebook sends nearly every patch to one code and the task is trivial
     clips = MovingMNIST(seq_len=train["n_past"] + 1, image_size=train["image_size"],
                         num_digits=train["num_digits"], digit_size=train["digit_size"],
                         deterministic=False).sample_batch(np.random.default_rng(3), 16)
@@ -1556,12 +1557,146 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
         lat = lat.reshape(-1, tokenizer["embedding_dim"])
         pick = torch.randperm(lat.shape[0])[: tokenizer["num_embeddings"]]
         tok.vq.embedding[0] = lat[pick] + 0.01 * torch.randn_like(lat[pick])
-    tok_path = save_checkpoint(
-        os.path.join(root, "tokenizer"), 0, {"tokenizer": tok.state_dict()},
-        tokenizer)
+    return save_checkpoint(
+        os.path.join(root, "tokenizer"), 0, {"tokenizer": tok.state_dict()}, tokenizer)
+
+
+# the kernel wrappers of the diffusion trainers' steps, and the prefix of
+# the kernels each launches once per call, as the profiler names them (the
+# VQ wrapper also launches vq_prep_kernel)
+STEP_KERNEL_PREFIX = {"local3d_fwd": "local3d_fwd", "local3d_bwd_dq": "local3d_bwd_dq",
+                      "local3d_bwd_dkv": "local3d_bwd_dkv",
+                      "local3d_block": "local3d_block", "vq_encode": "vq_encode_kernel",
+                      "flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+                      "flash_bwd_dkv": "flash_bwd_dkv"}
+WARMUPS = 2  # eager calls of a step program before its capture (train/dispatch.py)
+
+
+def graph_kernel_counts(prof, captured, replays):
+    """The profile's kernel instances against a step graph's captured
+    launches x ``replays``: by wrapper (kernel name prefix), and by kernel
+    name where the launch log named every launch of the capture. Returns
+    (seen, want)."""
+    import re
+
+    seen = dict.fromkeys(captured.wrappers, 0)
+    for e in device_kernels(prof):
+        m = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+        for w in seen:
+            if m and m.group(1).startswith(STEP_KERNEL_PREFIX[w]):
+                seen[w] += e.count
+    want = {w: n * replays for w, n in captured.wrappers.items()}
+    if captured.kernels is not None:
+        names = kernel_counts(prof, captured.kernels)
+        seen.update({f"kernel {k}": n for k, n in names.items()})
+        want.update({f"kernel {k}": n * replays for k, n in captured.kernels.items()})
+    return seen, want
+
+
+def profile_steps(torch, label, run, n, wall_s, captured=None) -> dict:
+    """``run()`` (``n`` steps) once under torch.profiler, host and device:
+    device ms a step, the busy share of ``wall_s`` (the unprofiled wall of
+    the same ``n`` steps) and the host's launch calls a step (kernel and
+    graph launches, copies, fills). With ``captured`` (a step graph), the
+    profiler's kernel counts must equal captured x ``n`` (three tries: the
+    profiler drops events now and then)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        if captured is None:
+            break
+        seen, want = graph_kernel_counts(prof, captured, n)
+        if seen == want:
+            break
+        log(f"{label}: profile {attempt + 1} counts {seen}, captured x replays {want}; "
+            "profiling again")
+    else:
+        raise AssertionError(f"{label}: the profiler's kernel counts never matched "
+                             "captured x replays")
+    busy_ms = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+    calls = collections.Counter()
+    for e in prof.key_averages():
+        if e.key in HOST_LAUNCH_CALLS:
+            calls[e.key] += e.count
+    rec = dict(device_ms_per_step=round(busy_ms / n, 4),
+               busy=round(busy_ms / 1e3 / wall_s, 4),
+               host_calls_per_step=round(sum(calls.values()) / n, 2))
+    log(f"{label}: {n} steps, wall {wall_s * 1e3 / n:.3f} ms a step, device "
+        f"{busy_ms / n:.3f} ms a step, busy share {rec['busy']:.4f}, host launch calls "
+        f"{rec['host_calls_per_step']} a step {dict(calls)}"
+        + (f"; the profiler counts {seen} = captured x replays" if captured else ""))
+    return rec
+
+
+def compare_dispatch_runs(torch, label, recs) -> None:
+    """Runs of one trainer at several ``--steps_per_dispatch``: the losses
+    and every tensor of the final checkpoints must be bitwise equal."""
+    from world_modelz_tpu_torch.train import restore_checkpoint
+
+    def bits(tree, out, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                bits(tree[k], out, f"{path}/{k}")
+        elif isinstance(tree, torch.Tensor):
+            t = tree.contiguous()
+            out[path] = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                t.element_size()]) if t.is_floating_point() else t
+
+    first = recs[0]
+    want = {}
+    bits(restore_checkpoint(first["checkpoint"])[0], want)
+    for rec in recs[1:]:
+        got = {}
+        bits(restore_checkpoint(rec["checkpoint"])[0], got)
+        same = got.keys() == want.keys() and all(
+            got[k].shape == want[k].shape and torch.equal(got[k], want[k]) for k in want)
+        if rec["losses"] != first["losses"] or not same:
+            raise AssertionError(
+                f"{label}: k={rec['k']} differs from k={first['k']}: losses equal "
+                f"{rec['losses'] == first['losses']}, checkpoint bitwise {same}")
+    log(f"{label}: runs at steps_per_dispatch {[r['k'] for r in recs]} (in this order): "
+        f"losses and final checkpoints ({len(want)} tensors) bitwise equal; steps/s "
+        "over steps 11-60 " + ", ".join(f"k={r['k']} {r['steps_per_s']:.4f}" for r in recs)
+        + "; ready-step busy " + ", ".join(f"k={r['k']} {r.get('busy', math.nan)}"
+                                          for r in recs)
+        + "; host launch calls a step " + ", ".join(
+            f"k={r['k']} {r.get('host_calls_per_step', math.nan)}" for r in recs))
+
+
+def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
+                   root=os.path.join(HERE, "build", "smoke"), backend="auto",
+                   steps_per_dispatch=1, timing_report=False):
+    """The trainer at full width (``cli.video_diffusion.train``) with the
+    denoiser's attention ``backend`` and ``steps_per_dispatch``, from a
+    seeded tokenizer checkpoint. On the card the step is one CUDA graph,
+    replayed at every k: its launches must be exactly the step's kernels x
+    the steps, with only the capture's warm-up calls and the token-grid
+    probe's encode launched outside it. Then (on the card) the ready step
+    as the loop runs it, under the profiler (``profile_steps``: busy share,
+    host launch calls a step, the kernel counts held to captured x
+    replays); ``check_step_program`` profiles the eager step.
+    Returns (the launch counts of the run, eager and replayed, and the run's
+    record: k, steps/s over steps 11-60, losses, the final checkpoint)."""
+    import shutil
+
+    from world_modelz_tpu_torch.cli.video_diffusion import VideoDiffusionConfig
+    from world_modelz_tpu_torch.cli.video_diffusion import train as run_train
+    from world_modelz_tpu_torch.train import latest_checkpoint
+
+    shutil.rmtree(root, ignore_errors=True)
+    tok_path = seeded_tokenizer_checkpoint(torch, root, tokenizer, train)
     cfg = VideoDiffusionConfig(
         **train, decoder_model=tok_path, output_dir=os.path.join(root, "run"),
-        platform="" if dev.type == "cuda" else dev.type)
+        platform="" if dev.type == "cuda" else dev.type,
+        steps_per_dispatch=steps_per_dispatch,
+        # the timing report's device probes every 20 steps (default 200)
+        timing_report=os.path.join(root, "timing.json") if timing_report else "",
+        probe_interval=20 if timing_report else 200)
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1569,15 +1704,19 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
     # convolutions in TF32, matmuls in full f32), not the parity phases' off
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    label = f"training ({backend}, k={steps_per_dispatch})"
+    rec = {"k": steps_per_dispatch}
     try:
         launches.clear()
         t0 = time.perf_counter()
         result = run_train(cfg, backend=backend)
         wall = time.perf_counter() - t0
-        counts = dict(launches)
+        eager = dict(launches)
+        program = result.program
+        graph, replays = dict(program.launches), program.replays
         peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
         if on_card:
-            profile_training(torch, dev, cfg, result, tokenizer, backend)
+            rec.update(profile_dispatch(torch, dev, cfg, result, label))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     steps = cfg.max_steps
@@ -1589,35 +1728,318 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
         raise AssertionError(f"loss did not fall: first 10 {first}, last 10 {last}")
     if result.rejected:
         raise AssertionError(f"{result.rejected} steps rejected")
-    if latest_checkpoint(cfg.output_dir) != os.path.join(
-            cfg.output_dir, f"step_{steps:07d}"):
+    ckpt = latest_checkpoint(cfg.output_dir)
+    if ckpt != os.path.join(cfg.output_dir, f"step_{steps:07d}"):
         raise AssertionError("the final checkpoint did not land")
-    # per step: every layer's forward and both backward passes, one encode;
-    # plus the token-grid probe's encode before the first step. The fused
-    # forward's backward reruns the unfused forward (local3d_fwd).
-    want = {"local3d_fwd": cfg.depth * steps, "local3d_bwd_dq": cfg.depth * steps,
-            "local3d_bwd_dkv": cfg.depth * steps, "vq_encode": steps + 1,
-            "local3d_block": cfg.depth * steps if backend == "fused" else 0}
-    for name, n in want.items() if on_card else ():
-        if counts.get(name, 0) != n:
-            raise AssertionError(
-                f"{name} launched {counts.get(name, 0)} times, expected {n}")
+    # per step: every layer's forward and both backward passes, one encode
+    # (the fused forward's backward reruns the unfused forward); all from
+    # the graph. Outside it: the capture's warm-up calls and the token-grid
+    # probe's encode before the first step.
+    fused = backend == "fused"
+    per_step = {"local3d_fwd": cfg.depth, "local3d_bwd_dq": cfg.depth,
+                "local3d_bwd_dkv": cfg.depth, "vq_encode": 1,
+                "local3d_block": cfg.depth if fused else 0}
+    want_graph = {k: n * steps for k, n in per_step.items() if n}
+    want_eager = {k: n * WARMUPS + (k == "vq_encode") for k, n in per_step.items() if n}
+    if on_card and (graph != want_graph or eager != want_eager or replays != steps):
+        raise AssertionError(
+            f"{label}: the graph launched {graph} in {replays} replays, expected "
+            f"{want_graph}; outside it {eager}, expected {want_eager}")
+    counts = {k: eager.get(k, 0) + graph.get(k, 0) for k in set(eager) | set(graph)}
     t = {h[0]: h[4] for h in result.history}
-    window = steps - 10  # steps 11..60: compile and warm-up excluded
+    window = steps - 10  # steps 11..60: the capture and warm-up excluded
     sps = window / (t[steps] - t[10])
-    log(f"training ({backend}): train_step/m3_b64_g8_full, token grid {result.token_shape}, "
-        f"{steps} steps in {wall:.3f} s; loss first-10 mean {first:.5f} -> "
-        f"last-10 mean {last:.5f}; losses every 10: "
+    rec.update(steps_per_s=sps, losses=losses, checkpoint=ckpt, graph=graph,
+               per_step={k: n for k, n in per_step.items() if n},
+               capture_s=program.capture_seconds, peak_gib=peak)
+    log(f"{label}: train_step/m3_b64_g8_full, token grid {result.token_shape}, "
+        f"{steps} steps in {wall:.3f} s (capture {program.capture_seconds:.3f} s); loss "
+        f"first-10 mean {first:.5f} -> last-10 mean {last:.5f}; losses every 10: "
         + " ".join(f"{x:.4f}" for x in losses[::10]))
-    fused = f"{cfg.depth} local3d_block, " if backend == "fused" else ""
-    log(f"training ({backend}): steps 11-{steps}: {sps:.4f} steps/s = "
+    log(f"{label}: steps 11-{steps}: {sps:.4f} steps/s = "
         f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); "
         f"peak device memory {peak:.3f} GiB; rejected {result.rejected}; "
-        f"launches {counts} (per step: {fused}{cfg.depth} local3d_fwd, "
-        f"{cfg.depth} local3d_bwd_dq, {cfg.depth} local3d_bwd_dkv, 1 "
-        f"vq_encode; +1 vq_encode for the token-grid probe); TF32: matmul "
-        f"off, cuDNN on (PyTorch's defaults); on {smi}")
-    return counts
+        f"launches replayed from the step graph (captured x replays) {graph}, "
+        f"outside it {eager} (the capture's {WARMUPS} warm-up steps, the token-grid "
+        f"probe's encode); TF32: matmul off, cuDNN on (PyTorch's defaults); on {smi}")
+    if timing_report:
+        with open(cfg.timing_report) as f:
+            report = json.load(f)
+        rec["timing"] = {k: report.get(k) for k in (
+            "window_steps", "steps_per_sec", "breakdown_pct", "probe", "reconciliation",
+            "h2d")}
+        log(f"{label}: timing report {cfg.timing_report}: " + json.dumps(rec["timing"]))
+    return counts, rec
+
+
+def profile_dispatch(torch, dev, cfg, result, label, n=20) -> dict:
+    """The trained state's step graph run as the trainer's loop runs it
+    (each step: its batch and draws into the static inputs, a replay; one
+    stats read per dispatch of k), its batches made and shipped beforehand
+    as the prefetch thread ships them (the host ms of making one, timed):
+    the unprofiled wall of ``n`` steps, then ``profile_steps`` of ``n``
+    more."""
+    from world_modelz_tpu_torch.cli.video_diffusion import build_clip_fn, draw_step
+
+    program, k = result.program, max(1, cfg.steps_per_dispatch)
+    io = program.inputs
+    clip_fn, _ = build_clip_fn(cfg, 9)
+    t0 = time.perf_counter()
+    host = [clip_fn(cfg.batch_size) for _ in range(4)]
+    data_ms = (time.perf_counter() - t0) / len(host) * 1e3
+    data = [torch.from_numpy(x).to(dev) for x in host]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n_tok = result.token_shape[1] * result.token_shape[2]
+    buckets = result.state.sampler.weights.shape[0]
+    k_codes = result.state.model.num_classes
+
+    def run(count):
+        done = 0
+        while done < count:
+            m = min(k, count - done)
+            io.start()
+            for i in range(m):
+                io.tensors["frames"].copy_(data[(done + i) % len(data)])
+                draw_step(gen, cfg.batch_size, n_tok, buckets, k_codes, out=io.draws)
+                program()
+            io.read(m)
+            done += m
+
+    run(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n)
+    wall = time.perf_counter() - t0
+    log(f"{label}: the data source makes a batch of {cfg.batch_size} clips in "
+        f"{data_ms:.3f} ms on the host (alone, the loop idle)")
+    return dict(profile_steps(torch, f"{label}: the ready step from its graph",
+                              lambda: run(n), n, wall, program.captured),
+                data_ms=round(data_ms, 3))
+
+
+def state_diffs(torch, a, b):
+    """The tensors in which two diffusion trainer states (``TrainState``)
+    are not bitwise equal: [(name, max |a - b|)]; empty when equal."""
+    def named(st):
+        return ([(f"opt.{k}", v) for k, v in st.optimizer.state_tensors().items()]
+                + ([("ema", st.ema_flat)] if st.ema_flat is not None else [])
+                + [("sampler.weights", st.sampler.weights),
+                   ("sampler.counts", st.sampler.counts)]
+                + [(f"model.{k}", v) for k, v in st.model.state_dict().items()])
+
+    out = []
+    for (name, x), (_, y) in zip(named(a), named(b)):
+        if x.is_floating_point():
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+            same = torch.equal(x.contiguous().view(bits), y.contiguous().view(bits))
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            out.append((name, float((x.double() - y.double()).abs().max())))
+    return out
+
+
+def check_step_program(torch, dev, smi, kind="video", backend="auto",
+                       accumulation_steps=1, parity=3, timed=20,
+                       root=os.path.join(HERE, "build", "smoke_step"), train=None):
+    """A trainer's step function (``step_body``) eagerly against its step
+    program (``train.dispatch.StepProgram``: on the card one CUDA graph,
+    replayed), at full width (``kind`` "video": train_step/m3_b64_g8_full
+    with ``backend`` and ``accumulation_steps``; "sparse":
+    train_sparse/s16_n1024_b16), from one seeded state, on the same batches
+    and draws: after ``parity`` steps each, the losses, grad norms and
+    flags, the parameters, Adam's moments and count (and accumulator), the
+    EMA and the sampler must be bitwise equal. Then ``timed`` eager steps
+    against ``timed`` replays (A B B A) and once more the two states
+    bitwise, then both profiled (busy share, host launch calls a step, the
+    graph's kernel counts held to captured x replays). Returns a record."""
+    import shutil
+
+    from world_modelz_tpu_torch.cli import sparse_diffusion as sd
+    from world_modelz_tpu_torch.cli import video_diffusion as vd
+    from world_modelz_tpu_torch.train.dispatch import step_inputs
+
+    on_card = dev.type == "cuda"
+    platform = "" if on_card else dev.type
+    shutil.rmtree(root, ignore_errors=True)
+    if kind == "video":
+        train = train or TRAIN
+        tok_path = seeded_tokenizer_checkpoint(torch, root, train=train)
+        cfg = vd.VideoDiffusionConfig(**train, decoder_model=tok_path, platform=platform,
+                                      accumulation_steps=accumulation_steps)
+        tok, _ = vd.load_tokenizer(tok_path, dev)
+        vd.tokenizer_inference_cast(tok)
+        clip_fn, _ = vd.build_clip_fn(cfg, 7)
+        data = [torch.from_numpy(clip_fn(cfg.batch_size)).to(dev) for _ in range(parity)]
+        shape = (cfg.n_past + 1, *tok.token_grid_shape((cfg.image_size, cfg.image_size)))
+        n_tok, codes = shape[1] * shape[2], tok.num_embeddings
+
+        def new_model():
+            return vd.make_model(cfg, shape, codes, dev, backend)
+
+        def draw(gen, out=None):
+            return vd.draw_step(gen, cfg.batch_size, n_tok, 100, codes, out=out)
+
+        def body(state, x, draws):
+            return vd.step_body(state, tok, x, cfg, draws)
+
+        def empty_draws():
+            return vd.StepDraws.empty(cfg.batch_size, n_tok, 100, dev)
+
+        label = (f"step program train_step/m3_b64_g8_full ({backend}"
+                 + (f", accumulation_steps {accumulation_steps}" if accumulation_steps > 1
+                    else "") + ")")
+    else:
+        train = train or SPARSE_TRAIN
+        tok_path = sparse_tokenizer_checkpoint(torch, root, train=train)
+        cfg = sd.SparseDiffusionConfig(**train, decoder_model=tok_path, platform=platform)
+        tok, _ = sd.load_tokenizer(tok_path, dev)
+        sampler = sd.build_sampler(cfg)
+        try:
+            data = [sd.encode_batch(tok, torch.from_numpy(
+                sampler.sample_batch(cfg.batch_size)).to(dev), (cfg.S, cfg.H, cfg.W))
+                for _ in range(parity)]
+        finally:
+            sampler.close()
+        volume, codes = cfg.S * cfg.H * cfg.W, tok.num_embeddings
+
+        def new_model():
+            return sd.make_model(cfg, codes, dev)
+
+        def draw(gen, out=None):
+            return sd.draw_step(gen, cfg.batch_size, cfg.num_context, volume, 100, codes,
+                                out=out)
+
+        def body(state, x, draws):
+            return sd.step_body(state, x, cfg, draws)
+
+        def empty_draws():
+            return sd.StepDraws.empty(cfg.batch_size, cfg.num_context, volume, 100, dev)
+
+        label = "step program train_sparse/s16_n1024_b16"
+
+    def new_state():
+        torch.manual_seed(11)
+        return vd.init_state(cfg, new_model())
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        eager, graphed = new_state(), new_state()
+        io = step_inputs({"x": torch.empty_like(data[0])}, empty_draws(), max(parity, timed))
+        program = vd.step_program(graphed, io, lambda: body(graphed, io.tensors["x"], io.draws))
+        g_eager = torch.Generator(device=dev).manual_seed(5)
+        g_graph = torch.Generator(device=dev).manual_seed(5)
+
+        def eager_round(n):
+            out = [body(eager, data[i % parity], draw(g_eager)) for i in range(n)]
+            if on_card:
+                torch.cuda.synchronize()
+            return out
+
+        def graph_round(n):
+            io.start()
+            for i in range(n):
+                io.tensors["x"].copy_(data[i % parity])
+                draw(g_graph, io.draws)
+                program()
+            return io.read(n)
+
+        def states_equal():
+            return not state_diffs(torch, eager, graphed)
+
+        want = torch.stack(eager_round(parity)).cpu()
+        got_rows = graph_round(parity)
+        got = io.stats[:parity].cpu()
+        bits_equal = torch.equal(want.view(torch.int32), got.view(torch.int32))
+        if not (bits_equal and states_equal()):
+            raise AssertionError(
+                f"{label}: {parity} replays differ from {parity} eager steps: stats "
+                f"{want.tolist()} vs {got.tolist()}, state differs at "
+                f"{state_diffs(torch, eager, graphed)}")
+        rec = {"parity_steps": parity, "losses": [r[0] for r in got_rows]}
+        if on_card:
+            cap = program.captured
+            rec.update(captured=dict(cap.wrappers), capture_s=round(program.capture_seconds, 4),
+                       kernels=dict(cap.kernels) if cap.kernels is not None else None)
+        log(f"{label}: {parity} replays == {parity} eager steps bitwise (losses "
+            + " ".join(f"{r[0]:.6f}" for r in got_rows) + "; parameters, moments, count, "
+            f"EMA, sampler); " + (f"captured {rec.get('captured')} in "
+                                  f"{rec.get('capture_s')} s" if on_card else "on the CPU"))
+        if timed and on_card:
+            walls = {"eager": [], "graph": []}
+            for name in ("eager", "graph", "graph", "eager"):
+                t0 = time.perf_counter()
+                (eager_round if name == "eager" else graph_round)(timed)
+                walls[name].append((time.perf_counter() - t0) / timed)
+            med = {k: sum(v) / len(v) for k, v in walls.items()}
+            if not states_equal():
+                raise AssertionError(f"{label}: after the timed rounds the states differ at "
+                                     f"{state_diffs(torch, eager, graphed)}")
+            log(f"{label}: {timed} eager steps vs {timed} replays, rounds E G G E: "
+                f"eager {' '.join(f'{x * 1e3:.3f}' for x in walls['eager'])} ms a step, "
+                f"replays {' '.join(f'{x * 1e3:.3f}' for x in walls['graph'])} ms a step "
+                f"(replay / eager {med['graph'] / med['eager']:.4f}); the states still "
+                f"bitwise equal after {parity + 2 * timed} steps each; on {smi}")
+            # profiled last: a profile taken again (dropped events) runs more steps
+            n_prof = 5
+            rec["eager"] = profile_steps(torch, f"{label}: eager steps",
+                                         lambda: eager_round(n_prof), n_prof,
+                                         med["eager"] * n_prof)
+            rec["graph"] = profile_steps(torch, f"{label}: replays",
+                                         lambda: graph_round(n_prof), n_prof,
+                                         med["graph"] * n_prof, program.captured)
+            rec.update(eager_ms=round(med["eager"] * 1e3, 3),
+                       graph_ms=round(med["graph"] * 1e3, 3))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return rec
+
+
+def check_i3d(torch, dev, smi, root=os.path.join(HERE, "build", "smoke_i3d"),
+              clips=(2, 16, 64, 64, 3), timed=(8, 16, 224, 224, 3)):
+    """The I3D FVD network (``utils/fvd.py``) on seeded random weights (the
+    default init with the BatchNorm statistics, scales and offsets drawn
+    from a seed), written under ``root`` in the JAX package's .npz layout
+    and read back by ``load_i3d``: the card against the CPU on ``clips``
+    (TF32 off inside, features within FEATURE_RTOL x max |f|), the 224
+    resize too; the ms of ``i3d_features`` on a ``timed`` batch. Returns
+    (the weights' path, a record)."""
+    from world_modelz_tpu_torch.utils import fvd
+
+    os.makedirs(root, exist_ok=True)
+    torch.manual_seed(21)
+    model = fvd.I3D()
+    gen = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, fvd._FrozenBatchNorm):
+                m.mean.normal_(0.0, 0.1, generator=gen)
+                m.var.uniform_(0.5, 1.5, generator=gen)
+                m.scale.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    path = os.path.join(root, "i3d_random.npz")
+    fvd.save_i3d(model, path)
+    cpu, card = fvd.load_i3d(path, "cpu"), fvd.load_i3d(path, dev)
+    x = torch.rand(clips, generator=torch.Generator().manual_seed(22)) * 2 - 1
+    with torch.no_grad(), fvd.tf32_off():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    err = float((got - want).abs().max())
+    limit = FEATURE_RTOL * max(1.0, float(want.abs().max()))
+    small = torch.rand((1, 2, 64, 64, 1), generator=torch.Generator().manual_seed(23))
+    rs_err = float((fvd.resize_224(small.to(dev)).cpu() - fvd.resize_224(small)).abs().max())
+    if not (err <= limit and rs_err <= 1e-5) or got.shape != (clips[0], 400):
+        raise AssertionError(f"i3d: card vs CPU {err} (limit {limit}), resize {rs_err}")
+    rec = dict(max_abs_err=err, limit=limit)
+    if dev.type == "cuda":
+        big = torch.rand(timed, device=dev)
+        rec["ms"] = cuda_ms(torch, lambda: fvd.i3d_features(card, big), iters=5, warmup=2)
+    log(f"i3d: seeded random weights in the JAX layout ({len(fvd.i3d_param_paths())} "
+        f"arrays, {os.path.basename(path)}); I3D on {clips} card vs CPU, TF32 off: max "
+        f"|err| {err:.3e} (limit {limit:.3e}); the 224 resize card vs CPU {rs_err:.3e}; "
+        f"i3d_features on {timed}: {rec.get('ms', math.nan):.3f} ms; on {smi}")
+    return path, rec
 
 
 def profile_busy(torch, label, fn, wall_s, reps) -> None:
@@ -1648,52 +2070,17 @@ def profile_busy(torch, label, fn, wall_s, reps) -> None:
             f"{e.count:7d} x  {e.key[:90]}")
 
 
-def profile_training(torch, dev, cfg, result, tokenizer, backend, n=5) -> None:
-    """``n`` more train steps on the trained state, unprofiled, for the wall
-    per step, then one under torch.profiler (``profile_busy``). The batches
-    are made and shipped beforehand, as the trainer's prefetch thread
-    does."""
-    from world_modelz_tpu_torch.cli.video_diffusion import (
-        build_clip_fn,
-        draw_step,
-        load_tokenizer,
-        train_step,
-    )
-    from world_modelz_tpu_torch.models import tokenizer_inference_cast
-
-    tok, _ = load_tokenizer(cfg.decoder_model, dev)
-    tokenizer_inference_cast(tok)
-    clip_fn, _ = build_clip_fn(cfg, 7)
-    batches = [torch.from_numpy(clip_fn(cfg.batch_size)).to(dev) for _ in range(n + 2)]
-    gen = torch.Generator(device=dev).manual_seed(7)
-    n_tok = result.token_shape[1] * result.token_shape[2]
-
-    def one_step(frames):
-        draws = draw_step(gen, cfg.batch_size, n_tok,
-                          result.state.sampler.weights.shape[0],
-                          tokenizer["num_embeddings"])
-        return train_step(result.state, tok, frames, cfg, draws)
-
-    one_step(batches[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for frames in batches[1:-1]:
-        one_step(frames)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / n
-    profile_busy(torch, f"one train step ({backend})",
-                 lambda: one_step(batches[-1]), step_s, n)
-
-
 def drive_rollout(torch, dev, launches, smi, train=TRAIN,
-                  root=os.path.join(HERE, "build", "smoke"), rollout=ROLLOUT):
+                  root=os.path.join(HERE, "build", "smoke"), rollout=ROLLOUT,
+                  i3d_weights=None):
     """The rollout CLI (``cli.rollout.run``) on ``drive_training``'s final
     checkpoint and tokenizer under ``root``, then the trainer's ``--eval``
     on it. Three rollouts: the reference preset (30 iterations) with FVD
     over ``fvd_clips`` clips and the gt metrics, once under PyTorch's
     default TF32 settings (cuDNN on) with the tiny extractor and once with
     TF32 off and the tokenizer extractor; then the fast preset (10
-    iterations, top-k 25) with the gt metrics. Gates: the files land, each
+    iterations, top-k 25) with the gt metrics, and with ``i3d_weights``
+    FVD by the I3D extractor on them. Gates: the files land, each
     GIF decodes to its PNG grids bit for bit, FVD, PSNR and SSIM are finite
     (lo <= fvd <= hi), the exact launch counts, and on the card the launch
     log names the f32 ``local3d_fwd_cluster_kernel`` alone. Logs the wall
@@ -1728,8 +2115,10 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
             base, preset="reference", name="reference_tf32_off", fvd=True,
             fvd_feature_net="tokenizer", fvd_weights=tok_path,
             gt_metrics=True), False),
-        "fast": (dataclasses.replace(base, preset="fast", name="fast",
-                                     gt_metrics=True), True),
+        "fast": (dataclasses.replace(
+            base, preset="fast", name="fast", gt_metrics=True,
+            **(dict(fvd=True, fvd_feature_net="i3d", fvd_weights=i3d_weights)
+               if i3d_weights else {})), True),
     }
     results, counts, walls = {}, {}, {}
     t_phase = time.perf_counter()
@@ -2276,12 +2665,21 @@ def sparse_tokenizer_checkpoint(torch, root, tokenizer=SPARSE_TOKENIZER,
 
 def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
                           tokenizer=SPARSE_TOKENIZER,
-                          root=os.path.join(HERE, "build", "smoke_sparse")):
+                          root=os.path.join(HERE, "build", "smoke_sparse"),
+                          steps_per_dispatch=1, full=True):
     """The sparse trainer at full width (``cli.sparse_diffusion.train``) at
-    train_sparse/s16_n1024_b16 from a seeded tokenizer checkpoint, with its
-    evaluation (the base and the EMA weights) at the last step; then one
-    more evaluation pass alone, counted and timed. Returns the launch
-    counts of the training run."""
+    train_sparse/s16_n1024_b16 and ``steps_per_dispatch`` from a seeded
+    tokenizer checkpoint. On the card the step is one CUDA graph, replayed
+    at every k (the batch's encode every ``change_batch_interval`` steps
+    outside it): its launches must be exactly the step's flash kernels x
+    the steps. With ``full``: the evaluation (the base and the EMA weights)
+    at the last step, then one more evaluation pass alone, counted and
+    timed, and the sweep's profile (``profile_sparse``); without, no
+    evaluation.
+    Then (on the card) the ready step from its graph under the profiler.
+    Returns (the launch counts of the training run, eager and replayed, and
+    the run's record: k, steps/s over steps 11-60, losses, the final
+    checkpoint)."""
     import shutil
 
     import numpy as np
@@ -2293,37 +2691,45 @@ def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
     tok_path = sparse_tokenizer_checkpoint(torch, root, tokenizer, train)
     on_card = dev.type == "cuda"
     cfg = sd.SparseDiffusionConfig(
-        **train, decoder_model=tok_path, output_dir=os.path.join(root, "run"),
-        platform="" if on_card else dev.type)
-    log(f"sparse training: train_sparse/s16_n1024_b16, cut to {cfg.max_steps} "
+        **dict(train, eval_interval=train["eval_interval"] if full else 0),
+        decoder_model=tok_path, output_dir=os.path.join(root, "run"),
+        platform="" if on_card else dev.type, steps_per_dispatch=steps_per_dispatch)
+    label = f"sparse training (k={steps_per_dispatch})"
+    log(f"{label}: train_sparse/s16_n1024_b16, cut to {cfg.max_steps} "
         f"steps (default 30,000), warmup {cfg.warmup} (500), cosine over "
         f"{cfg.max_steps}, buffer {cfg.buffer_size} frames (75,000), "
         f"checkpoints every {cfg.checkpoint_interval} (2,500), evaluation at "
-        f"step {cfg.eval_interval} (every 5,000); tokenizer seeded, codebook "
+        f"step {cfg.eval_interval} (every 5,000; 0: none); tokenizer seeded, codebook "
         f"from its encoder's latents of synthetic frames")
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     # the trainer as a user runs it: PyTorch's default TF32 settings
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    rec = {"k": steps_per_dispatch}
     try:
         launches.clear()
         t0 = time.perf_counter()
         result = sd.train(cfg)
         wall = time.perf_counter() - t0
-        counts = dict(launches)
+        eager = dict(launches)
+        program = result.program
+        graph, replays = dict(program.launches), program.replays
         peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
         tok, _ = sd.load_tokenizer(tok_path, dev)
-        launches.clear()
-        t0 = time.perf_counter()
-        _, vol, frames = sd.run_eval(result.state.model, None, tok, cfg,
-                                     cfg.max_steps + 1, "alone")
         if on_card:
-            torch.cuda.synchronize()
-        eval_wall = time.perf_counter() - t0
-        eval_counts = dict(launches)
-        if on_card:
-            profile_sparse(torch, dev, cfg, result, tok)
+            rec.update(profile_sparse_dispatch(torch, dev, cfg, result, tok, label))
+        if full:
+            launches.clear()
+            t0 = time.perf_counter()
+            _, vol, frames = sd.run_eval(result.state.model, None, tok, cfg,
+                                         cfg.max_steps + 1, "alone")
+            if on_card:
+                torch.cuda.synchronize()
+            eval_wall = time.perf_counter() - t0
+            eval_counts = dict(launches)
+            if on_card:
+                profile_sparse(torch, cfg, result, tok)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     steps = cfg.max_steps
@@ -2338,9 +2744,40 @@ def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
     for at in range(cfg.checkpoint_interval, steps + 1, cfg.checkpoint_interval):
         if not os.path.isdir(os.path.join(cfg.output_dir, f"step_{at:07d}")):
             raise AssertionError(f"the checkpoint of step {at} did not land")
-    if latest_checkpoint(cfg.output_dir) != os.path.join(
-            cfg.output_dir, f"step_{steps:07d}"):
+    ckpt = latest_checkpoint(cfg.output_dir)
+    if ckpt != os.path.join(cfg.output_dir, f"step_{steps:07d}"):
         raise AssertionError("the final checkpoint did not land")
+    depth = cfg.depth
+    chunks = cfg.S * cfg.H * cfg.W // cfg.num_context + 1
+    per_eval = cfg.num_eval_iterations * chunks * depth
+    encodes = len(range(0, steps, cfg.change_batch_interval))
+    per_step = {"flash_fwd": depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
+    want_graph = {k: n * steps for k, n in per_step.items()}
+    want_eager = {"flash_fwd": depth * WARMUPS + (2 * per_eval if full else 0),
+                  "flash_bwd_dq": depth * WARMUPS, "flash_bwd_dkv": depth * WARMUPS,
+                  "vq_encode": encodes}
+    if on_card and (graph != want_graph or eager != want_eager or replays != steps):
+        raise AssertionError(
+            f"{label}: the graph launched {graph} in {replays} replays, expected "
+            f"{want_graph}; outside it {eager}, expected {want_eager}")
+    counts = {k: eager.get(k, 0) + graph.get(k, 0) for k in set(eager) | set(graph)}
+    t = {h[0]: h[4] for h in result.history}
+    sps = (steps - 10) / (t[steps] - t[10])  # steps 11..60
+    rec.update(steps_per_s=sps, losses=losses, checkpoint=ckpt, graph=graph,
+               per_step=per_step, capture_s=program.capture_seconds, peak_gib=peak)
+    log(f"{label}: {steps} steps in {wall:.3f} s (evaluation incl.; capture "
+        f"{program.capture_seconds:.3f} s); loss first-10 mean {first:.5f} -> last-10 mean "
+        f"{last:.5f}; losses every 10: " + " ".join(f"{x:.4f}" for x in losses[::10]))
+    log(f"{label}: steps 11-{steps}: {sps:.4f} steps/s = "
+        f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); peak "
+        f"device memory {peak:.3f} GiB; rejected {result.rejected}; launches replayed "
+        f"from the step graph {graph}, outside it {eager} (the capture's {WARMUPS} "
+        f"warm-up steps; {encodes} vq_encode at N = {cfg.batch_size * cfg.S * cfg.H * cfg.W}"
+        + (f"; {per_eval} flash_fwd per evaluation pass, 2 passes); evaluation walls "
+           + ", ".join(f"{e[1]} {e[3]:.3f} s" for e in result.evals) if full else ")")
+        + f"; TF32: matmul off, cuDNN on; on {smi}")
+    if not full:
+        return counts, rec
     if [(e[0], e[1]) for e in result.evals] != [(steps, "base"), (steps, "ema")] or \
             not all(os.path.isfile(e[2]) for e in result.evals):
         raise AssertionError(f"evaluation PNGs: {result.evals}")
@@ -2351,73 +2788,58 @@ def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
     if frames.shape != (cfg.eval_batch_size, cfg.S, cfg.image_size, cfg.image_size, 3) \
             or not np.isfinite(frames).all():
         raise AssertionError(f"decoded frames {frames.shape} not finite")
-    depth = cfg.depth
-    chunks = cfg.S * cfg.H * cfg.W // cfg.num_context + 1
-    per_eval = cfg.num_eval_iterations * chunks * depth
-    encodes = len(range(0, steps, cfg.change_batch_interval))
-    want = {"flash_fwd": depth * steps + 2 * per_eval,
-            "flash_bwd_dq": depth * steps, "flash_bwd_dkv": depth * steps,
-            "vq_encode": encodes}
-    for name, n in want.items() if on_card else ():
-        if counts.get(name, 0) != n:
-            raise AssertionError(
-                f"{name} launched {counts.get(name, 0)} times, expected {n}")
     if on_card and eval_counts != {"flash_fwd": per_eval}:
         raise AssertionError(f"one evaluation pass launched {eval_counts}, "
                              f"expected {per_eval} flash_fwd")
-    t = {h[0]: h[4] for h in result.history}
-    sps = (steps - 10) / (t[steps] - t[10])  # steps 11..60
-    log(f"sparse training: {steps} steps in {wall:.3f} s (evaluation incl.); "
-        f"loss first-10 mean {first:.5f} -> last-10 mean {last:.5f}; losses "
-        f"every 10: " + " ".join(f"{x:.4f}" for x in losses[::10]))
-    log(f"sparse training: steps 11-{steps}: {sps:.4f} steps/s = "
-        f"{sps * cfg.batch_size:.3f} samples/s ({1e3 / sps:.3f} ms/step); peak "
-        f"device memory {peak:.3f} GiB; rejected {result.rejected}; launches "
-        f"{counts} (per step {depth} of each flash kernel; {per_eval} flash_fwd "
-        f"per evaluation pass, 2 passes; {encodes} vq_encode at N = "
-        f"{cfg.batch_size * cfg.S * cfg.H * cfg.W}); evaluation walls "
-        + ", ".join(f"{e[1]} {e[3]:.3f} s" for e in result.evals)
-        + f"; TF32: matmul off, cuDNN on; on {smi}")
     log(f"sparse evaluation alone: {eval_wall:.3f} s for {cfg.num_eval_iterations} "
         f"iterations x {chunks} chunks of B={cfg.eval_batch_size}, N="
         f"{cfg.num_context} (f32), launches {eval_counts}; tokens in "
         f"[{int(vol.min())}, {int(vol.max())}], {int(torch.unique(vol).numel())} "
         f"distinct; frames finite, range [{frames.min():.4g}, {frames.max():.4g}]")
-    return counts
+    return counts, rec
 
 
-def profile_sparse(torch, dev, cfg, result, tok, n=5, eval_iters=5) -> None:
-    """``n`` more sparse train steps with their batch ready, unprofiled, for
-    the wall per step, then one under torch.profiler (``profile_busy``).
-    Then the same for ``eval_iters`` iterations of the evaluation sweep."""
+def profile_sparse_dispatch(torch, dev, cfg, result, tok, label, n=20) -> dict:
+    """The sparse trainer's step graph run as its loop runs it (draws into
+    the static inputs, a replay; one stats read per dispatch of k; the
+    token batch already encoded): the unprofiled wall of ``n`` steps, then
+    ``profile_steps`` of ``n`` more."""
+    from world_modelz_tpu_torch.cli import sparse_diffusion as sd
+
+    program, k = result.program, max(1, cfg.steps_per_dispatch)
+    io = program.inputs
+    gen = torch.Generator(device=dev).manual_seed(9)
+    volume = cfg.S * cfg.H * cfg.W
+    buckets = result.state.sampler.weights.shape[0]
+
+    def run(count):
+        done = 0
+        while done < count:
+            m = min(k, count - done)
+            io.start()
+            for _ in range(m):
+                sd.draw_step(gen, cfg.batch_size, cfg.num_context, volume, buckets,
+                             tok.num_embeddings, out=io.draws)
+                program()
+            io.read(m)
+            done += m
+
+    run(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n)
+    wall = time.perf_counter() - t0
+    return profile_steps(torch, f"{label}: the ready step from its graph", lambda: run(n),
+                         n, wall, program.captured)
+
+
+def profile_sparse(torch, cfg, result, tok, eval_iters=5) -> None:
+    """``eval_iters`` iterations of the evaluation sweep, unprofiled for the
+    wall, then under torch.profiler (``profile_busy``); the train step's
+    profile is ``check_step_program``'s."""
     import dataclasses
 
     from world_modelz_tpu_torch.cli import sparse_diffusion as sd
-
-    sampler = sd.build_sampler(cfg)
-    try:
-        shape = (cfg.S, cfg.H, cfg.W)
-        batches = [sd.encode_batch(tok, torch.from_numpy(
-            sampler.sample_batch(cfg.batch_size)).to(dev), shape) for _ in range(2)]
-    finally:
-        sampler.close()
-    gen = torch.Generator(device=dev).manual_seed(13)
-    volume = cfg.S * cfg.H * cfg.W
-
-    def one_step(i):
-        draws = sd.draw_step(gen, cfg.batch_size, cfg.num_context, volume,
-                             result.state.sampler.weights.shape[0],
-                             tok.num_embeddings)
-        return sd.train_step(result.state, batches[i % 2], cfg, draws)
-
-    one_step(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        one_step(i + 1)
-    torch.cuda.synchronize()
-    profile_busy(torch, "one sparse train step", lambda: one_step(0),
-                 (time.perf_counter() - t0) / n, n)
 
     short = dataclasses.replace(cfg, num_eval_iterations=eval_iters)
     model = result.state.model
@@ -2900,16 +3322,34 @@ def main() -> int:
     serving_fused = drive_serving(torch, dev, _build.LAUNCHES, backend="fused")
     log(f"serving (fused): measured on {smi}")
     compare_serving(torch, dev)
-    training = drive_training(torch, dev, _build.LAUNCHES, smi)
-    rollout = drive_rollout(torch, dev, _build.LAUNCHES, smi)
+    # the trainers' step programs (CUDA graphs) against their eager steps
+    steps = {"auto": check_step_program(torch, dev, smi),
+             "fused": check_step_program(torch, dev, smi, backend="fused"),
+             "accumulation": check_step_program(torch, dev, smi, accumulation_steps=2,
+                                                parity=8, timed=0),
+             "sparse": check_step_program(torch, dev, smi, kind="sparse")}
+    i3d_path, i3d = check_i3d(torch, dev, smi)
+    # the trainer at k = 1 and k = 10 in turns (A B B A); the first run's
+    # checkpoint feeds the rollout, evaluation and serving phases
+    training, train_a = drive_training(torch, dev, _build.LAUNCHES, smi)
+    dispatch_runs = [train_a] + [drive_training(
+        torch, dev, _build.LAUNCHES, smi, steps_per_dispatch=k, timing_report=k > 1,
+        root=os.path.join(HERE, "build", f"smoke_k{k}_{i}"))[1]
+        for i, k in enumerate((10, 10, 1))]
+    compare_dispatch_runs(torch, "training", dispatch_runs)
+    rollout = drive_rollout(torch, dev, _build.LAUNCHES, smi, i3d_weights=i3d_path)
     serving_http, graphs = drive_serving_http(torch, dev, _build.LAUNCHES, smi)
-    training_fused = drive_training(
+    training_fused, train_fused = drive_training(
         torch, dev, _build.LAUNCHES, smi, backend="fused",
         root=os.path.join(HERE, "build", "smoke_fused"))
     tokenizer = drive_tokenizer_training(torch, dev, _build.LAUNCHES, smi)
-    sparse = drive_sparse_training(torch, dev, _build.LAUNCHES, smi)
+    sparse, sparse_a = drive_sparse_training(torch, dev, _build.LAUNCHES, smi)
+    _, sparse_b = drive_sparse_training(
+        torch, dev, _build.LAUNCHES, smi, steps_per_dispatch=4, full=False,
+        root=os.path.join(HERE, "build", "smoke_sparse_k4"))
+    compare_dispatch_runs(torch, "sparse training", [sparse_a, sparse_b])
     # launches of the eight main paths, each counted in its own runs (the
-    # exported programs' as captured x replays)
+    # graphs' as captured x replays)
     paths = (serving, serving_fused, training, rollout, serving_http,
              training_fused, tokenizer, sparse)
     counts = {key: sum(p.get(key, 0) for p in paths)
@@ -2965,6 +3405,22 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "vq_encode")["serving_graphs"] = dict(
         launches=serving_http["vq_encode"],
         kernels=["vq_prep_kernel", "vq_encode_kernel<float>"])
+    # the trainers' step graphs: the launches their replays made in the main
+    # training runs (in the totals above), and a step's captured launches
+    runs = {"train_step/m3_b64_g8_full": train_a, "fused": train_fused,
+            "train_sparse/s16_n1024_b16": sparse_a}
+    for k in kernels:
+        per_step = {run: rec["per_step"][k["name"]] for run, rec in runs.items()
+                    if rec["per_step"].get(k["name"])}
+        if per_step:
+            k["training_graphs"] = dict(
+                launches=sum(rec["graph"].get(k["name"], 0) for rec in runs.values()),
+                per_step=per_step)
+    log(json.dumps({"step_programs": steps, "i3d": i3d, "dispatch": [
+        {key: r.get(key) for key in ("k", "steps_per_s", "busy", "device_ms_per_step",
+                                     "host_calls_per_step", "capture_s", "peak_gib",
+                                     "data_ms")}
+        for r in dispatch_runs + [sparse_a, sparse_b]]}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

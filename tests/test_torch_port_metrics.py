@@ -177,8 +177,9 @@ def test_tokenizer_features_match_jax(tmp_path):
     np.testing.assert_allclose(got, want, atol=TOK_FEAT_TOL)
 
 
-def test_extractor_names_and_fvd_checks():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+def test_extractor_names_and_fvd_checks(monkeypatch):
+    monkeypatch.delenv("WMZ_I3D_WEIGHTS", raising=False)
+    with pytest.raises(ValueError, match="i3d extractor needs pretrained weights"):
         fvd.make_extractor("i3d", device="cpu")
     with pytest.raises(ValueError, match="unknown extractor"):
         fvd.make_extractor("inception", device="cpu")
@@ -258,8 +259,11 @@ def test_image_records_land_beside_the_metrics(tmp_path):
         "path": os.path.join("images", "reconstruction_base_0000003.png")}
     png = image.read_png(str(tmp_path / rec[1]["path"]))
     np.testing.assert_array_equal(png, image._to_uint8(img))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        MetricLogger(str(tmp_path), "w", use_wandb=True)
+    # wandb is not installed: the logger warns and writes the JSONL alone
+    wlog = MetricLogger(str(tmp_path), "w", use_wandb=True, project="p", tags="a,b")
+    wlog.log(1, loss=0.5)
+    wlog.close()
+    assert [r["loss"] for r in _records(wlog.path)] == [0.5]
 
 
 # -------------------------------------------------------- GIFs and PNGs

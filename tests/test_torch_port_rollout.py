@@ -369,7 +369,7 @@ def test_rollout_run_matches_jax_under_its_draws(stack, tmp_path, monkeypatch):
     assert rec["mean_psnr"] == float(np.mean([h["psnr"] for h in rec["per_horizon"]]))
 
 
-def test_rollout_presets_ema_and_checks(stack, tmp_path, capsys):
+def test_rollout_presets_ema_and_checks(stack, tmp_path, capsys, monkeypatch):
     base = ro.RolloutConfig(checkpoint=stack["ckpt"], platform="cpu", batch_size=2,
                             num_frames=1, output_dir=str(tmp_path), preset="reference",
                             num_eval_iterations=2, topk=3)
@@ -388,8 +388,16 @@ def test_rollout_presets_ema_and_checks(stack, tmp_path, capsys):
         ro.run(dataclasses.replace(base, shard_batch=True))
     with pytest.raises(ValueError, match="--checkpoint"):
         ro.run(dataclasses.replace(base, checkpoint=""))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        ro.run(dataclasses.replace(base, fvd=True, fvd_feature_net="i3d", fvd_clips=2))
+    # the I3D extractor, on weights in the JAX layout (the default init);
+    # 10 resamples, not 200: each takes two 400 x 400 eigendecompositions
+    monkeypatch.setattr(pfvd, "fvd_bootstrap",
+                        functools.partial(pfvd.fvd_bootstrap, n_boot=10))
+    weights = str(tmp_path / "i3d.npz")
+    pfvd.save_i3d(pfvd.I3D(), weights)
+    scored = ro.run(dataclasses.replace(
+        base, preset="", num_eval_iterations=2, fvd=True, fvd_feature_net="i3d",
+        fvd_weights=weights, fvd_clips=2, output_dir=str(tmp_path / "i3d")))
+    assert scored.fvd["feature_net"] == "i3d" and np.isfinite(scored.fvd["fvd"])
 
 
 def test_rollout_cli_with_the_tokenizer_extractor(stack, tmp_path):

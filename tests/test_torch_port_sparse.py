@@ -370,8 +370,9 @@ def test_three_f32_train_steps_match_the_jax_step(jax_model, sampling_type, unif
             for name, p in model.named_parameters():
                 w = want_m[name].numpy()
                 atol = TOL if torch_name == "exp_avg" else TOL * float(np.abs(w).max())
+                mu, nu = state.optimizer.moments(p)
                 np.testing.assert_allclose(
-                    state.optimizer.optimizer.state[p][torch_name].numpy(), w,
+                    (mu if torch_name == "exp_avg" else nu).numpy(), w,
                     rtol=0, atol=atol, err_msg=f"{torch_name} {name}")
         np.testing.assert_array_equal(state.sampler.counts.numpy(), _np(jstate[3].counts))
         np.testing.assert_allclose(state.sampler.weights.numpy(), _np(jstate[3].weights),
@@ -488,11 +489,9 @@ def test_decode_volume_clamps_the_mask_token(tok_path):
 
 UNPORTED = [
     dict(dataset="minerl"), dict(dataset="video"), dict(tokenizer="taming:a,b"),
-    dict(data_pipeline="grain"), dict(data_workers=2), dict(steps_per_dispatch=2),
-    dict(timing_report="t.json"), dict(wandb=True), dict(moe_experts=2),
+    dict(data_pipeline="grain"), dict(data_workers=2), dict(moe_experts=2),
     dict(moe_capacity_factor=2.0), dict(moe_aux_weight=0.1), dict(n_model=2),
     dict(n_pipe=2), dict(fsdp=True), dict(n_micro=2), dict(mlr_data_dir="/d"),
-    dict(probe_interval=10),
 ]
 
 

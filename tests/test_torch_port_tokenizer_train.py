@@ -229,8 +229,9 @@ def test_three_f32_train_steps_match_the_jax_step():
                 jax.device_get(moment), jax.device_get(jstate.batch_stats),
                 _np(jstate.vq.codebook))
             for name, p in names.items():
+                mu, nu = pstate.optimizer.moments(p)
                 np.testing.assert_allclose(
-                    pstate.optimizer.optimizer.state[p][key].numpy(),
+                    (mu if key == "exp_avg" else nu).numpy(),
                     want[name].numpy(), rtol=TOL, atol=TOL, err_msg=f"{key} {name}")
     assert pstate.optimizer.schedule(2) == cfg.lr / 2
 
@@ -367,9 +368,8 @@ def test_a_converted_jax_tokenizer_becomes_a_training_state(tmp_path):
 
 UNPORTED = [
     dict(dataset="files"), dict(data_pipeline="grain"), dict(data_workers=2),
-    dict(wandb=True), dict(n_model=2), dict(file_list_fn="x.json"),
+    dict(n_model=2), dict(file_list_fn="x.json"),
     dict(image_dir_path="/data"), dict(image_fn_regex=".*"),
-    dict(project="p"), dict(tags="a,b"),
 ]
 
 
@@ -452,5 +452,9 @@ def test_metric_logger_writes_jsonl(tmp_path):
         rows = [json.loads(line) for line in f]
     assert [(r["step"], r["loss"]) for r in rows] == [(1, 0.5), (2, 0.25)]
     assert rows[0]["n"] == 3 and "t" in rows[0]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        MetricLogger(str(tmp_path), "w", use_wandb=True)
+    # without the wandb package: a warning, and the JSONL alone
+    log = MetricLogger(str(tmp_path), "w", use_wandb=True)
+    log.log(1, loss=0.5)
+    log.close()
+    with open(tmp_path / "w_metrics.jsonl") as f:
+        assert [json.loads(line)["loss"] for line in f] == [0.5]

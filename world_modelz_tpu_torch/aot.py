@@ -15,9 +15,9 @@ weights:
 A CUDA graph cannot be serialized, so the artifact holds everything but
 the programs. ``AOTPrograms.load`` rebuilds the two modules from it (f32,
 eval mode, the denoiser's attention ``backend="auto"``) and, on the GPU,
-captures each ladder size's programs as CUDA graphs after warming them up
-on the capture stream (the kernels' first-use attribute and occupancy
-calls stay out of the capture):
+captures each ladder size's programs as CUDA graphs
+(``train.dispatch.capture``: warmed up on a side stream first, so the
+kernels' first-use attribute and occupancy calls stay out of the capture):
 
 - ``encode``: the encoder convs and the ``vq_encode`` kernel;
 - ``step``: one unmask step, the draw from the previous logits and the
@@ -48,7 +48,6 @@ from __future__ import annotations
 import collections
 import json
 import os
-import re
 import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -67,6 +66,7 @@ from world_modelz_tpu_torch.diffusion.masked import (
 from world_modelz_tpu_torch.models.tokenizer import VQAutoEncoder
 from world_modelz_tpu_torch.models.video import VqVideoDiffusionModel
 from world_modelz_tpu_torch.serve import ladder, rolled_context
+from world_modelz_tpu_torch.train.dispatch import capture
 
 FORMAT = 1
 _META = "meta.json"
@@ -273,34 +273,15 @@ class AOTPrograms:
 
     @torch.inference_mode()
     def _capture(self, name: str, b: int) -> None:
-        """Warm ``name`` up at size ``b`` on a side stream, then capture it
-        into a CUDA graph, noting the kernels launched while capturing."""
-        from world_modelz_tpu_torch.kernels import _build
-
-        fn = self._programs[b].fns[name]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                fn()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = collections.Counter(_build.LAUNCHES)
-        outputs: List[Tuple[torch.Tensor, ...]] = []
-
-        def capture():
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs.append(fn())
-
-        names = _build.kernels_launched(capture)
-        wrappers = collections.Counter(_build.LAUNCHES) - before
-        if len(names) >= 64:
+        """Capture ``name`` at size ``b`` (``train.dispatch.capture``: warmed
+        up on a side stream first), noting the kernels it launches."""
+        captured = capture(self._programs[b].fns[name], self.device)
+        if captured.kernels is None:
             raise RuntimeError(
                 f"{name} at batch {b}: the launch log names only 64 launches")
-        self.captured[name, b] = (wrappers, collections.Counter(
-            _kernel_name(n) for n in names))
-        self._graphs[name, b] = graph
-        self._outputs[name, b] = outputs[0]
+        self.captured[name, b] = (captured.wrappers, captured.kernels)
+        self._graphs[name, b] = captured.graph
+        self._outputs[name, b] = captured.outputs
 
     def _run(self, name: str, b: int) -> Tuple[torch.Tensor, ...]:
         if self.device.type != "cuda":
@@ -377,9 +358,3 @@ class AOTPrograms:
                 p.context.copy_(shift_context(p.context, p.z[:, -1]))
             pixels, ctx = self._run("finish", b)
             return pixels.float().cpu().numpy(), ctx.cpu().numpy()
-
-
-def _kernel_name(line: str) -> str:
-    """A launch log line (``void (anonymous namespace)::name<args>(
-    params)``) -> ``name<args>``."""
-    return re.search(r"(\w+(?:<[^()]*>)?)\(", line).group(1)

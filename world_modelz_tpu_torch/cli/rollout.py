@@ -17,8 +17,9 @@ encode the ``vq_encode`` kernel.
 - ``--fvd true`` scores the generated futures against real clips of the
   same length from the data source (seeded ``manual_seed + 1``) with the
   Fréchet Video Distance harness (``utils/fvd.py``, ``fvd_feature_net``
-  ``tiny`` or ``tokenizer``, the latter with ``--fvd_weights`` a tokenizer
-  checkpoint), generating extra batches up to ``fvd_clips``, and writes
+  ``tiny``, ``i3d`` with ``--fvd_weights`` an I3D .npz in the JAX package's
+  layout (or ``WMZ_I3D_WEIGHTS``), or ``tokenizer`` with ``--fvd_weights`` a
+  tokenizer checkpoint), generating extra batches up to ``fvd_clips``, and writes
   ``{name}_fvd.json``: the FVD and its bootstrap 95% interval.
 - ``--gt_metrics true`` rolls out from clips (seeded ``manual_seed + 2``)
   whose true continuations are held out and writes ``{name}_gt_metrics.json``:
@@ -88,8 +89,8 @@ class RolloutConfig:
     # FVD scoring (utils/fvd.py)
     fvd: bool = False
     fvd_clips: int = 64  # clips per side; extra rollout batches as needed
-    fvd_feature_net: str = "tiny"  # tiny | tokenizer (i3d: not ported)
-    fvd_weights: str = ""  # the tokenizer extractor's checkpoint
+    fvd_feature_net: str = "tiny"  # tiny | i3d | tokenizer
+    fvd_weights: str = ""  # the I3D .npz, or the tokenizer extractor's checkpoint
     fvd_batch_size: int = 8  # feature-extraction batch
     # next-frame prediction quality: roll out from contexts whose true
     # continuations are held out, report PSNR/SSIM per horizon step (plus

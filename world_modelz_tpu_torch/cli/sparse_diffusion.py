@@ -14,8 +14,12 @@ uniformly, with
   cast is differentiable, so the gradients land in f32, as JAX's cast in
   ``loss_fn``), whose attention runs the flash kernels when N >= 1024 or
   with ``--attn_backend flash``;
-- warmup + cosine AdamW, EMA, the non-finite guard (one host read per step;
-  a rejected step leaves the state bitwise unchanged);
+- warmup + cosine AdamW, EMA, the non-finite guard on the device (a
+  rejected step leaves the state bitwise unchanged), the step
+  (``step_body``) shared with the video trainer as ``ce_step``: eager on the
+  CPU, one CUDA graph replayed on the GPU at every ``--steps_per_dispatch``
+  (``train.dispatch``), its stats read once per dispatch; the batch refresh
+  stays outside the step, at JAX's steps, and a dispatch ends at it;
 - evaluation: the chunked volume sweep (``sparse_denoise_volume``), decoded
   to frames and written as a PNG grid, for the base and the EMA weights;
 - async checkpoints with the embedded config, resume, warm start and
@@ -24,11 +28,14 @@ uniformly, with
   and the sampler weights' histogram every ``histogram_interval`` steps
   (none under ``--uniform_noise``).
 
+``--timing_report`` writes the JAX package's timing report; ``--wandb``
+logs to the JSONL file only, as the JAX logger does without the package.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports them: the MineRL and video datasets, the external tokenizer, the
-grain pipeline, fused dispatch, the timing report and wandb (A.8);
-mixture-of-experts FFNs (A.5); tensor, pipeline and FSDP parallelism (A.9).
-The flags of those features raise at any value other than their default.
+that ports them: the MineRL and video datasets, the external tokenizer and
+the grain pipeline (A.8); mixture-of-experts FFNs (A.5); tensor, pipeline
+and FSDP parallelism (A.9). The flags of those features raise at any value
+other than their default.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -53,7 +60,9 @@ from world_modelz_tpu_torch.cli.video_diffusion import (
     TrainState,
     ce_step,
     checkpoint_restorer,
+    gumbel_,
     init_state,
+    step_program,
 )
 from world_modelz_tpu_torch.data import (
     BufferedTrajectorySampler,
@@ -76,6 +85,17 @@ from world_modelz_tpu_torch.train import (
     restore_checkpoint,
     uniform_sample,
 )
+from world_modelz_tpu_torch.train.dispatch import (
+    StepProgram,
+    as_row,
+    dispatch_len,
+    log_point,
+    record_steps,
+    run_dispatch,
+    step_inputs,
+    write_timing,
+)
+from world_modelz_tpu_torch.train.timing import TrainTiming
 from world_modelz_tpu_torch.utils.config import (
     check_defaults,
     config_to_dict,
@@ -126,13 +146,13 @@ class SparseDiffusionConfig:
     p_max_uniform: float = 0.1
     uniform_noise: bool = False
     log_interval: int = 10
-    # "deferred" or "sync": the port reads each step's stats on the host,
-    # so both modes log the step's own values (JAX's "sync" behaviour)
+    # "deferred" or "sync": the port reads each dispatch's stats on the
+    # host, so both modes log the step's own values (JAX's "sync" behaviour)
     log_fence: str = "deferred"
     # sampler-weight histograms (none under uniform_noise)
     histogram_interval: int = 50
-    timing_report: str = ""  # not ported
-    probe_interval: int = 200  # timing-report probes: not ported
+    timing_report: str = ""  # path of the timing report JSON (train/timing.py)
+    probe_interval: int = 200  # device probes of the timing report
 
     buffer_size: int = 75_000
     max_segment_length: int = 1000
@@ -146,7 +166,7 @@ class SparseDiffusionConfig:
     depth: int = 8
     num_context: int = 512
     change_batch_interval: int = 4
-    steps_per_dispatch: int = 1  # > 1 not ported
+    steps_per_dispatch: int = 1  # steps between host reads of the stats
     # dense-attention backend: auto | flash | xla (models.attention.
     # DenseAttention); auto takes the flash kernels on the GPU from 1024
     # tokens on
@@ -160,7 +180,7 @@ class SparseDiffusionConfig:
     fsdp: bool = False  # not ported
     n_pipe: int = 1  # > 1 not ported
     n_micro: int = 4  # pipeline microbatches: not ported
-    wandb: bool = False  # not ported
+    wandb: bool = False  # without the wandb package: JSONL only
     project: str = "sparse_diffusion"
     tags: str = ""
     name: str = "sparse_diffusion"
@@ -172,7 +192,6 @@ class SparseDiffusionConfig:
 _UNPORTED_FIELDS = {
     "mlr_data_dir": ("the MineRL / video datasets", "A.8"),
     "data_workers": ("grain worker processes", "A.8"),
-    "probe_interval": ("the timing report's device probes", "A.8"),
     "moe_capacity_factor": ("mixture-of-experts FFNs", "A.5"),
     "moe_aux_weight": ("mixture-of-experts FFNs", "A.5"),
     "n_micro": ("pipeline parallelism", "A.9"),
@@ -196,12 +215,6 @@ def check_supported(cfg: SparseDiffusionConfig) -> None:
         raise unported("--tokenizer (external tokenizers)", "A.8")
     if cfg.data_pipeline != "native":
         raise unported(f"--data_pipeline {cfg.data_pipeline}", "A.8")
-    if cfg.steps_per_dispatch > 1:
-        raise unported("--steps_per_dispatch > 1", "A.8")
-    if cfg.timing_report:
-        raise unported("--timing_report", "A.8")
-    if cfg.wandb:
-        raise unported("--wandb (the metric logger)", "A.8")
     if cfg.moe_experts > 0:
         raise unported("--moe_experts (mixture-of-experts FFNs)", "A.5")
     if cfg.n_model > 1 or cfg.n_pipe > 1 or cfg.fsdp:
@@ -289,40 +302,45 @@ class StepDraws:
     resample_uniform: torch.Tensor  # (B, N) corruption resample uniforms
     uniform_classes: torch.Tensor  # (B, N) resampled class ids
 
+    @classmethod
+    def empty(cls, b: int, n: int, volume: int, num_buckets: int,
+              device) -> "StepDraws":
+        def f(*shape):
+            return torch.empty(shape, device=device)
+
+        return cls(gumbel=f(b, num_buckets), jitter=f(b), offset_uniform=f(b),
+                   position_uniform=f(b, volume), mask_uniform=f(b, n),
+                   resample_uniform=f(b, n),
+                   uniform_classes=torch.empty((b, n), dtype=torch.long, device=device))
+
 
 def draw_step(
     generator: torch.Generator, b: int, n: int, volume: int,
-    num_buckets: int, num_classes: int,
+    num_buckets: int, num_classes: int, out: Optional[StepDraws] = None,
 ) -> StepDraws:
     """One step's draws for a batch of ``b`` volumes of ``volume`` tokens
-    and ``n`` context tokens, from ``generator`` (on its device)."""
-    dev = generator.device
-    tiny = torch.finfo(torch.float32).tiny
-
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
-
-    return StepDraws(
-        gumbel=-torch.log(-torch.log(rand(b, num_buckets).clamp_min(tiny))),
-        jitter=rand(b),
-        offset_uniform=rand(b),
-        position_uniform=rand(b, volume),
-        mask_uniform=rand(b, n),
-        resample_uniform=rand(b, n),
-        uniform_classes=torch.randint(
-            0, num_classes, (b, n), generator=generator, device=dev),
-    )
+    and ``n`` context tokens, from ``generator`` (on its device), into
+    ``out``'s tensors when given (the same numbers either way)."""
+    if out is None:
+        out = StepDraws.empty(b, n, volume, num_buckets, generator.device)
+    for t in (out.gumbel, out.jitter, out.offset_uniform, out.position_uniform,
+              out.mask_uniform, out.resample_uniform):
+        torch.rand(t.shape, generator=generator, out=t)
+    gumbel_(out.gumbel)
+    torch.randint(0, num_classes, (b, n), generator=generator, out=out.uniform_classes)
+    return out
 
 
-def train_step(
+def step_body(
     state: TrainState,
     batch_z: torch.Tensor,
     cfg: SparseDiffusionConfig,
     draws: StepDraws,
-) -> Tuple[float, float, bool]:
+) -> torch.Tensor:
     """One optimizer step (JAX ``step_body``, cli/sparse_diffusion.py:
-    400-501) on a (B, S, H, W) token batch; updates ``state`` in place and
-    returns (loss, grad norm, ok) read on the host."""
+    400-501) on a (B, S, H, W) token batch, on the device with no host
+    read: updates ``state``'s tensors in place (not ``state.step``) and
+    returns the packed (loss, grad norm, ok) float32 (3,) tensor."""
     model = state.model
     b = batch_z.shape[0]
     k = model.num_classes
@@ -351,6 +369,19 @@ def train_step(
     # the uniform sampler keeps no state (JAX skips its update)
     return ce_step(state, (corrupted, indices), target,
                    None if cfg.uniform_noise else r, cfg)
+
+
+def train_step(
+    state: TrainState,
+    batch_z: torch.Tensor,
+    cfg: SparseDiffusionConfig,
+    draws: StepDraws,
+) -> Tuple[float, float, bool]:
+    """``step_body`` run eagerly, counted in ``state.step``, its (loss, grad
+    norm, ok) read on the host."""
+    stats = step_body(state, batch_z, cfg, draws)
+    state.step += 1
+    return as_row(stats.tolist())
 
 
 def run_eval(
@@ -407,6 +438,9 @@ class TrainResult:
     rejected: int
     # per evaluation: (step, tag, PNG path, wall seconds)
     evals: List[Tuple[int, str, str, float]]
+    # the step program (its graph's launches on the GPU), the timing report
+    program: Optional[StepProgram] = None
+    timing: Optional[Dict] = None
 
 
 def train(cfg: SparseDiffusionConfig) -> TrainResult:
@@ -445,54 +479,70 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     config = config_to_dict(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.manual_seed)
     n_buckets = state.sampler.weights.shape[0]
+    kdisp = max(1, cfg.steps_per_dispatch)
     sampler = build_sampler(cfg)
     batches = PrefetchIterator(
         lambda: sampler.sample_batch(cfg.batch_size), depth=2, device=device)
-    logger = MetricLogger(cfg.output_dir, cfg.name)
+    logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+                          project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
     # JAX trainer samples the flag at log points)
     guard = CheckpointGuard(checkpoint_restorer(saver, state, cfg))
+    tm = TrainTiming(probe_interval=cfg.probe_interval if cfg.timing_report else 0)
     history: List[Tuple[int, float, float, bool, float]] = []
     evals: List[Tuple[int, str, str, float]] = []
     rejected = 0
-    batch_z = None
+    io = step_inputs({"batch_z": torch.zeros((cfg.batch_size, *shape), dtype=torch.long,
+                                             device=device)},
+                     StepDraws.empty(cfg.batch_size, cfg.num_context, volume, n_buckets,
+                                     device), kdisp)
+    program = step_program(state, io, lambda: step_body(
+        state, io.tensors["batch_z"], cfg, io.draws))
+    seen_sizes = set()  # dispatch lengths already run
+    intervals = [cfg.log_interval, cfg.histogram_interval, cfg.checkpoint_interval,
+                 cfg.eval_interval, tm.probe_interval]
+    if not cfg.single_batch:  # a dispatch ends where the batch changes
+        intervals.append(cfg.change_batch_interval)
+    have_batch = False
+
+    def feed():
+        draw_step(gen, cfg.batch_size, cfg.num_context, volume, n_buckets,
+                  num_embeddings, out=io.draws)
+
     t0 = time.time()
     try:
         while state.step < cfg.max_steps:
+            step = state.step
             # a fresh batch at steps 0, k, 2k, ... (k = change_batch_interval;
             # JAX's test (step + 1) % k == 1, which with k = 1 never refreshes)
-            if batch_z is None or (
+            if not have_batch or (
                     not cfg.single_batch
-                    and (state.step + 1) % cfg.change_batch_interval == 1):
-                batch_z = encode_batch(tok, next(batches), shape)
-                if cfg.single_batch and state.step == 0:
-                    gt = decode_volume(tok, batch_z)
+                    and (step + 1) % cfg.change_batch_interval == 1):
+                tt = time.perf_counter()
+                io.tensors["batch_z"].copy_(encode_batch(tok, next(batches), shape))
+                tm.add("data", time.perf_counter() - tt)
+                have_batch = True
+                if cfg.single_batch and step == 0:
+                    gt = decode_volume(tok, io.tensors["batch_z"])
                     save_image(make_grid(gt.reshape(-1, *gt.shape[2:]), nrow=cfg.S),
                                os.path.join(cfg.output_dir, "gt.png"))
-            draws = draw_step(gen, cfg.batch_size, cfg.num_context, volume,
-                              n_buckets, num_embeddings)
-            loss, gn, ok = train_step(state, batch_z, cfg, draws)
-            step = state.step
-            history.append((step, loss, gn, ok, time.perf_counter()))
-            accepted = ok or not cfg.nan_guard
-            if not accepted:
-                rejected += 1
-                print(f"{step}: step REJECTED (non-finite loss/grads)")
-            guard.record(accepted, step)
+            n = dispatch_len(step, kdisp, cfg.max_steps, start_step + 1, intervals)
+            rows = run_dispatch(program, io, tm, step, [feed] * n,
+                                io.tensors["batch_z"], seen_sizes)
+            rejected += record_steps(history, guard, rows, step, cfg, state)
+            step += n
             if step % cfg.log_interval == 0 or step == start_step + 1:
-                dt, t0 = time.time() - t0, time.time()
-                m = {"loss": loss, "grad_norm": gn, "lr": lr_of(step),
-                     "steps_per_sec": cfg.log_interval / max(dt, 1e-9)}
-                logger.log(step, **m)
-                print(f"{step}: loss {loss:.3e} lr {m['lr']:.3e} "
-                      f"grad_norm {gn:.3e}")
+                t0 = log_point(logger, tm, rows[-1], step, lr_of(step), cfg, t0,
+                               start_step, kdisp, seen_sizes)
             if (cfg.histogram_interval and not cfg.uniform_noise
                     and step % cfg.histogram_interval == 0):
                 logger.log_histogram(step, "sampler_weights",
                                      loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
+                tt = time.perf_counter()
                 path = saver.save(cfg.output_dir, step, state.state_dict(), config)
+                tm.add("checkpoint", time.perf_counter() - tt)
                 print("checkpoint:", path)
             if cfg.eval_interval and step % cfg.eval_interval == 0:
                 for tag, weights in (("base", None), ("ema", state.ema)):
@@ -501,14 +551,17 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
                     te = time.perf_counter()
                     path, _, _ = run_eval(model, weights, tok, cfg, step, tag)
                     evals.append((step, tag, path, time.perf_counter() - te))
+                    tm.add("eval", time.perf_counter() - te)
     finally:
         try:
             saver.wait()  # the last save must land before exit
         finally:
+            report = write_timing(tm, cfg, batches, {
+                "num_context": cfg.num_context, "num_classes": num_embeddings}, config)
             batches.close()
             sampler.close()
             logger.close()
-    return TrainResult(state, history, rejected, evals)
+    return TrainResult(state, history, rejected, evals, program, report)
 
 
 def main(argv=None):

@@ -27,9 +27,12 @@ which ``load_tokenizer`` and so ``cli.video_diffusion --decoder_model``
 read), ``vq_stats`` (the VQ activation and error statistics) and
 ``opt_state``.
 
+``--wandb`` (with its ``--project`` and ``--tags``) logs to the JSONL file
+only without the wandb package, as the JAX logger does.
+
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
 ``--dataset files``, ``--data_pipeline grain`` and ``--data_workers``,
-``--wandb`` (and its ``--project``/``--tags``), ``--n_model > 1``.
+``--n_model > 1``.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -118,9 +121,9 @@ class TrainVqaeConfig:
     log_interval: int = 50
 
     n_model: int = 1  # > 1 not ported
-    wandb: bool = False  # not ported
-    project: str = "mcvq"  # wandb: not ported
-    tags: str = ""  # wandb: not ported
+    wandb: bool = False  # without the wandb package: JSONL only
+    project: str = "mcvq"  # wandb project
+    tags: str = ""  # wandb tags, comma-separated
     name: str = "vqae"
     output_dir: str = "outputs/vqae"
     checkpoint: str = ""  # resume path
@@ -133,8 +136,6 @@ _UNPORTED_FIELDS = {
     "file_list_fn": ("the files dataset", "A.8"),
     "image_dir_path": ("the files dataset", "A.8"),
     "image_fn_regex": ("the files dataset", "A.8"),
-    "project": ("wandb", "A.8"),
-    "tags": ("wandb", "A.8"),
 }
 
 
@@ -150,8 +151,6 @@ def check_supported(cfg: TrainVqaeConfig) -> None:
         raise unported("--data_pipeline grain", "A.8")
     if cfg.data_pipeline != "native":
         raise ValueError(f"unknown data_pipeline {cfg.data_pipeline!r}")
-    if cfg.wandb:
-        raise unported("--wandb (the metric logger's wandb sink)", "A.8")
     if cfg.n_model > 1:
         raise unported("--n_model > 1 (model parallelism)", "A.9")
     if cfg.n_model < 1:
@@ -352,7 +351,9 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
 
     batch_fn, _ = build_batch_fn(cfg, cfg.manual_seed)
     batches = PrefetchIterator(batch_fn, depth=2, device=device)
-    logger = MetricLogger(cfg.output_dir, cfg.name)
+    logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+                          project=cfg.project, config=config_to_dict(cfg),
+                          tags=cfg.tags)
     saver = AsyncCheckpointSaver()
 
     def restore_latest():

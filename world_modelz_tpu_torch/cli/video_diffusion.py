@@ -27,16 +27,28 @@ With ``bf16`` the f32 master weights are cast to a bf16 copy for the
 forward (``torch.func.functional_call``); the cast is differentiable, so
 the gradients land in f32 on the masters, as JAX's cast in ``loss_fn``.
 
-The step reads its (loss, grad norm, ok) on the host once: a rejected step
-(non-finite loss or grad norm) then skips the sampler update, the optimizer
-and the EMA, which leaves the whole state bitwise unchanged, as the JAX
-package's on-device select does.
+The step (``step_body``) is one function of device tensors with no host
+read, as JAX's ``step_body``: it always ``nan_to_num``s the gradients,
+proposes the optimizer's, the EMA's and the sampler's new state, and keeps
+the old state where the loss or the grad norm is not finite
+(``train.guard.reject_nonfinite``), which leaves a rejected step's state
+bitwise unchanged. It writes its packed (loss, grad norm, ok) into a row of
+a (k, 3) device buffer; the loop reads the buffer once per dispatch of
+``--steps_per_dispatch`` k steps (JAX's ``dispatch_len`` boundaries) and
+records each step with the guard. On the CPU the step runs eagerly; on the
+GPU it is captured once as a CUDA graph (``train.dispatch.StepProgram``)
+and replayed at every k, k = 1 included, the clips and the draws copied
+into its static inputs first, so any k gives bitwise the same state.
+``--accumulation_steps`` is optax.MultiSteps (``train.optim``);
+``--timing_report`` writes the JAX package's timing report
+(``train.timing``).
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports them: other datasets, the grain pipeline and device
-compositing, parallelism, gradient accumulation, fused dispatch, the
-timing report and wandb. The flags of those features that are kept only
-for parity with the JAX CLI raise at any value other than their default.
+compositing, and parallelism. The flags of those features that are kept
+only for parity with the JAX CLI raise at any value other than their
+default. ``--wandb`` logs to the JSONL file only, as the JAX logger does
+without the package.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -47,6 +59,7 @@ Run (the GPU by default, ``--platform cpu`` for the CPU):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -69,9 +82,6 @@ from world_modelz_tpu_torch.train import (
     CheckpointGuard,
     LossAwareSamplerState,
     ScheduledOptimizer,
-    ema_init,
-    ema_update,
-    global_grad_norm,
     host_schedule,
     latest_checkpoint,
     loss_aware_init,
@@ -79,10 +89,23 @@ from world_modelz_tpu_torch.train import (
     loss_aware_update,
     loss_aware_weights,
     make_optimizer,
+    reject_nonfinite,
     restore_checkpoint,
     warmup_cosine_schedule,
 )
 from world_modelz_tpu_torch.serve import eval_mode
+from world_modelz_tpu_torch.train.dispatch import (
+    StepInputs,
+    StepProgram,
+    as_row,
+    dispatch_len,
+    log_point,
+    record_steps,
+    run_dispatch,
+    step_inputs,
+    write_timing,
+)
+from world_modelz_tpu_torch.train.timing import TrainTiming
 from world_modelz_tpu_torch.utils.config import (
     check_defaults,
     config_to_dict,
@@ -124,8 +147,8 @@ class VideoDiffusionConfig:
 
     max_steps: int = 200_000
     warmup: int = 500
-    accumulation_steps: int = 1  # > 1 not ported
-    steps_per_dispatch: int = 1  # > 1 not ported
+    accumulation_steps: int = 1  # optax.MultiSteps mini-steps per update
+    steps_per_dispatch: int = 1  # steps between host reads of the stats
     checkpoint_interval: int = 25_000
     eval_interval: int = 2000  # evaluation (base and EMA) every N steps
     eval_timesteps: int = 4  # frames each evaluation rollout generates
@@ -133,12 +156,12 @@ class VideoDiffusionConfig:
     num_eval_iterations: int = 30  # unmask iterations per frame
     p_max_uniform: float = 0.1
     log_interval: int = 10
-    # "deferred" or "sync": the port reads each step's stats on the host,
-    # so both modes log the step's own values (JAX's "sync" behaviour)
+    # "deferred" or "sync": the port reads each dispatch's stats on the
+    # host, so both modes log the step's own values (JAX's "sync" behaviour)
     log_fence: str = "deferred"
     histogram_interval: int = 50  # sampler-weight histograms (main2.py:298)
-    timing_report: str = ""  # not ported
-    probe_interval: int = 200  # timing-report probes: not ported
+    timing_report: str = ""  # path of the timing report JSON (train/timing.py)
+    probe_interval: int = 200  # device probes of the timing report
 
     dim: int = 256
     extents: Tuple[int, int, int] = (3, 3, 3)
@@ -154,7 +177,7 @@ class VideoDiffusionConfig:
     n_model: int = 1  # > 1 not ported
     n_seq: int = 1  # > 1 not ported
     fsdp: bool = False  # not ported
-    wandb: bool = False  # not ported
+    wandb: bool = False  # without the wandb package: JSONL only
     project: str = "vq-video-diffusion"
     tags: str = ""
     name: str = "vq_diffusion"
@@ -172,7 +195,6 @@ _UNPORTED_FIELDS = {
     "data_workers": ("grain worker processes", "A.8"),
     "buffer_size": ("the Minecraft dataset's shuffle buffer", "A.8"),
     "skip_frames": ("the Minecraft dataset's frame skip", "A.8"),
-    "probe_interval": ("the timing report's device probes", "A.8"),
 }
 
 
@@ -190,14 +212,6 @@ def check_supported(cfg: VideoDiffusionConfig) -> None:
         raise unported("--device_composite", "A.8")
     if cfg.n_model > 1 or cfg.n_seq > 1 or cfg.fsdp:
         raise unported("--n_model / --n_seq / --fsdp parallelism", "A.9")
-    if cfg.accumulation_steps > 1:
-        raise unported("--accumulation_steps > 1", "A.8")
-    if cfg.steps_per_dispatch > 1:
-        raise unported("--steps_per_dispatch > 1", "A.8")
-    if cfg.timing_report:
-        raise unported("--timing_report", "A.8")
-    if cfg.wandb:
-        raise unported("--wandb (the metric logger)", "A.8")
 
 
 def build_clip_fn(cfg: VideoDiffusionConfig, seed: int):
@@ -259,31 +273,47 @@ class StepDraws:
     resample_uniform: torch.Tensor  # (B, N) corruption resample uniforms
     uniform_classes: torch.Tensor  # (B, N) resampled class ids
 
+    @classmethod
+    def empty(cls, b: int, n: int, num_buckets: int, device) -> "StepDraws":
+        return cls(
+            gumbel=torch.empty((b, num_buckets), device=device),
+            jitter=torch.empty((b,), device=device),
+            mask_uniform=torch.empty((b, n), device=device),
+            resample_uniform=torch.empty((b, n), device=device),
+            uniform_classes=torch.empty((b, n), dtype=torch.long, device=device))
+
+
+def gumbel_(u: torch.Tensor) -> torch.Tensor:
+    """Uniforms -> standard Gumbel noise, in place: -log(-log(u))."""
+    return u.clamp_min_(torch.finfo(torch.float32).tiny).log_().neg_().log_().neg_()
+
 
 def draw_step(
     generator: torch.Generator, b: int, n: int, num_buckets: int,
-    num_classes: int,
+    num_classes: int, out: Optional[StepDraws] = None,
 ) -> StepDraws:
     """One step's draws for a batch of ``b`` clips of ``n`` tokens per
-    frame, from ``generator`` (on its device)."""
-    dev = generator.device
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand((b, num_buckets), generator=generator, device=dev)
-    return StepDraws(
-        gumbel=-torch.log(-torch.log(u.clamp_min(tiny))),
-        jitter=torch.rand((b,), generator=generator, device=dev),
-        mask_uniform=torch.rand((b, n), generator=generator, device=dev),
-        resample_uniform=torch.rand((b, n), generator=generator, device=dev),
-        uniform_classes=torch.randint(
-            0, num_classes, (b, n), generator=generator, device=dev),
-    )
+    frame, from ``generator`` (on its device), into ``out``'s tensors when
+    given (a program's static inputs; the same numbers either way)."""
+    if out is None:
+        out = StepDraws.empty(b, n, num_buckets, generator.device)
+    gumbel_(torch.rand((b, num_buckets), generator=generator, out=out.gumbel))
+    torch.rand((b,), generator=generator, out=out.jitter)
+    torch.rand((b, n), generator=generator, out=out.mask_uniform)
+    torch.rand((b, n), generator=generator, out=out.resample_uniform)
+    torch.randint(0, num_classes, (b, n), generator=generator, out=out.uniform_classes)
+    return out
 
 
 @dataclasses.dataclass
 class TrainState:
     """Everything a step updates. ``step`` counts steps taken, rejected
     ones included (the checkpoint's step); the optimizer counts the
-    updates it applied (the schedule's step)."""
+    updates it applied (the schedule's step). The parameters, the
+    optimizer's buffers, the EMA (``ema_flat``, whose views ``ema`` holds by
+    parameter name) and the sampler's tensors keep their addresses: every
+    update and every restore writes into them in place, so a captured step
+    keeps reading the live state."""
 
     # f32 master parameters (this trainer's denoiser, or the sparse one of
     # cli.sparse_diffusion, which shares this state and ce_step)
@@ -292,6 +322,14 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]]
     sampler: LossAwareSamplerState
     step: int = 0
+    ema_flat: Optional[torch.Tensor] = None
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The tensors a step writes."""
+        out = list(self.optimizer.state_tensors().values())
+        if self.ema_flat is not None:
+            out.append(self.ema_flat)
+        return out + [self.sampler.weights, self.sampler.counts]
 
     def state_dict(self) -> Dict:
         return {
@@ -308,8 +346,8 @@ class TrainState:
             for k, v in self.ema.items():
                 v.copy_(sd["ema"][k])
         self.optimizer.load_state_dict(sd["opt_state"])
-        self.sampler = LossAwareSamplerState.from_state_dict(
-            sd["sampler"], self.model.device)
+        for k, v in self.sampler.state_dict().items():
+            v.copy_(sd["sampler"][k])
         self.step = step
 
     @torch.no_grad()
@@ -324,23 +362,35 @@ class TrainState:
                 v.copy_(src[k])
 
 
-def init_state(cfg: VideoDiffusionConfig, model: VqVideoDiffusionModel) -> TrainState:
+def init_state(cfg, model: torch.nn.Module) -> TrainState:
+    """A fresh state for ``model`` under ``cfg`` (either diffusion
+    trainer's config): the optimizer (optax.MultiSteps with the config's
+    ``accumulation_steps``), the EMA of the parameters when ``ema_decay`` >
+    0, and the loss-aware sampler."""
     schedule = warmup_cosine_schedule(cfg.lr, cfg.warmup, cfg.max_steps)
-    opt = make_optimizer(cfg.optimizer, model.parameters(), schedule, cfg.weight_decay)
-    ema = ema_init(dict(model.named_parameters())) if cfg.ema_decay > 0 else None
-    return TrainState(model, opt, ema, loss_aware_init(device=model.device))
+    # JAX wraps the optimizer in optax.MultiSteps only for more than one step
+    opt = make_optimizer(cfg.optimizer, model.parameters(), schedule, cfg.weight_decay,
+                         accumulation_steps=max(1, getattr(cfg, "accumulation_steps", 1)))
+    ema, ema_flat = None, None
+    if cfg.ema_decay > 0:
+        ema_flat = opt.flat.clone()
+        names = [n for n, _ in model.named_parameters()]
+        ema = dict(zip(names, opt.views(ema_flat)))
+    return TrainState(model, opt, ema, loss_aware_init(device=model.device),
+                      ema_flat=ema_flat)
 
 
-def train_step(
+def step_body(
     state: TrainState,
     tok: VQAutoEncoder,
     frames: torch.Tensor,
     cfg: VideoDiffusionConfig,
     draws: StepDraws,
-) -> Tuple[float, float, bool]:
+) -> torch.Tensor:
     """One optimizer step (JAX ``step_body``, cli/video_diffusion.py:537-609)
-    on a (B, S, H, W, C) clip batch; updates ``state`` in place and
-    returns (loss, grad norm, ok) read on the host."""
+    on a (B, S, H, W, C) clip batch, on the device with no host read:
+    updates ``state``'s tensors in place (not ``state.step``) and returns
+    the packed (loss, grad norm, ok) float32 (3,) tensor."""
     frames = as_frames(frames)
     b, s, hh, ww, c = frames.shape
     k = tok.num_embeddings
@@ -363,27 +413,44 @@ def train_step(
     return ce_step(state, (batch_z,), target, r, cfg)
 
 
+def train_step(
+    state: TrainState,
+    tok: VQAutoEncoder,
+    frames: torch.Tensor,
+    cfg: VideoDiffusionConfig,
+    draws: StepDraws,
+) -> Tuple[float, float, bool]:
+    """``step_body`` run eagerly, counted in ``state.step``, its (loss, grad
+    norm, ok) read on the host."""
+    stats = step_body(state, tok, frames, cfg, draws)
+    state.step += 1
+    return as_row(stats.tolist())
+
+
 def ce_step(
     state: TrainState,
     inputs: Tuple[torch.Tensor, ...],
     target: torch.Tensor,
     r: Optional[torch.Tensor],
     cfg,
-) -> Tuple[float, float, bool]:
+) -> torch.Tensor:
     """The part of a step the diffusion trainers share: the model's
     forward on ``inputs`` (bf16 on the f32 masters with ``cfg.bf16``),
     cross-entropy against ``target`` (B, ...), backward, the global grad
-    norm, the step's one host read, then the guard: an accepted step
-    updates the sampler with the per-sample losses at times ``r`` (None:
-    no sampler update), applies AdamW and the EMA. Returns (loss, grad
-    norm, ok)."""
+    norm, then JAX's update and guard on the device: the gradients
+    ``nan_to_num``ed, the optimizer's proposal, the EMA of the proposed
+    parameters and the sampler updated with the per-sample losses at times
+    ``r`` (None: no sampler update); with ``cfg.nan_guard`` the old state is
+    kept where the loss or the grad norm is not finite. Writes the state in
+    place and returns the packed (loss, grad norm, ok) float32 (3,)
+    tensor."""
     model = state.model
-    params = dict(model.named_parameters())
-    state.optimizer.zero_grad()
+    opt = state.optimizer
+    opt.zero_grad()
     if cfg.bf16:
         # a differentiable cast: the gradients land on the f32 masters
         low = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-               for n, p in params.items()}
+               for n, p in model.named_parameters()}
         logits = torch.func.functional_call(model, low, inputs)
     else:
         logits = model(*inputs)
@@ -392,26 +459,40 @@ def ce_step(
         reduction="none")
     loss = ce.mean()
     loss.backward()
-    grads = [p.grad for p in params.values() if p.grad is not None]
-    gn = global_grad_norm(grads)
-    ok = torch.isfinite(loss.detach()) & torch.isfinite(gn)
-    # the step's one host sync: the guard decides on the host
-    loss_v, gn_v, ok_v = torch.stack(
-        [loss.detach(), gn, ok.to(torch.float32)]).tolist()
-    ok_v = ok_v > 0.5
-    if ok_v or not cfg.nan_guard:
+    with torch.no_grad():
+        loss = loss.detach()
+        g = opt.flat_grad()
+        gn = torch.linalg.vector_norm(g)
+        ok = torch.isfinite(loss) & torch.isfinite(gn)
+        old = {"opt": opt.state_tensors()}
+        new = {"opt": opt.propose(torch.nan_to_num(g))}
+        if state.ema_flat is not None:
+            d = cfg.ema_decay
+            old["ema"] = state.ema_flat
+            new["ema"] = state.ema_flat * d + new["opt"]["params"] * (1.0 - d)
         if r is not None:
             per_sample = ce.detach().reshape(target.shape[0], -1).mean(1)
-            state.sampler = loss_aware_update(
-                state.sampler, r, torch.nan_to_num(per_sample))
-        if not ok_v:  # finite gradients are unchanged by nan_to_num
-            for g in grads:
-                g.nan_to_num_()
-        state.optimizer.step()
-        if state.ema is not None:
-            ema_update(state.ema, params, cfg.ema_decay)
-    state.step += 1
-    return loss_v, gn_v, ok_v
+            upd = loss_aware_update(state.sampler, r, torch.nan_to_num(per_sample))
+            old["sampler"] = {"weights": state.sampler.weights,
+                              "counts": state.sampler.counts}
+            new["sampler"] = {"weights": upd.weights, "counts": upd.counts}
+        if cfg.nan_guard:
+            new = reject_nonfinite(ok, old, new)
+        opt.assign(new["opt"])
+        if "ema" in new:
+            state.ema_flat.copy_(new["ema"])
+        if "sampler" in new:
+            state.sampler.weights.copy_(new["sampler"]["weights"])
+            state.sampler.counts.copy_(new["sampler"]["counts"])
+        return torch.stack([loss.float(), gn, ok.to(torch.float32)])
+
+
+def step_program(state: TrainState, io: StepInputs,
+                 body: Callable[[], torch.Tensor]) -> StepProgram:
+    """The program of one step: ``body()`` (the step on ``io``'s buffers)
+    recorded into ``io``'s stats."""
+    return StepProgram(lambda: io.record(body()), state.model.device,
+                       keep=lambda: state.tensors() + [io.stats, io.row], inputs=io)
 
 
 def checkpoint_restorer(saver: AsyncCheckpointSaver, state: TrainState, cfg):
@@ -507,6 +588,9 @@ class TrainResult:
     token_shape: Tuple[int, int, int]
     # per evaluation: (step, tag, PNG path, wall seconds)
     evals: List[Tuple[int, str, str, float]]
+    # the step program (its graph's launches on the GPU), the timing report
+    program: Optional[StepProgram] = None
+    timing: Optional[Dict] = None
 
 
 def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
@@ -585,42 +669,61 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     gen = torch.Generator(device=device).manual_seed(cfg.manual_seed)
     n_tokens = token_shape[1] * token_shape[2]
     n_buckets = state.sampler.weights.shape[0]
+    kdisp = max(1, cfg.steps_per_dispatch)
     batches = PrefetchIterator(
-        lambda: clip_fn(cfg.batch_size), depth=2, device=device)
+        lambda: clip_fn(cfg.batch_size),
+        # a dispatch drains k batches at once: keep the worker a dispatch ahead
+        depth=max(2, kdisp + 1), device=device,
+        probe_every=5 * kdisp if cfg.timing_report else 0)
     logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                           project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
     # JAX trainer samples the flag at log points)
     guard = CheckpointGuard(checkpoint_restorer(saver, state, cfg))
+    tm = TrainTiming(probe_interval=cfg.probe_interval if cfg.timing_report else 0)
     history: List[Tuple[int, float, float, bool, float]] = []
     rejected = 0
+    io: Optional[StepInputs] = None
+    program: Optional[StepProgram] = None
+    seen_sizes = set()  # dispatch lengths already run
+
+    def feed(frames):
+        """A step's clip batch and draws into the program's inputs."""
+        io.tensors["frames"].copy_(frames)
+        draw_step(gen, cfg.batch_size, n_tokens, n_buckets, num_embeddings,
+                  out=io.draws)
+
     t0 = time.time()
     try:
         while state.step < cfg.max_steps:
-            frames = next(batches)
-            draws = draw_step(gen, cfg.batch_size, n_tokens, n_buckets,
-                              num_embeddings)
-            loss, gn, ok = train_step(state, tok, frames, cfg, draws)
             step = state.step
-            history.append((step, loss, gn, ok, time.perf_counter()))
-            accepted = ok or not cfg.nan_guard
-            if not accepted:
-                rejected += 1
-                print(f"{step}: step REJECTED (non-finite loss/grads)")
-            guard.record(accepted, step)
+            n = dispatch_len(step, kdisp, cfg.max_steps, start_step + 1, (
+                cfg.log_interval, cfg.histogram_interval, cfg.checkpoint_interval,
+                cfg.eval_interval, tm.probe_interval))
+            tt = time.perf_counter()
+            frame_list = [next(batches) for _ in range(n)]
+            tm.add("data", time.perf_counter() - tt)
+            if program is None:
+                io = step_inputs({"frames": torch.empty_like(frame_list[0])},
+                                 StepDraws.empty(cfg.batch_size, n_tokens, n_buckets, device),
+                                 kdisp)
+                program = step_program(state, io, lambda: step_body(
+                    state, tok, io.tensors["frames"], cfg, io.draws))
+            rows = run_dispatch(program, io, tm, step, [
+                functools.partial(feed, f) for f in frame_list], frame_list[-1], seen_sizes)
+            rejected += record_steps(history, guard, rows, step, cfg, state)
+            step += n
             if step % cfg.log_interval == 0 or step == start_step + 1:
-                dt, t0 = time.time() - t0, time.time()
-                m = {"loss": loss, "grad_norm": gn, "lr": lr_of(step),
-                     "steps_per_sec": cfg.log_interval / max(dt, 1e-9)}
-                logger.log(step, **m)
-                print(f"{step}: loss {loss:.3e} lr {m['lr']:.3e} "
-                      f"grad_norm {gn:.3e}")
+                t0 = log_point(logger, tm, rows[-1], step, lr_of(step), cfg, t0,
+                               start_step, kdisp, seen_sizes)
             if cfg.histogram_interval and step % cfg.histogram_interval == 0:
                 logger.log_histogram(step, "sampler_weights",
                                      loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
+                tt = time.perf_counter()
                 path = saver.save(cfg.output_dir, step, state.state_dict(), config)
+                tm.add("checkpoint", time.perf_counter() - tt)
                 print("checkpoint:", path)
             if cfg.eval_interval and step % cfg.eval_interval == 0:
                 for tag, weights in (("base", None), ("ema", state.ema)):
@@ -632,13 +735,16 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
                         clip_fn=eval_clip_fn, generator=eval_gen, tag=tag,
                         step=step, logger=logger)
                     evals.append((step, tag, path, time.perf_counter() - te))
+                    tm.add("eval", time.perf_counter() - te)
     finally:
         try:
             saver.wait()  # the last save must land before exit
         finally:
+            report = write_timing(tm, cfg, batches, {"token_shape": list(token_shape)},
+                                  config)
             batches.close()
             logger.close()
-    return TrainResult(state, history, rejected, token_shape, evals)
+    return TrainResult(state, history, rejected, token_shape, evals, program, report)
 
 
 def main(argv=None):

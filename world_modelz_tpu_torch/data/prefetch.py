@@ -4,13 +4,16 @@ Port of ``world_modelz_tpu.data.prefetch.PrefetchIterator``: a worker
 thread assembles host batches into a bounded queue, ``depth`` batches
 ahead, and copies each to the device from pinned memory with
 ``non_blocking=True``, so ``next()`` usually returns a batch that is
-already on its way to the card.
+already on its way to the card. With ``probe_every`` N > 0, every Nth
+copy is fenced (one element read back) and timed, for the trainers' timing
+report (``transfer_stats``, ``train/timing.py``).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
@@ -35,6 +38,8 @@ class PrefetchIterator:
         a tensor).
       depth: number of batches to keep ready ahead of the consumer.
       device: target device; None keeps batches on the host.
+      probe_every: if > 0, every Nth device copy is fenced and timed (the
+        fence briefly serializes the worker; keep N large).
 
     An exception in ``make_batch`` is raised by the ``next()`` that would
     have returned its batch. ``close()`` stops and joins the worker.
@@ -47,9 +52,13 @@ class PrefetchIterator:
         make_batch: Callable[[], Any],
         depth: int = 2,
         device: Optional[torch.device] = None,
+        probe_every: int = 0,
     ):
         self._make_batch = make_batch
         self._device = torch.device(device) if device is not None else None
+        self._probe_every = int(probe_every)
+        self._n_put = 0
+        self._h2d: list = []  # (bytes, seconds) of the fenced copies
         self._queue: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
@@ -61,7 +70,16 @@ class PrefetchIterator:
             try:
                 batch = self._make_batch()
                 if self._device is not None:
+                    self._n_put += 1
+                    probe = self._probe_every > 0 and self._n_put % self._probe_every == 0
+                    t0 = time.perf_counter()
                     batch = _to_device(batch, self._device)
+                    if probe:
+                        from world_modelz_tpu_torch.train.timing import fence_value
+
+                        fence_value(batch)
+                        self._h2d.append((batch.numel() * batch.element_size(),
+                                          time.perf_counter() - t0))
             except Exception as e:  # raised again by the consumer's next()
                 self._error = e
                 self._put(self._SENTINEL)
@@ -84,6 +102,23 @@ class PrefetchIterator:
         if item is self._SENTINEL:
             raise self._error if self._error else StopIteration
         return item
+
+    def transfer_stats(self):
+        """Fenced host-to-device copy stats (None if never probed), with the
+        JAX package's keys."""
+        if not self._h2d:
+            return None
+        times = sorted(t for _, t in self._h2d)
+        med = times[len(times) // 2]
+        mb = self._h2d[-1][0] / 1e6
+        return {
+            "n_probes": len(self._h2d),
+            "h2d_ms_per_batch": round(med * 1e3, 3),
+            "mb_per_batch": round(mb, 3),
+            "mb_per_sec": round(mb / max(med, 1e-9), 1),
+            "note": "fenced device_put of one prefetched batch (worker "
+            "thread); steady-state puts are async and may overlap compute",
+        }
 
     def close(self, timeout: float = 10.0) -> None:
         self._stop.set()

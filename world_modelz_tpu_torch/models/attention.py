@@ -43,6 +43,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -66,6 +67,39 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense_apply(x, self.weight, self.bias)
+
+
+class _EmbeddingFunction(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient is one_hot(indices)^T @ grad, a
+    GEMM, so every run sums a row's contributions in the same order."""
+
+    @staticmethod
+    def forward(ctx, indices, weight):
+        ctx.save_for_backward(indices)
+        ctx.rows = weight.shape[0]
+        return F.embedding(indices, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        flat = indices.reshape(-1, 1)
+        g = g.reshape(-1, g.shape[-1])
+        onehot = torch.zeros((flat.shape[0], ctx.rows), dtype=g.dtype, device=g.device)
+        onehot.scatter_(1, flat, 1.0)
+        return None, onehot.t() @ g
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding``'s parameters and state_dict, with a weight gradient
+    that is the same on every run: PyTorch's CUDA embedding backward adds
+    the rows of repeated indices with atomics (two f32 backward passes of
+    24,576 indices into 513 rows differed in every row used, torch 2.11 on
+    an H100), which would make two runs of a train step differ in their
+    last bits. The gradient is a one-hot product instead
+    (``_EmbeddingFunction``); the values are the same sums."""
+
+    def forward(self, indices: torch.Tensor) -> torch.Tensor:
+        return _EmbeddingFunction.apply(indices, self.weight)
 
 
 class FeedForward(nn.Module):
@@ -412,7 +446,12 @@ class Local3dAttention(nn.Module):
       (no ``to_out``, or a shape ``block_supported`` turns away).
     The parameters and the state_dict are the same for every backend. The
     dropout after ``to_out`` follows ``module.train()``, as flax's
-    ``train=True``."""
+    ``train=True``. ``use_checkpointing`` (JAX's, on by default) recomputes
+    the plain attention core (``"xla"``) in the backward pass instead of
+    keeping its (B, S, H, W, window) weights, as ``jax.checkpoint`` does
+    (local_3d_attention.py:110-113); the kernel routes take no extra
+    checkpoint (their backward reruns what it needs), as JAX's Pallas route
+    does not."""
 
     def __init__(
         self,
@@ -422,6 +461,7 @@ class Local3dAttention(nn.Module):
         dim_head: int = 64,
         dropout: float = 0.0,
         backend: str = "auto",
+        use_checkpointing: bool = True,
     ):
         super().__init__()
         if backend not in LOCAL3D_BACKENDS:
@@ -430,6 +470,7 @@ class Local3dAttention(nn.Module):
         inner = heads * dim_head
         self.extents = tuple(int(e) for e in extents)
         self.heads, self.dim_head, self.backend = heads, dim_head, backend
+        self.use_checkpointing = use_checkpointing
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = Dense(dim, inner)
@@ -441,10 +482,15 @@ class Local3dAttention(nn.Module):
         """x: normed (B, S, H, W, dim) key/value input; q: query input."""
         if self.backend == "fused":
             return self._fused(x, q)
-        attend = (local3d_attention if self.backend == "xla"
-                  else local3d_kernels.local3d_attention)
-        out = attend(self.to_q(q), self.to_k(x), self.to_v(x), self.extents,
-                     self.heads)
+        qp, k, v = self.to_q(q), self.to_k(x), self.to_v(x)
+        if self.backend != "xla":
+            out = local3d_kernels.local3d_attention(qp, k, v, self.extents, self.heads)
+        elif self.use_checkpointing and torch.is_grad_enabled():
+            out = torch.utils.checkpoint.checkpoint(
+                local3d_attention, qp, k, v, self.extents, self.heads,
+                use_reentrant=False)
+        else:
+            out = local3d_attention(qp, k, v, self.extents, self.heads)
         if self.to_out is not None:
             out = self.to_out(out)
         return out
@@ -506,17 +552,19 @@ class Local3dAttentionTransformer(nn.Module):
         mlp_dim: int,
         dropout: float = 0.0,
         backend: str = "auto",
+        use_checkpointing: bool = True,
     ):
         super().__init__()
-        self.embedding = nn.Embedding(num_classes, dim)
-        self.pos_emb_s = nn.Embedding(data_shape[0], dim)
-        self.pos_emb_h = nn.Embedding(data_shape[1], dim)
-        self.pos_emb_w = nn.Embedding(data_shape[2], dim)
+        self.embedding = Embedding(num_classes, dim)
+        self.pos_emb_s = Embedding(data_shape[0], dim)
+        self.pos_emb_h = Embedding(data_shape[1], dim)
+        self.pos_emb_w = Embedding(data_shape[2], dim)
         self.layers = nn.ModuleList(
             nn.ModuleList([
                 PreNorm(dim, Local3dAttention(
                     dim, extents, heads=heads, dim_head=dim_head,
                     dropout=dropout, backend=backend,
+                    use_checkpointing=use_checkpointing,
                 )),
                 PreNorm(dim, FeedForward(dim, mlp_dim, dropout=dropout)),
             ])

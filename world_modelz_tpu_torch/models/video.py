@@ -22,6 +22,7 @@ from world_modelz_tpu_torch._device import DeviceLike, resolve_device
 from world_modelz_tpu_torch.models.attention import (
     Dense,
     DenseTransformer,
+    Embedding,
     Local3dAttentionTransformer,
 )
 
@@ -34,7 +35,9 @@ class VqVideoDiffusionModel(nn.Module):
     ``device=None`` means ``"cuda"`` (raises without a GPU); ``dtype`` is the
     parameter dtype (the serving configuration runs bfloat16); ``backend``
     is the attention's (``Local3dAttention``: ``"auto"``, ``"pallas"``,
-    ``"xla"`` or ``"fused"``, the whole block in one kernel). The model
+    ``"xla"`` or ``"fused"``, the whole block in one kernel);
+    ``use_checkpointing`` recomputes the plain attention core in the
+    backward pass (``Local3dAttention``; JAX's default, True). The model
     starts in eval mode, as serving uses it; a trainer calls ``.train()``
     (dropout on, flax's ``train=True``).
     """
@@ -51,6 +54,7 @@ class VqVideoDiffusionModel(nn.Module):
         heads: int = 1,
         dropout: float = 0.0,
         backend: str = "auto",
+        use_checkpointing: bool = True,
         *,
         device: DeviceLike = None,
         dtype: Optional[torch.dtype] = None,
@@ -63,7 +67,7 @@ class VqVideoDiffusionModel(nn.Module):
             data_shape=tuple(int(x) for x in data_shape), dim=dim,
             num_classes=num_classes, extents=tuple(int(e) for e in extents),
             depth=depth, dim_head=dim_head, mlp_dim=mlp_dim, heads=heads,
-            dropout=dropout, backend=backend)
+            dropout=dropout, backend=backend, use_checkpointing=use_checkpointing)
         self.transformer = Local3dAttentionTransformer(
             data_shape=data_shape,
             dim=dim,
@@ -75,6 +79,7 @@ class VqVideoDiffusionModel(nn.Module):
             mlp_dim=mlp_dim,
             dropout=dropout,
             backend=backend,
+            use_checkpointing=use_checkpointing,
         )
         self.logit_proj = Dense(dim, num_classes)
         self.to(device=dev, dtype=dtype)
@@ -128,10 +133,10 @@ class VqSparseDiffusionModel(nn.Module):
         self.shape = tuple(int(x) for x in shape)
         self.num_classes = num_classes
         s, h, w = self.shape
-        self.pos_emb_s = nn.Embedding(s, dim)
-        self.pos_emb_h = nn.Embedding(h, dim)
-        self.pos_emb_w = nn.Embedding(w, dim)
-        self.embedding = nn.Embedding(num_classes + 1, dim)  # + mask class
+        self.pos_emb_s = Embedding(s, dim)
+        self.pos_emb_h = Embedding(h, dim)
+        self.pos_emb_w = Embedding(w, dim)
+        self.embedding = Embedding(num_classes + 1, dim)  # + mask class
         self.transformer = DenseTransformer(
             dim, depth, heads=heads, dim_head=dim_head, mlp_dim=mlp_dim,
             dropout=dropout, attn_backend=attn_backend,

@@ -2,6 +2,7 @@
 flax's dense apply (``ops.dense``)."""
 
 from world_modelz_tpu_torch.ops.vq import (
+    VQ1State,
     VQOutput,
     VQState,
     codebook_distances,
@@ -14,6 +15,8 @@ from world_modelz_tpu_torch.ops.vq import (
     vq_reset_stats,
     vq_reuse_inactive,
     vq_train_stats_reference,
+    vq1_apply,
+    vq1_init,
 )
 
 __all__ = [
@@ -29,4 +32,7 @@ __all__ = [
     "vq_train_stats_reference",
     "vq_reuse_inactive",
     "vq_reset_stats",
+    "VQ1State",
+    "vq1_init",
+    "vq1_apply",
 ]

@@ -310,3 +310,82 @@ def vq_reset_stats(state: VQState) -> VQState:
         activation_count=torch.zeros_like(state.activation_count),
         accumulated_error=torch.zeros_like(state.accumulated_error),
     )
+
+
+@dataclasses.dataclass
+class VQ1State:
+    """State of the classic single-codebook EMA quantizer (JAX ``VQ1State``,
+    vq-video-diffusion/vq.py:114-174), which tracks the EMA of the weighted
+    input sum (``ema_w``) apart and divides by the EMA cluster size each
+    step.
+
+    Attributes:
+      codebook: (K, D) code vectors.
+      ema_cluster_size: (K,) EMA of per-code assignment counts.
+      ema_w: (K, D) EMA of the inputs summed per code.
+    """
+
+    codebook: torch.Tensor
+    ema_cluster_size: torch.Tensor
+    ema_w: torch.Tensor
+
+
+def vq1_init(
+    *,
+    num_embeddings: int,
+    embedding_dim: int,
+    generator: torch.Generator = None,
+    device=None,
+) -> VQ1State:
+    """Random-normal codebook and ``ema_w``, zero cluster sizes."""
+    shape = (num_embeddings, embedding_dim)
+    return VQ1State(
+        codebook=torch.randn(shape, generator=generator, device=device),
+        ema_cluster_size=torch.zeros((num_embeddings,), device=device),
+        ema_w=torch.randn(shape, generator=generator, device=device),
+    )
+
+
+def vq1_apply(
+    state: VQ1State,
+    x: torch.Tensor,
+    *,
+    train: bool,
+    decay: float = 0.99,
+    eps: float = 1e-5,
+) -> Tuple[VQOutput, VQ1State]:
+    """Single-codebook EMA quantization (JAX ``vq1_apply``,
+    vq-video-diffusion/vq.py:131-174): nearest codes by |x|^2 + |e|^2 -
+    2 x.e in f32; when ``train``, the cluster sizes and ``ema_w`` are
+    EMA-updated with the batch's assignments (Laplace-smoothed sizes) and
+    the codebook is ``ema_w / size``, and the output is quantized with that
+    new codebook. Indices are (N,) int32 over the flattened input;
+    gradients reach ``x`` through the commitment loss and the
+    straight-through output only."""
+    num_codes, dim = state.codebook.shape
+    flat_x = x.reshape(-1, dim)
+    with torch.no_grad():
+        fx = flat_x.detach().float()
+        e = state.codebook.float()
+        distances = ((fx * fx).sum(1, keepdim=True) + (e * e).sum(1)
+                     - 2.0 * fx @ e.T)
+        indices = distances.argmin(-1).to(torch.int32)
+        onehot = torch.nn.functional.one_hot(indices.long(), num_codes).to(torch.float32)
+        new_state = state
+        if train:
+            cluster = state.ema_cluster_size * decay + onehot.sum(0) * (1.0 - decay)
+            n = cluster.sum()
+            cluster = (cluster + eps) / (n + num_codes * eps) * n
+            ema_w = state.ema_w * decay + (onehot.T @ fx) * (1.0 - decay)
+            new_state = VQ1State(codebook=ema_w / cluster[:, None],
+                                 ema_cluster_size=cluster, ema_w=ema_w)
+        q = new_state.codebook[indices.long()].reshape(x.shape).to(x.dtype)
+        avg_probs = onehot.mean(0)
+        perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
+    out = VQOutput(
+        quantized=x + (q - x).detach(),  # straight-through estimator
+        indices=indices,
+        commitment_loss=((q - x) ** 2).mean(),  # q carries no graph
+        perplexity=perplexity,
+    )
+    return out, new_state

@@ -6,10 +6,10 @@ Port of ``world_modelz_tpu.train.guard``. ``tree_all_finite`` and
 ``max_rejects`` consecutive rejected steps the guard calls its restore
 callback (reload the last good checkpoint).
 
-The port's trainer reads the step's ``ok`` flag on the host every step and
-skips a rejected update outright, which leaves every tensor of the state
-bitwise as it was; ``reject_nonfinite`` keeps the JAX package's on-device
-select for callers that hold their states as dicts.
+The diffusion trainers select on the device with ``reject_nonfinite``
+inside their step (``cli/video_diffusion.py:ce_step``), as JAX's
+``step_body`` does, and hand each step's ``ok`` flag to the guard after
+the dispatch's one host read; the tokenizer trainer decides on the host.
 """
 
 from __future__ import annotations

@@ -1,55 +1,187 @@
 """Optimizer construction and the global gradient norm.
 
-Port of ``world_modelz_tpu.train.optim``: ``"adamw"`` is
-``torch.optim.AdamW`` and ``"adam"`` ``torch.optim.Adam`` (eps 1e-8, as
-optax), with the learning rate set from a schedule before every update.
+Port of ``world_modelz_tpu.train.optim`` (``optax.adamw`` / ``optax.adam``)
+and of ``optax.MultiSteps`` (``--accumulation_steps``, JAX's
+cli/video_diffusion.py:459-460), written so that a whole train step can be
+captured in a CUDA graph:
 
-optax evaluates a schedule at the update count *before* incrementing it,
-so with a warmup the first update runs at lr = schedule(0) = 0 while the
-moments still move; ``ScheduledOptimizer`` does the same. torch's AdamW
-decays the weights by lr * wd before the Adam update, which is optax's
-``add_decayed_weights`` on the same (pre-update) parameters.
+- the parameters are views into one flat buffer (the f32 masters), and
+  so are the two Adam moments (and the gradient accumulator), so an
+  update is a few elementwise launches over the flat buffers, and the
+  guard's select of the old or the new state is one ``torch.where`` per
+  buffer;
+- the update count is a device tensor, and the learning rate is the
+  schedule evaluated on it in float32 before it is incremented, as optax
+  evaluates its schedule (``schedules.py``): with a warmup the first update
+  runs at lr = schedule(0) = 0 while the moments move;
+- the arithmetic is optax's, in its order: mu = (1 - b1) g + b1 mu, nu =
+  (1 - b2) g^2 + b2 nu, u = mu_hat / (sqrt(nu_hat) + eps) with the bias
+  corrections at count + 1, then (AdamW) u + wd p, then p + (-lr) u.
+
+``propose`` computes the new state out of place, ``assign`` writes a state
+into the live buffers; ``step`` is the two for the parameters' ``.grad``.
+torch's own ``capturable`` optimizers are not used: they refuse CPU
+tensors, so the CPU and the card would run different update code, and
+their per-parameter state would make the guard's select a launch per
+tensor.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Union
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
-LearningRate = Union[float, Callable[[int], float]]
+LearningRate = Union[float, Callable]
 
 
 class ScheduledOptimizer:
-    """A torch optimizer plus its schedule and update count.
+    """AdamW (``weight_decay`` applied) or Adam over flat buffers, with its
+    schedule and, for ``accumulation_steps`` k > 1, optax.MultiSteps: each
+    call folds the gradient into the running mean acc + (g - acc) / (n + 1)
+    of the n mini-steps so far, every k-th applies the inner update with
+    the mean and clears it, the others leave the parameters, the moments and
+    the count as they are (zero updates). The schedule counts inner updates
+    only.
 
-    ``step()`` sets every group's lr to ``schedule(count)``, applies the
-    update, and counts it. A step that is not taken (a rejected update)
-    leaves the count, so the schedule, where it was, as optax's rejected
-    ``opt_state`` does.
-    """
+    ``count`` is the number of inner updates applied (optax's count, the
+    schedule's step). A step that is rejected (``assign`` of the old state)
+    leaves it, so the schedule, where it was."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, schedule: LearningRate):
-        self.optimizer = optimizer
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        schedule: LearningRate,
+        *,
+        weight_decay: Optional[float] = 0.0,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        accumulation_steps: int = 1,
+    ):
+        self.params: List[torch.nn.Parameter] = list(params)
+        if not self.params:
+            raise ValueError("no parameters to optimize")
+        if len({p.dtype for p in self.params}) != 1 or not self.params[0].is_floating_point():
+            raise ValueError("the optimizer keeps its parameters in one flat buffer "
+                             "of one floating dtype")
+        if accumulation_steps < 1:
+            raise ValueError(f"accumulation_steps must be >= 1, got {accumulation_steps}")
         self.schedule = schedule if callable(schedule) else (lambda _: schedule)
-        self.count = 0
+        self.weight_decay = weight_decay  # None: Adam (no decayed weights)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.accumulation_steps = int(accumulation_steps)
+        self._sizes = [p.numel() for p in self.params]
+        with torch.no_grad():
+            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+            for p, view in zip(self.params, self.views(self.flat)):
+                p.data = view
+        dev = self.flat.device
+        self.mu = torch.zeros_like(self.flat)
+        self.nu = torch.zeros_like(self.flat)
+        self.count_t = torch.zeros((), dtype=torch.int32, device=dev)
+        if self.accumulation_steps > 1:
+            self.acc = torch.zeros_like(self.flat)
+            self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """``flat`` (one value a parameter element) as tensors shaped like
+        the parameters, in their order."""
+        return [v.view_as(p) for v, p in zip(torch.split(flat, self._sizes), self.params)]
+
+    def moments(self, p: torch.nn.Parameter):
+        """(mu, nu) of parameter ``p``: views of the flat moments."""
+        i = next(i for i, q in enumerate(self.params) if q is p)
+        return self.views(self.mu)[i], self.views(self.nu)[i]
+
+    @property
+    def count(self) -> int:
+        return int(self.count_t)
+
+    def flat_grad(self) -> torch.Tensor:
+        """The parameters' ``.grad`` (zeros where None) as one float32 buffer."""
+        return torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+            for p in self.params])
+
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        """The live buffers an update changes, by name."""
+        live = {"params": self.flat, "mu": self.mu, "nu": self.nu, "count": self.count_t}
+        if self.accumulation_steps > 1:
+            live.update(acc=self.acc, mini_step=self.mini_step)
+        return live
+
+    @torch.no_grad()
+    def propose(self, g: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The state after one call with the flat gradient ``g``, out of
+        place (the live buffers are only read)."""
+        b1, b2 = self.b1, self.b2
+        k = self.accumulation_steps
+        new: Dict[str, torch.Tensor] = {}
+        if k > 1:  # optax.MultiSteps with use_grad_mean
+            acc = self.acc + (g - self.acc) / (self.mini_step + 1).to(torch.float32)
+            emit = self.mini_step == k - 1
+            g = acc
+        count_inc = self.count_t + 1
+        mu = (1.0 - b1) * g + b1 * self.mu
+        nu = (1.0 - b2) * (g * g) + b2 * self.nu
+        c = count_inc.to(torch.float32)
+        mu_hat = mu / (1.0 - torch.pow(b1, c))
+        nu_hat = nu / (1.0 - torch.pow(b2, c))
+        u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        if self.weight_decay is not None:
+            u = u + self.weight_decay * self.flat
+        lr = self.schedule(self.count_t)
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), lr, dtype=torch.float32, device=self.flat.device)
+        params = self.flat + (-lr) * u
+        if k > 1:
+            new.update(
+                params=torch.where(emit, params, self.flat),
+                mu=torch.where(emit, mu, self.mu),
+                nu=torch.where(emit, nu, self.nu),
+                count=torch.where(emit, count_inc, self.count_t),
+                acc=torch.where(emit, torch.zeros_like(acc), acc),
+                mini_step=torch.remainder(self.mini_step + 1, k),
+            )
+        else:
+            new.update(params=params, mu=mu, nu=nu, count=count_inc)
+        return new
+
+    @torch.no_grad()
+    def assign(self, state: Dict[str, torch.Tensor]) -> None:
+        """Write ``state`` (``state_tensors``' keys) into the live buffers, in
+        place: a captured step keeps reading the same addresses."""
+        for key, live in self.state_tensors().items():
+            live.copy_(state[key])
 
     def step(self) -> None:
-        lr = float(self.schedule(self.count))
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.count += 1
+        """Apply one call with the parameters' ``.grad``."""
+        self.assign(self.propose(self.flat_grad()))
 
     def zero_grad(self) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
-    def state_dict(self) -> Dict:
-        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The moments, the count (and the accumulator); the parameters are
+        the model's."""
+        return {k: v for k, v in self.state_tensors().items() if k != "params"}
 
-    def load_state_dict(self, sd: Dict) -> None:
-        self.optimizer.load_state_dict(sd["optimizer"])
-        self.count = int(sd["count"])
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Restore the moments, the count (and the accumulator) in place."""
+        live = {k: v for k, v in self.state_tensors().items() if k != "params"}
+        if set(sd) != set(live):
+            raise ValueError(
+                f"optimizer state has {sorted(sd)}, this optimizer (accumulation_steps="
+                f"{self.accumulation_steps}) keeps {sorted(live)}")
+        for key, t in live.items():
+            if tuple(sd[key].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"optimizer state {key}: shape {tuple(sd[key].shape)}, expected "
+                    f"{tuple(t.shape)}")
+            t.copy_(sd[key])
 
 
 def make_optimizer(
@@ -59,21 +191,16 @@ def make_optimizer(
     weight_decay: float = 0.0,
     b1: float = 0.9,
     b2: float = 0.999,
+    accumulation_steps: int = 1,
 ) -> ScheduledOptimizer:
+    """``"adamw"`` (optax.adamw, eps 1e-8) or ``"adam"`` (optax.adam), with
+    optax.MultiSteps when ``accumulation_steps`` > 1."""
     name = name.lower()
-    params = list(params)
-    # foreach: one launch per op for the whole parameter list on CUDA
-    if name == "adamw":
-        opt = torch.optim.AdamW(
-            params, lr=0.0, betas=(b1, b2), eps=1e-8,
-            weight_decay=weight_decay, foreach=True,
-        )
-    elif name == "adam":
-        opt = torch.optim.Adam(
-            params, lr=0.0, betas=(b1, b2), eps=1e-8, foreach=True)
-    else:
+    if name not in ("adamw", "adam"):
         raise ValueError(f"Unsupported optimizer: {name!r}")
-    return ScheduledOptimizer(opt, learning_rate)
+    return ScheduledOptimizer(
+        params, learning_rate, weight_decay=weight_decay if name == "adamw" else None,
+        b1=b1, b2=b2, accumulation_steps=accumulation_steps)
 
 
 @torch.no_grad()

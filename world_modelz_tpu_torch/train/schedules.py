@@ -10,16 +10,30 @@ Port of ``world_modelz_tpu.train.schedules`` with optax semantics:
 - ``step_decay_schedule``: optax ``exponential_decay(staircase=True)``,
   the reference's StepLR (train_vqae.py:304).
 
-The functions are host code; ``host_schedule`` is the JAX package's
-log-point reader, kept so the trainers read the lr the same way.
+A schedule called with a Python int is host code and returns a float
+(``host_schedule`` is the JAX package's log-point reader, kept so the
+trainers read the lr the same way). Called with a tensor (the optimizer's
+update count on the device) it returns a 0-d float32 tensor computed as
+optax computes it in float32, so a captured train step reads its lr from
+the device and no host value is baked into the graph.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Union
 
-Schedule = Callable[[int], float]
+import torch
+
+Step = Union[int, torch.Tensor]
+Schedule = Callable[[Step], Union[float, torch.Tensor]]
+
+
+def _cosine_t(base_lr: float, total_steps: int, step: torch.Tensor) -> torch.Tensor:
+    """optax.cosine_decay_schedule(base_lr, total_steps)(step) in float32."""
+    count = torch.clamp(step.to(torch.float32), max=float(total_steps))
+    decay = 0.5 * (1.0 + torch.cos(math.pi * count / float(total_steps)))
+    return base_lr * decay
 
 
 def _cosine(base_lr: float, total_steps: int, step: int) -> float:
@@ -36,7 +50,17 @@ def warmup_cosine_schedule(
     if total_steps <= 0:
         raise ValueError(f"total_steps must be positive, got {total_steps}")
 
-    def schedule(step: int) -> float:
+    def schedule(step: Step):
+        if isinstance(step, torch.Tensor):
+            if warmup_steps <= 0:
+                return _cosine_t(base_lr, total_steps, step)
+            # optax.join_schedules of linear_schedule(0, base_lr, warmup)
+            # and the cosine, at the boundary ``warmup_steps``
+            count = torch.clamp(step.to(torch.float32), 0.0, float(warmup_steps))
+            frac = 1.0 - count / float(warmup_steps)
+            ramp = (0.0 - base_lr) * frac + base_lr
+            return torch.where(step < warmup_steps, ramp,
+                               _cosine_t(base_lr, total_steps, step - warmup_steps))
         if warmup_steps <= 0:
             return _cosine(base_lr, total_steps, step)
         if step < warmup_steps:
@@ -57,7 +81,11 @@ def step_decay_schedule(
         raise ValueError(
             f"epoch_step_size * steps_per_epoch must be positive, got {period}")
 
-    def schedule(step: int) -> float:
+    def schedule(step: Step):
+        if isinstance(step, torch.Tensor):
+            # optax.exponential_decay(staircase=True) in float32
+            p = torch.floor(step.to(torch.float32) / float(period))
+            return torch.where(step <= 0, base_lr, base_lr * torch.pow(gamma, p))
         return base_lr * gamma ** (max(step, 0) // period)
 
     return schedule

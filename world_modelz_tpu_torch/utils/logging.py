@@ -9,7 +9,9 @@ Records are appended to ``{output_dir}/{name}_metrics.jsonl`` and flushed:
   beside the metrics file, and ``{"step", "t", "image", "path"}`` with its
   path relative to that file.
 
-wandb is not ported (ROADMAP A.8): ``use_wandb=True`` raises.
+With ``use_wandb`` the scalar metrics also go to wandb, as the JAX
+logger sends them; without the ``wandb`` package it warns and logs to the
+JSONL file only, as the JAX logger does.
 """
 
 from __future__ import annotations
@@ -34,14 +36,24 @@ class MetricLogger:
         config: Optional[Dict[str, Any]] = None,
         tags: Optional[str] = None,
     ):
-        if use_wandb:
-            raise NotImplementedError(
-                "wandb logging is not ported to world_modelz_tpu_torch yet "
-                "(ROADMAP A.8)")
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, f"{name}_metrics.jsonl")
         self._file = open(self.path, "a")
         self._t0 = time.time()
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(
+                    project=project or name,
+                    config=config or {},
+                    tags=(tags or "").split(",") if tags else [],
+                    name=name,
+                )
+                self._wandb = wandb
+            except ImportError:
+                print("wandb requested but not installed; logging to JSONL only")
 
     def _write(self, step: int, **fields: Any) -> None:
         record = {"step": step, "t": round(time.time() - self._t0, 3), **fields}
@@ -57,6 +69,8 @@ class MetricLogger:
                 v = v.item()
             record[k] = v
         self._write(step, **record)
+        if self._wandb is not None:
+            self._wandb.log(record, step=step)
 
     def log_histogram(
         self, step: int, key: str, values: Any, bins: int = 64
