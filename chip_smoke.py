@@ -9,12 +9,18 @@ denoisers' parameter gradients through the backward kernels), drives the serving
 (``RolloutService``: encode -> 30-iteration unmask rollout -> decode) at the
 ``serve/m3_g8`` configuration, holds each trainer's step program (its whole
 train step captured as one CUDA graph) bitwise to its eager step at full
-width (auto, fused, gradient accumulation, sparse) and times the two,
-holds the I3D FVD network to the CPU on seeded random weights, drives the
-masked-diffusion trainer (``cli.video_diffusion.train``) at
-``train_step/m3_b64_g8_full`` for 60 steps at ``--steps_per_dispatch`` 1,
-10, 10, 1 (losses and checkpoints bitwise equal, the k = 10 run with its
-timing report), drives the rollout CLI (``cli.rollout.run``: the f32
+width (auto, fused, gradient accumulation, trajectory batches composited in
+the step, sparse) and times the two, holds the I3D FVD network to the CPU
+on seeded random weights, holds on-device MovingMNIST compositing
+(``data/device_composite.py``) to the CPU and to the host compositor and
+times the host data layer (the compiled compositor, which must be the one
+that runs, against its numpy path, for MovingMNIST and for the sparse
+trainer's source), drives the masked-diffusion trainer
+(``cli.video_diffusion.train``) at ``train_step/m3_b64_g8_full`` for 60
+steps at ``--steps_per_dispatch`` 1 and then 10, each on pixels, on
+trajectories composited in the step graph (``--device_composite``) twice
+and on pixels again, with their timing reports (each data format's losses
+and checkpoints bitwise equal across k), drives the rollout CLI (``cli.rollout.run``: the f32
 denoiser of that run's checkpoint, PNGs, GIF, FVD with three extractors,
 PSNR/SSIM)
 and the trainer's ``--eval`` on it, exports that checkpoint
@@ -1670,10 +1676,11 @@ def compare_dispatch_runs(torch, label, recs) -> None:
 
 def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
                    root=os.path.join(HERE, "build", "smoke"), backend="auto",
-                   steps_per_dispatch=1, timing_report=False):
+                   steps_per_dispatch=1, timing_report=False, device_composite=False):
     """The trainer at full width (``cli.video_diffusion.train``) with the
     denoiser's attention ``backend`` and ``steps_per_dispatch``, from a
-    seeded tokenizer checkpoint. On the card the step is one CUDA graph,
+    seeded tokenizer checkpoint; with ``device_composite`` the batches are
+    trajectories, composited inside the step graph. On the card the step is one CUDA graph,
     replayed at every k: its launches must be exactly the step's kernels x
     the steps, with only the capture's warm-up calls and the token-grid
     probe's encode launched outside it. Then (on the card) the ready step
@@ -1693,7 +1700,7 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
     cfg = VideoDiffusionConfig(
         **train, decoder_model=tok_path, output_dir=os.path.join(root, "run"),
         platform="" if dev.type == "cuda" else dev.type,
-        steps_per_dispatch=steps_per_dispatch,
+        steps_per_dispatch=steps_per_dispatch, device_composite=device_composite,
         # the timing report's device probes every 20 steps (default 200)
         timing_report=os.path.join(root, "timing.json") if timing_report else "",
         probe_interval=20 if timing_report else 200)
@@ -1704,8 +1711,9 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
     # convolutions in TF32, matmuls in full f32), not the parity phases' off
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
-    label = f"training ({backend}, k={steps_per_dispatch})"
-    rec = {"k": steps_per_dispatch}
+    label = (f"training ({backend}, k={steps_per_dispatch}"
+             + (", device_composite" if device_composite else "") + ")")
+    rec = {"k": steps_per_dispatch, "data": "composite" if device_composite else "pixels"}
     try:
         launches.clear()
         t0 = time.perf_counter()
@@ -1768,8 +1776,45 @@ def drive_training(torch, dev, launches, smi, train=TRAIN, tokenizer=TOKENIZER,
         rec["timing"] = {k: report.get(k) for k in (
             "window_steps", "steps_per_sec", "breakdown_pct", "probe", "reconciliation",
             "h2d")}
+        rec["data_wait_pct"] = (report.get("breakdown_pct") or {}).get("data")
         log(f"{label}: timing report {cfg.timing_report}: " + json.dumps(rec["timing"]))
     return counts, rec
+
+
+def training_turns(torch, dev, launches, smi, k, switch_interval=None) -> list:
+    """``drive_training`` at ``steps_per_dispatch`` k on pixels and on
+    trajectories composited in the step graph, in turns (pixels, composite,
+    composite, pixels), each with its timing report; at k = 1 the first
+    run's root is ``build/smoke``, whose checkpoint the rollout, evaluation
+    and serving phases read. With ``switch_interval`` (seconds) the
+    interpreter's thread switch interval (5 ms by default) is set to it for
+    these runs, a diagnostic of the prefetch thread's Python holding the GIL
+    against the loop's feed and launch (``main`` runs the default).
+    Returns each run's (launch counts, record) in run order."""
+    old = sys.getswitchinterval()
+    if switch_interval:
+        sys.setswitchinterval(switch_interval)
+    runs = []
+    try:
+        for i, composite in enumerate((False, True, True, False)):
+            first = k == 1 and i == 0 and not switch_interval
+            runs.append(drive_training(
+                torch, dev, launches, smi, steps_per_dispatch=k, timing_report=True,
+                device_composite=composite, root=os.path.join(
+                    HERE, "build", "smoke" if first else f"smoke_k{k}_{i}")))
+    finally:
+        sys.setswitchinterval(old)
+    log(f"training at k = {k} in turns (pixels, composite, composite, pixels; thread switch "
+        f"interval {sys.getswitchinterval() if not switch_interval else switch_interval} s): "
+        + "; ".join(
+            f"{r['data']}: {r['steps_per_s']:.4f} steps/s over steps 11-60, ready-step busy "
+            f"{r.get('busy')}, {r.get('host_calls_per_step')} host launch calls a step, "
+            f"timing report {(r['timing'] or {}).get('breakdown_pct')}, "
+            f"{r.get('batch_bytes')} bytes a batch (h2d "
+            f"{(r['timing'].get('h2d') or {}).get('mb_per_batch')} MB), launches "
+            f"{r['graph']} = captured x 60 replays, device {r.get('device_ms_per_step')} "
+            f"ms a step" for _, r in runs) + f"; on {smi}")
+    return runs
 
 
 def profile_dispatch(torch, dev, cfg, result, label, n=20) -> dict:
@@ -1779,7 +1824,8 @@ def profile_dispatch(torch, dev, cfg, result, label, n=20) -> dict:
     as the prefetch thread ships them (the host ms of making one, timed):
     the unprofiled wall of ``n`` steps, then ``profile_steps`` of ``n``
     more."""
-    from world_modelz_tpu_torch.cli.video_diffusion import build_clip_fn, draw_step
+    from world_modelz_tpu_torch.cli.video_diffusion import build_clip_fn, draw_step, step_batch
+    from world_modelz_tpu_torch.data import batch_to
 
     program, k = result.program, max(1, cfg.steps_per_dispatch)
     io = program.inputs
@@ -1787,7 +1833,9 @@ def profile_dispatch(torch, dev, cfg, result, label, n=20) -> dict:
     t0 = time.perf_counter()
     host = [clip_fn(cfg.batch_size) for _ in range(4)]
     data_ms = (time.perf_counter() - t0) / len(host) * 1e3
-    data = [torch.from_numpy(x).to(dev) for x in host]
+    batch_bytes = sum(x.nbytes for x in (host[0].values() if isinstance(host[0], dict)
+                                          else [host[0]]))
+    data = [step_batch(batch_to(x, dev)) for x in host]
     gen = torch.Generator(device=dev).manual_seed(9)
     n_tok = result.token_shape[1] * result.token_shape[2]
     buckets = result.state.sampler.weights.shape[0]
@@ -1799,7 +1847,8 @@ def profile_dispatch(torch, dev, cfg, result, label, n=20) -> dict:
             m = min(k, count - done)
             io.start()
             for i in range(m):
-                io.tensors["frames"].copy_(data[(done + i) % len(data)])
+                for key, v in data[(done + i) % len(data)].items():
+                    io.tensors[key].copy_(v)
                 draw_step(gen, cfg.batch_size, n_tok, buckets, k_codes, out=io.draws)
                 program()
             io.read(m)
@@ -1811,10 +1860,220 @@ def profile_dispatch(torch, dev, cfg, result, label, n=20) -> dict:
     run(n)
     wall = time.perf_counter() - t0
     log(f"{label}: the data source makes a batch of {cfg.batch_size} clips in "
-        f"{data_ms:.3f} ms on the host (alone, the loop idle)")
+        f"{data_ms:.3f} ms on the host (alone, the loop idle), {batch_bytes:,} bytes")
     return dict(profile_steps(torch, f"{label}: the ready step from its graph",
                               lambda: run(n), n, wall, program.captured),
-                data_ms=round(data_ms, 3))
+                data_ms=round(data_ms, 3), batch_bytes=batch_bytes)
+
+
+COMPOSITE_ULPS = 1  # composite_clips card vs CPU, f32 units in the last place
+
+
+def f32_ulps(np, a, b) -> int:
+    """The largest distance between two f32 arrays in units in the last
+    place (finite values of one sign, as frames in [0, 1] are)."""
+    ai = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    bi = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ai - bi).max())
+
+
+def host_batch_ms(fn, n=10) -> float:
+    """Median host ms of ``n`` calls of ``fn`` (one warm-up first)."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2] * 1e3
+
+
+def check_composite(torch, dev, smi, train=TRAIN) -> dict:
+    """On-device compositing (``data/device_composite.py``) at the m3
+    production shape (B = 64, two digits of 24, 6 frames, 64 x 64):
+    ``composite_clips`` on the card against the CPU for uint8 and float
+    sprites, half the clips at random positions that run off every edge of
+    the canvas (within COMPOSITE_ULPS); the card's frames of a
+    ``sample_batch_traj`` batch equal to the host compositor's clips of the
+    same draws quantized to 1/255 wherever no two sprites overlap; its
+    device time beside its bytes bound. Then the host data layer on this
+    card's host, alone: ms a batch for ``sample_batch_u8`` on the compiled
+    and the numpy compositor, and for ``sample_batch_traj``; the compiled
+    one must be what the trainers run (``native.backend()``)."""
+    import numpy as np
+
+    from world_modelz_tpu_torch.data import MovingMNIST, composite_clips, native
+
+    if native.backend() != "compiled":
+        raise AssertionError(f"the host compositor runs its numpy path: {native.failure()}")
+    b, img, k = train["batch_size"], train["image_size"], train["digit_size"]
+    ds = MovingMNIST(seq_len=train["n_past"] + 1, image_size=img,
+                     num_digits=train["num_digits"], digit_size=k, deterministic=False)
+    traj = ds.sample_batch_traj(np.random.default_rng(21), b)
+    host = ds.sample_batch_u8(np.random.default_rng(21), b).astype(np.float32) / 255.0
+    rng = np.random.default_rng(22)
+    off = traj["pos"].copy()
+    off[: b // 2] = rng.integers(-k - 6, img + 6, off[: b // 2].shape)
+    floats = (rng.random(traj["sprites"].shape, dtype=np.float32) * 0.7).astype(np.float32)
+    rec = {}
+    for name, sprites in (("uint8", traj["sprites"]), ("float32", floats)):
+        cpu = composite_clips(torch.from_numpy(sprites), torch.from_numpy(off), img).numpy()
+        card = composite_clips(torch.from_numpy(sprites).to(dev), torch.from_numpy(off).to(dev),
+                               img).cpu().numpy()
+        ulps = f32_ulps(np, card, cpu)
+        if card.shape != (b, traj["pos"].shape[2], img, img, 1) or ulps > COMPOSITE_ULPS:
+            raise AssertionError(f"composite_clips ({name}): card vs CPU {ulps} ulps "
+                                 f"(limit {COMPOSITE_ULPS}), shape {card.shape}")
+        rec[f"{name}_ulps"] = ulps
+        rec[f"{name}_bitwise"] = bool(np.array_equal(card, cpu))
+    sprites, pos = (torch.from_numpy(traj[key]).to(dev) for key in ("sprites", "pos"))
+    card = composite_clips(sprites, pos, img).cpu().numpy()[..., 0]
+    cover = np.zeros(card.shape, np.int32)
+    for i, j, t in np.ndindex(*traj["pos"].shape[:3]):
+        y, x = traj["pos"][i, j, t]
+        cover[i, t, max(y, 0): y + k, max(x, 0): x + k] += 1
+    alone = cover <= 1
+    if not np.array_equal(card[alone], host[..., 0][alone]) or \
+            np.abs(card - host[..., 0]).max() > 2 / 255:
+        raise AssertionError("composite_clips differs from the host clips quantized to 1/255")
+    nbytes = sum(traj[key].nbytes for key in traj)
+    out_bytes = card.size * 4
+    rec.update(device_ms=device_ms(torch, lambda: composite_clips(sprites, pos, img), 20,
+                                   label="composite_clips"),
+               bound_ms=(nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+               traj_bytes=nbytes, pixel_bytes=int(b * card[0].size), overlap_pixels=int(
+                   (~alone).sum()))
+    gen = np.random.default_rng(23)
+    rec["u8_compiled_ms"] = host_batch_ms(lambda: ds.sample_batch_u8(gen, b))
+    rec["traj_ms"] = host_batch_ms(lambda: ds.sample_batch_traj(gen, b))
+    os.environ["WMZ_DISABLE_NATIVE"] = "1"
+    try:
+        if native.reload() != "numpy":
+            raise AssertionError("WMZ_DISABLE_NATIVE did not select the numpy path")
+        rec["u8_numpy_ms"] = host_batch_ms(lambda: ds.sample_batch_u8(gen, b))
+    finally:
+        del os.environ["WMZ_DISABLE_NATIVE"]
+        if native.reload() != "compiled":
+            raise AssertionError(f"the compiled compositor did not come back: {native.failure()}")
+    log(f"composite_clips at B={b}, 2 digits of {k}, {traj['pos'].shape[2]} frames, "
+        f"{img}x{img}: card vs CPU uint8 {rec['uint8_ulps']} ulps (bitwise "
+        f"{rec['uint8_bitwise']}), float32 {rec['float32_ulps']} ulps (bitwise "
+        f"{rec['float32_bitwise']}), half the clips off the canvas' edges; equal to the host "
+        f"clips quantized to 1/255 where no two sprites overlap ({rec['overlap_pixels']} "
+        f"overlap pixels within 2/255); device {rec['device_ms'] * 1e3:.3f} us against a "
+        f"bytes bound of {rec['bound_ms'] * 1e3:.3f} us; a batch ships {nbytes:,} bytes "
+        f"against {rec['pixel_bytes']:,} of uint8 pixels")
+    log(f"host data layer (this card's host, the loop idle), ms a batch of {b}: "
+        f"sample_batch_u8 compiled {rec['u8_compiled_ms']:.3f}, numpy "
+        f"{rec['u8_numpy_ms']:.3f}; sample_batch_traj {rec['traj_ms']:.3f}; "
+        f"native.backend() {native.backend()}; on {smi}")
+    return rec
+
+
+def time_sparse_source(torch=None, dev=None, train=SPARSE_TRAIN, n=16) -> dict:
+    """The sparse trainer's synthetic source (``sparse_diffusion.build_sampler``'s:
+    ``train``'s frame size, 200 frames a trajectory) on this card's host,
+    median ms a trajectory over its ``n`` trajectories: ``load_frames``
+    whole (the motion loop, then the render), ``render_trajectory`` alone
+    on the inputs ``load_frames`` gave it, and the difference (the motion
+    loop, the same on both paths), on the compiled compositor and on its
+    numpy path, so the compiled render and the motion loop are timed
+    apart. In a package without ``data/native.py`` (an earlier tree, under
+    ``chip_ab.py --phase time_sparse_source --phase-here``) only the numpy
+    path exists, and it alone is timed. Gates nothing."""
+    import importlib
+
+    from world_modelz_tpu_torch.data import trajectory
+
+    try:
+        native = importlib.import_module("world_modelz_tpu_torch.data.native")
+    except ImportError:
+        native = None
+    frames = max(3 * train["S"] * (train["skip_frames"] + 1), 200)
+    src = trajectory.SyntheticTrajectorySource(num_trajectories=n, traj_frames=frames,
+                                               frame_size=train["image_size"])
+    names = src.trajectory_names()
+    render = trajectory.render_trajectory
+    inputs = []
+
+    def keep(*args):
+        inputs.append(args)
+        render(*args)
+
+    trajectory.render_trajectory = keep
+    try:
+        for name in names:
+            for _ in src.load_frames(name):
+                pass
+    finally:
+        trajectory.render_trajectory = render
+
+    def timed(path):
+        """Median ms of load_frames, of the render alone, and of their
+        difference, over the trajectories."""
+        loads, renders = [], []
+        for i, name in enumerate(names):
+            t0 = time.perf_counter()
+            for _ in src.load_frames(name):
+                pass
+            t1 = time.perf_counter()
+            render(*inputs[i])
+            loads.append(t1 - t0)
+            renders.append(time.perf_counter() - t1)
+        for key, xs in (("load", loads), ("render", renders),
+                        ("motion", [a - b for a, b in zip(loads, renders)])):
+            rec[f"{key}_{path}_ms"] = sorted(xs)[n // 2] * 1e3
+
+    rec = {}
+    paths = ["compiled", "numpy"] if native is not None else ["numpy"]
+    for path in paths:
+        if native is None:
+            timed(path)
+            continue
+        if path == "numpy":
+            os.environ["WMZ_DISABLE_NATIVE"] = "1"
+        try:
+            if native.reload() != path:
+                raise AssertionError(f"the compositor runs {native.backend()}, not {path}")
+            timed(path)
+        finally:
+            os.environ.pop("WMZ_DISABLE_NATIVE", None)
+            native.reload()
+    log(f"sparse source on this card's host, median ms a trajectory of {frames} frames of "
+        f"{train['image_size']}x{train['image_size']} over {n}: " + ", ".join(
+            f"{path}: load_frames {rec[f'load_{path}_ms']:.4f}, render_trajectory "
+            f"{rec[f'render_{path}_ms']:.4f}, the rest (the motion loop) "
+            f"{rec[f'motion_{path}_ms']:.4f}" for path in paths)
+        + ("" if native is not None else " (a package without data/native.py)"))
+    return rec
+
+
+def sparse_source_turns(torch, dev, launches, smi) -> list:
+    """The sparse trainer (``drive_sparse_training`` at k = 1, without its
+    evaluation) with its source rendered by the compiled compositor and by
+    its numpy path, in turns (compiled, numpy, numpy, compiled): what the
+    compiled ``render_trajectory`` moves end to end. Not run by ``main``;
+    gates nothing beyond ``drive_sparse_training``'s own. Returns the runs'
+    records."""
+    from world_modelz_tpu_torch.data import native
+
+    recs = []
+    for i, path in enumerate(("compiled", "numpy", "numpy", "compiled")):
+        if path == "numpy":
+            os.environ["WMZ_DISABLE_NATIVE"] = "1"
+        try:
+            if native.reload() != path:
+                raise AssertionError(f"the compositor runs {native.backend()}, not {path}")
+            rec = drive_sparse_training(torch, dev, launches, smi, full=False, root=os.path.join(
+                HERE, "build", f"smoke_sparse_source_{i}"))[1]
+        finally:
+            os.environ.pop("WMZ_DISABLE_NATIVE", None)
+            native.reload()
+        recs.append(dict(rec, source=path))
+    log("sparse training (k=1) in turns (compiled, numpy, numpy, compiled source): " + ", ".join(
+        f"{r['source']} {r['steps_per_s']:.4f}" for r in recs) + f" steps/s over steps "
+        f"11-60; on {smi}")
+    return recs
 
 
 def state_diffs(torch, a, b):
@@ -1841,11 +2100,13 @@ def state_diffs(torch, a, b):
 
 def check_step_program(torch, dev, smi, kind="video", backend="auto",
                        accumulation_steps=1, parity=3, timed=20,
-                       root=os.path.join(HERE, "build", "smoke_step"), train=None):
+                       root=os.path.join(HERE, "build", "smoke_step"), train=None,
+                       device_composite=False):
     """A trainer's step function (``step_body``) eagerly against its step
     program (``train.dispatch.StepProgram``: on the card one CUDA graph,
     replayed), at full width (``kind`` "video": train_step/m3_b64_g8_full
-    with ``backend`` and ``accumulation_steps``; "sparse":
+    with ``backend``, ``accumulation_steps`` and ``device_composite``
+    (trajectory batches, composited inside the step); "sparse":
     train_sparse/s16_n1024_b16), from one seeded state, on the same batches
     and draws: after ``parity`` steps each, the losses, grad norms and
     flags, the parameters, Adam's moments and count (and accumulator), the
@@ -1857,6 +2118,7 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
 
     from world_modelz_tpu_torch.cli import sparse_diffusion as sd
     from world_modelz_tpu_torch.cli import video_diffusion as vd
+    from world_modelz_tpu_torch.data import batch_to
     from world_modelz_tpu_torch.train.dispatch import step_inputs
 
     on_card = dev.type == "cuda"
@@ -1866,11 +2128,12 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
         train = train or TRAIN
         tok_path = seeded_tokenizer_checkpoint(torch, root, train=train)
         cfg = vd.VideoDiffusionConfig(**train, decoder_model=tok_path, platform=platform,
-                                      accumulation_steps=accumulation_steps)
+                                      accumulation_steps=accumulation_steps,
+                                      device_composite=device_composite)
         tok, _ = vd.load_tokenizer(tok_path, dev)
         vd.tokenizer_inference_cast(tok)
         clip_fn, _ = vd.build_clip_fn(cfg, 7)
-        data = [torch.from_numpy(clip_fn(cfg.batch_size)).to(dev) for _ in range(parity)]
+        data = [vd.step_batch(batch_to(clip_fn(cfg.batch_size), dev)) for _ in range(parity)]
         shape = (cfg.n_past + 1, *tok.token_grid_shape((cfg.image_size, cfg.image_size)))
         n_tok, codes = shape[1] * shape[2], tok.num_embeddings
 
@@ -1888,7 +2151,7 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
 
         label = (f"step program train_step/m3_b64_g8_full ({backend}"
                  + (f", accumulation_steps {accumulation_steps}" if accumulation_steps > 1
-                    else "") + ")")
+                    else "") + (", device_composite" if device_composite else "") + ")")
     else:
         train = train or SPARSE_TRAIN
         tok_path = sparse_tokenizer_checkpoint(torch, root, train=train)
@@ -1896,8 +2159,8 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
         tok, _ = sd.load_tokenizer(tok_path, dev)
         sampler = sd.build_sampler(cfg)
         try:
-            data = [sd.encode_batch(tok, torch.from_numpy(
-                sampler.sample_batch(cfg.batch_size)).to(dev), (cfg.S, cfg.H, cfg.W))
+            data = [{"x": sd.encode_batch(tok, torch.from_numpy(
+                sampler.sample_batch(cfg.batch_size)).to(dev), (cfg.S, cfg.H, cfg.W))}
                 for _ in range(parity)]
         finally:
             sampler.close()
@@ -1911,7 +2174,7 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
                                 out=out)
 
         def body(state, x, draws):
-            return sd.step_body(state, x, cfg, draws)
+            return sd.step_body(state, x["x"], cfg, draws)
 
         def empty_draws():
             return sd.StepDraws.empty(cfg.batch_size, cfg.num_context, volume, 100, dev)
@@ -1926,8 +2189,9 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
     try:
         eager, graphed = new_state(), new_state()
-        io = step_inputs({"x": torch.empty_like(data[0])}, empty_draws(), max(parity, timed))
-        program = vd.step_program(graphed, io, lambda: body(graphed, io.tensors["x"], io.draws))
+        io = step_inputs({key: torch.empty_like(v) for key, v in data[0].items()},
+                         empty_draws(), max(parity, timed))
+        program = vd.step_program(graphed, io, lambda: body(graphed, io.tensors, io.draws))
         g_eager = torch.Generator(device=dev).manual_seed(5)
         g_graph = torch.Generator(device=dev).manual_seed(5)
 
@@ -1940,7 +2204,8 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
         def graph_round(n):
             io.start()
             for i in range(n):
-                io.tensors["x"].copy_(data[i % parity])
+                for key, v in data[i % parity].items():
+                    io.tensors[key].copy_(v)
                 draw(g_graph, io.draws)
                 program()
             return io.read(n)
@@ -3327,16 +3592,22 @@ def main() -> int:
              "fused": check_step_program(torch, dev, smi, backend="fused"),
              "accumulation": check_step_program(torch, dev, smi, accumulation_steps=2,
                                                 parity=8, timed=0),
+             "composite": check_step_program(torch, dev, smi, device_composite=True,
+                                             timed=0),
              "sparse": check_step_program(torch, dev, smi, kind="sparse")}
     i3d_path, i3d = check_i3d(torch, dev, smi)
-    # the trainer at k = 1 and k = 10 in turns (A B B A); the first run's
-    # checkpoint feeds the rollout, evaluation and serving phases
-    training, train_a = drive_training(torch, dev, _build.LAUNCHES, smi)
-    dispatch_runs = [train_a] + [drive_training(
-        torch, dev, _build.LAUNCHES, smi, steps_per_dispatch=k, timing_report=k > 1,
-        root=os.path.join(HERE, "build", f"smoke_k{k}_{i}"))[1]
-        for i, k in enumerate((10, 10, 1))]
-    compare_dispatch_runs(torch, "training", dispatch_runs)
+    composite = check_composite(torch, dev, smi)
+    composite["sparse_source"] = time_sparse_source(torch, dev)
+    # the trainer at k = 1 (the first run's checkpoint feeds the rollout,
+    # evaluation and serving phases), then at k = 10, each on pixels and on
+    # trajectories composited in the step graph in turns (A B B A)
+    k1 = training_turns(torch, dev, _build.LAUNCHES, smi, 1)
+    training, train_a = k1[0]
+    dispatch_runs = [rec for _, rec in k1 + training_turns(
+        torch, dev, _build.LAUNCHES, smi, 10)]
+    compare_dispatch_runs(torch, "training", [dispatch_runs[i] for i in (0, 3, 4, 7)])
+    compare_dispatch_runs(torch, "training (device_composite)",
+                          [dispatch_runs[i] for i in (1, 2, 5, 6)])
     rollout = drive_rollout(torch, dev, _build.LAUNCHES, smi, i3d_weights=i3d_path)
     serving_http, graphs = drive_serving_http(torch, dev, _build.LAUNCHES, smi)
     training_fused, train_fused = drive_training(
@@ -3348,6 +3619,11 @@ def main() -> int:
         torch, dev, _build.LAUNCHES, smi, steps_per_dispatch=4, full=False,
         root=os.path.join(HERE, "build", "smoke_sparse_k4"))
     compare_dispatch_runs(torch, "sparse training", [sparse_a, sparse_b])
+    from world_modelz_tpu_torch.data import native
+
+    log(f"sparse training: {sparse_a['steps_per_s']:.4f} (k=1), {sparse_b['steps_per_s']:.4f} "
+        f"(k=4) steps/s over steps 11-60, frames rendered by the host compositor's "
+        f"{native.backend()} path (render_trajectory)")
     # launches of the eight main paths, each counted in its own runs (the
     # graphs' as captured x replays)
     paths = (serving, serving_fused, training, rollout, serving_http,
@@ -3416,10 +3692,10 @@ def main() -> int:
             k["training_graphs"] = dict(
                 launches=sum(rec["graph"].get(k["name"], 0) for rec in runs.values()),
                 per_step=per_step)
-    log(json.dumps({"step_programs": steps, "i3d": i3d, "dispatch": [
-        {key: r.get(key) for key in ("k", "steps_per_s", "busy", "device_ms_per_step",
+    log(json.dumps({"step_programs": steps, "i3d": i3d, "composite": composite, "dispatch": [
+        {key: r.get(key) for key in ("k", "data", "steps_per_s", "busy", "device_ms_per_step",
                                      "host_calls_per_step", "capture_s", "peak_gib",
-                                     "data_ms")}
+                                     "data_ms", "batch_bytes", "data_wait_pct")}
         for r in dispatch_runs + [sparse_a, sparse_b]]}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -75,7 +75,7 @@ def test_build_clip_fn_ships_uint8_clips_of_the_config():
     ref = JaxMovingMNIST(seq_len=6, deterministic=False).sample_batch_u8(
         np.random.default_rng(42), 3)
     np.testing.assert_array_equal(a, ref)
-    frames = vd.as_frames(torch.from_numpy(a))
+    frames = vd.as_frames(torch.from_numpy(a), cfg.image_size)
     assert frames.dtype == torch.float32
     torch.testing.assert_close(frames, torch.from_numpy(a).float() / 255.0)
 

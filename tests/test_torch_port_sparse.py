@@ -488,10 +488,9 @@ def test_decode_volume_clamps_the_mask_token(tok_path):
 
 
 UNPORTED = [
-    dict(dataset="minerl"), dict(dataset="video"), dict(tokenizer="taming:a,b"),
-    dict(data_pipeline="grain"), dict(data_workers=2), dict(moe_experts=2),
+    dict(dataset="minerl"), dict(tokenizer="taming:a,b"), dict(moe_experts=2),
     dict(moe_capacity_factor=2.0), dict(moe_aux_weight=0.1), dict(n_model=2),
-    dict(n_pipe=2), dict(fsdp=True), dict(n_micro=2), dict(mlr_data_dir="/d"),
+    dict(n_pipe=2), dict(fsdp=True), dict(n_micro=2),
 ]
 
 

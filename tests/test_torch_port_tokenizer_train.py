@@ -366,11 +366,7 @@ def test_a_converted_jax_tokenizer_becomes_a_training_state(tmp_path):
     assert not any(t.any() for t in zero.values())
 
 
-UNPORTED = [
-    dict(dataset="files"), dict(data_pipeline="grain"), dict(data_workers=2),
-    dict(n_model=2), dict(file_list_fn="x.json"),
-    dict(image_dir_path="/data"), dict(image_fn_regex=".*"),
-]
+UNPORTED = [dict(n_model=2)]
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))

@@ -507,13 +507,7 @@ def test_resume_restores_the_whole_state_exactly(tok_path, tmp_path):
     _assert_bitwise_equal(a["sd"]["params"], _snapshot(warm.state)["sd"]["params"])
 
 
-UNPORTED = [
-    dict(dataset="synthetic"), dict(data_pipeline="grain"),
-    dict(device_composite=True), dict(n_model=2), dict(n_seq=2),
-    dict(fsdp=True),
-    # flags kept for CLI parity with nothing behind them
-    dict(data_workers=2), dict(buffer_size=10), dict(skip_frames=1),
-]
+UNPORTED = [dict(n_model=2), dict(n_seq=2), dict(fsdp=True)]
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))

@@ -6,7 +6,9 @@ local-3D-attention denoiser -> tokenizer decode, from the modules or from
 an exported artifact whose programs replay as CUDA graphs, behind an HTTP
 front end. Training: the
 masked-diffusion trainer (``cli.video_diffusion``) over frozen-tokenizer
-MovingMNIST clips, with the attention's backward kernels. Tokenizer
+clips (MovingMNIST, shipped as pixels or as sprite trajectories composited
+inside the step, synthetic trajectories, video files; native sources or a
+Grain stream), with the attention's backward kernels. Tokenizer
 training: the VQ-VAE trainer (``cli.train_vqae``), with the fused VQ
 search + EMA statistics kernel. Sparse space-time diffusion: the trainer
 ``cli.sparse_diffusion`` (a dense transformer over token subsets of
@@ -39,15 +41,19 @@ serve      batched rollout service (request coalescing, sessions)
 serve_http the stdlib HTTP front end and its client
 aot        serving artifacts: export, and the programs as CUDA graphs
 train      optimizer, schedules, EMA, loss-aware sampler, guard, checkpoints
-data       MovingMNIST and synthetic trajectory sources, the buffered clip
-           sampler, the prefetching device feeder
+data       MovingMNIST, synthetic trajectories, video and image files, the
+           clip samplers, the compiled host compositor (``data.native``),
+           on-device compositing, the Grain pipeline, the prefetching
+           device feeder
 cli        the trainers (``python -m ...cli.video_diffusion``,
            ``python -m ...cli.train_vqae``,
            ``python -m ...cli.sparse_diffusion``), the rollout
-           (``...cli.rollout``), ``...cli.make_gif``, and serving:
-           ``...cli.export_rollout``, ``...cli.serve_http``
+           (``...cli.rollout``), ``...cli.make_gif``, serving:
+           ``...cli.export_rollout``, ``...cli.serve_http``, and tools:
+           ``...cli.sample_frames``, ``...cli.import_torch_vqae``,
+           ``...cli.import_torch_video``
 utils      dataclass CLI configs, image grids, PNGs and GIFs, the JSONL
-           logger, PSNR/SSIM, the FVD harness
+           logger, PSNR/SSIM, the FVD harness, FLOP counts, profiling
 convert    weight bridge from the JAX package's numpy parameter trees
 """
 

@@ -6,6 +6,8 @@ function and a ``main(argv)`` CLI wrapper. Ported: ``video_diffusion``
 trainer), ``sparse_diffusion`` (the sparse space-time trainer with its
 evaluation), ``rollout`` (checkpoint -> frames, GIF, FVD, PSNR/SSIM),
 ``make_gif`` (PNGs -> GIF), ``export_rollout`` (checkpoint -> serving
-artifact) and ``serve_http`` (a checkpoint or an artifact behind the HTTP
-front end).
+artifact), ``serve_http`` (a checkpoint or an artifact behind the HTTP
+front end), ``sample_frames`` (trajectories -> PNG directories and a file
+list) and the reference-checkpoint importers ``import_torch_vqae`` and
+``import_torch_video``.
 """

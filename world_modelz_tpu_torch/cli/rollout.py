@@ -2,7 +2,8 @@
 
 Port of ``world_modelz_tpu.cli.rollout``, the standalone serving path:
 restore a checkpoint of the denoiser trainer (``cli.video_diffusion``),
-seed a context clip from its data source, generate ``num_frames`` future
+seed a context clip from its data source (pixel clips, also for a run
+trained with ``--device_composite``), generate ``num_frames`` future
 frames by iterative unmasking (``num_eval_iterations`` denoiser calls per
 frame, main2.py:81), decode them, and write one PNG grid per frame (the
 clips side by side) and a GIF. Equivalent to ``main2.py --eval`` plus
@@ -52,10 +53,10 @@ from world_modelz_tpu_torch._device import platform_device
 from world_modelz_tpu_torch.cli.train_vqae import load_tokenizer
 from world_modelz_tpu_torch.cli.video_diffusion import (
     VideoDiffusionConfig,
-    as_frames,
     build_clip_fn,
     make_model,
 )
+from world_modelz_tpu_torch.data import as_frames, batch_to
 from world_modelz_tpu_torch.diffusion import rollout_frames
 from world_modelz_tpu_torch.train import restore_checkpoint
 from world_modelz_tpu_torch.utils import fvd as fvd_lib
@@ -113,12 +114,15 @@ class Rollout:
     def __init__(self, cfg: RolloutConfig, device: torch.device):
         state, self.step, config = restore_checkpoint(cfg.checkpoint)
         self.cfg = cfg
-        self.train_cfg = config_from_dict(VideoDiffusionConfig, config)
+        # the rollout takes pixel clips: a trajectory-shipping training
+        # config (--device_composite) must not hand it dict batches
+        self.train_cfg = dataclasses.replace(
+            config_from_dict(VideoDiffusionConfig, config), device_composite=False)
         self.device = device
         self.weights = (state["ema"] if cfg.use_ema and state.get("ema")
                         else state["params"])
         self.tok, _ = load_tokenizer(self.train_cfg.decoder_model, device)
-        self.clip_fn, _ = build_clip_fn(self.train_cfg, cfg.manual_seed)
+        self.clip_fn, self.sampler = build_clip_fn(self.train_cfg, cfg.manual_seed)
         self.generator = torch.Generator(device=device).manual_seed(cfg.manual_seed)
         self.model = None
         self.token_shape = None  # (S, h, w), once the first batch is encoded
@@ -131,7 +135,7 @@ class Rollout:
         default a fresh batch is drawn from the data source."""
         if frames is None:
             frames = self.clip_fn(self.cfg.batch_size)
-        x = as_frames(torch.as_tensor(np.asarray(frames)).to(self.device))
+        x = as_frames(batch_to(frames, self.device), self.train_cfg.image_size)
         b, s, hh, ww, c = x.shape
         tokens = self.tok.encode(x.reshape(b * s, hh, ww, c))
         tokens = tokens.reshape(b, s, *tokens.shape[1:])
@@ -153,9 +157,18 @@ class Rollout:
     def clips(self, n_past: int, seed: int, n: int) -> np.ndarray:
         """``n`` float clips of ``n_past + 1`` frames from the data source
         seeded ``seed``."""
-        fn, _ = build_clip_fn(
+        fn, sampler = build_clip_fn(
             dataclasses.replace(self.train_cfg, n_past=n_past), seed)
-        return as_frames(torch.from_numpy(fn(n))).numpy()
+        try:
+            return as_frames(fn(n), self.train_cfg.image_size).numpy()
+        finally:
+            if sampler is not None:
+                sampler.close()
+
+    def close(self) -> None:
+        """Stop the data source's sampler, if it has one."""
+        if self.sampler is not None:
+            self.sampler.close()
 
 
 @dataclasses.dataclass
@@ -187,6 +200,14 @@ def run(cfg: RolloutConfig) -> RolloutResult:
         raise ValueError("--checkpoint (video-diffusion run) is required")
 
     ro = Rollout(cfg, device)
+    try:
+        return _run(cfg, device, ro)
+    finally:
+        ro.close()
+
+
+def _run(cfg: RolloutConfig, device: torch.device, ro: Rollout) -> RolloutResult:
+    """The rest of ``run``, on its restored checkpoint (``run`` closes it)."""
     walls: List[float] = []
 
     def generate(frames=None):

@@ -31,11 +31,18 @@ uniformly, with
 ``--timing_report`` writes the JAX package's timing report; ``--wandb``
 logs to the JSONL file only, as the JAX logger does without the package.
 
+The data: ``--dataset synthetic`` (procedural trajectories) or ``video``
+(the video files under ``--mlr_data_dir``, decoded by OpenCV), clips of a
+``BufferedTrajectorySampler``, or with ``--data_pipeline grain`` of a
+``TrajectoryClipDataset`` streamed through Grain (``data_workers``
+processes), whose consumed position every checkpoint keeps
+(``grain_state.json``) and ``--checkpoint`` restores.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports them: the MineRL and video datasets, the external tokenizer and
-the grain pipeline (A.8); mixture-of-experts FFNs (A.5); tensor, pipeline
-and FSDP parallelism (A.9). The flags of those features raise at any value
-other than their default.
+that ports them: the MineRL dataset (A.8: the ``minerl`` package and its
+data are absent); the external tokenizer and mixture-of-experts FFNs (A.5);
+tensor, pipeline and FSDP parallelism (A.9). The flags of those features
+raise at any value other than their default.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -68,6 +75,8 @@ from world_modelz_tpu_torch.data import (
     BufferedTrajectorySampler,
     PrefetchIterator,
     SyntheticTrajectorySource,
+    TrajectoryClipDataset,
+    VideoFileTrajectorySource,
 )
 from world_modelz_tpu_torch.diffusion import (
     corrupt_tokens,
@@ -82,7 +91,9 @@ from world_modelz_tpu_torch.train import (
     host_schedule,
     loss_aware_sample,
     loss_aware_weights,
+    pipeline_files,
     restore_checkpoint,
+    restore_pipeline,
     uniform_sample,
 )
 from world_modelz_tpu_torch.train.dispatch import (
@@ -130,8 +141,8 @@ class SparseDiffusionConfig:
 
     decoder_model: str = ""  # tokenizer checkpoint path (required)
     tokenizer: str = ""  # external tokenizer: not ported
-    dataset: str = "synthetic"  # minerl / video: not ported
-    mlr_data_dir: str = ""  # MineRL / video data: not ported
+    dataset: str = "synthetic"  # synthetic|video (minerl raises)
+    mlr_data_dir: str = ""  # the video files (--dataset video)
     image_size: int = 64
 
     S: int = 32
@@ -157,8 +168,10 @@ class SparseDiffusionConfig:
     buffer_size: int = 75_000
     max_segment_length: int = 1000
     skip_frames: int = 2
-    data_pipeline: str = "native"  # "grain" is not ported
-    data_workers: int = 0  # grain worker processes: not ported
+    # "native" = BufferedTrajectorySampler; "grain" = the deterministic,
+    # checkpointable Grain stream (data/grain_pipeline.py)
+    data_pipeline: str = "native"
+    data_workers: int = 0  # grain worker processes (0 = in-process)
 
     dim: int = 512
     mlp_dim: int = 1024
@@ -190,8 +203,6 @@ class SparseDiffusionConfig:
 # flags kept for parity with the JAX CLI whose features are not ported:
 # nothing reads them, so a value other than the default raises
 _UNPORTED_FIELDS = {
-    "mlr_data_dir": ("the MineRL / video datasets", "A.8"),
-    "data_workers": ("grain worker processes", "A.8"),
     "moe_capacity_factor": ("mixture-of-experts FFNs", "A.5"),
     "moe_aux_weight": ("mixture-of-experts FFNs", "A.5"),
     "n_micro": ("pipeline parallelism", "A.9"),
@@ -209,26 +220,41 @@ def check_supported(cfg: SparseDiffusionConfig) -> None:
         raise ValueError(
             f"--sampling_type must be 'uniform' or 'neighbors', got "
             f"{cfg.sampling_type!r}")
-    if cfg.dataset != "synthetic":
-        raise unported(f"--dataset {cfg.dataset}", "A.8")
+    if cfg.dataset == "minerl":
+        raise unported("--dataset minerl (the minerl package and its data)", "A.8")
+    if cfg.dataset not in ("synthetic", "video"):
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
     if cfg.tokenizer:
-        raise unported("--tokenizer (external tokenizers)", "A.8")
-    if cfg.data_pipeline != "native":
-        raise unported(f"--data_pipeline {cfg.data_pipeline}", "A.8")
+        raise unported("--tokenizer (external tokenizers)", "A.5")
+    if cfg.data_pipeline not in ("native", "grain"):
+        raise ValueError(f"unknown data_pipeline {cfg.data_pipeline!r}")
     if cfg.moe_experts > 0:
         raise unported("--moe_experts (mixture-of-experts FFNs)", "A.5")
     if cfg.n_model > 1 or cfg.n_pipe > 1 or cfg.fsdp:
         raise unported("--n_model / --n_pipe / --fsdp parallelism", "A.9")
 
 
-def build_sampler(cfg: SparseDiffusionConfig) -> BufferedTrajectorySampler:
-    """The JAX trainer's synthetic trajectories in its buffered sampler
-    (cli/sparse_diffusion.py:247-274): (B, S, H, W, 3) uint8 clips."""
-    src = SyntheticTrajectorySource(
-        num_trajectories=16,
-        traj_frames=max(3 * cfg.S * (cfg.skip_frames + 1), 200),
-        frame_size=cfg.image_size,
-    )
+def build_sampler(cfg: SparseDiffusionConfig):
+    """The JAX trainer's clip source (cli/sparse_diffusion.py:237-274):
+    synthetic trajectories or video files, in its buffered sampler or, with
+    ``--data_pipeline grain``, a Grain stream of a ``TrajectoryClipDataset``;
+    ``sample_batch(b)`` gives (b, S, H, W, 3) uint8 clips, ``close()``
+    stops it."""
+    if cfg.dataset == "video":
+        src = VideoFileTrajectorySource(cfg.mlr_data_dir, frame_size=cfg.image_size)
+    else:
+        src = SyntheticTrajectorySource(
+            num_trajectories=16,
+            traj_frames=max(3 * cfg.S * (cfg.skip_frames + 1), 200),
+            frame_size=cfg.image_size,
+        )
+    if cfg.data_pipeline == "grain":
+        from world_modelz_tpu_torch.data.grain_pipeline import GrainClipPipeline
+
+        return GrainClipPipeline(
+            TrajectoryClipDataset(src, traj_len=cfg.S, skip_frames=cfg.skip_frames,
+                                  seed=cfg.manual_seed),
+            cfg.batch_size, seed=cfg.manual_seed, worker_count=cfg.data_workers)
     return BufferedTrajectorySampler(
         src, buffer_size=cfg.buffer_size,
         max_segment_length=cfg.max_segment_length, traj_len=cfg.S,
@@ -481,8 +507,12 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     n_buckets = state.sampler.weights.shape[0]
     kdisp = max(1, cfg.steps_per_dispatch)
     sampler = build_sampler(cfg)
+    if cfg.checkpoint:
+        restore_pipeline(sampler, cfg.checkpoint)
     batches = PrefetchIterator(
-        lambda: sampler.sample_batch(cfg.batch_size), depth=2, device=device)
+        lambda: sampler.sample_batch(cfg.batch_size), depth=2, device=device,
+        # a Grain position rides the queue with its batch
+        state_fn=getattr(sampler, "get_state", None))
     logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                           project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
@@ -541,7 +571,8 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
                                      loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                 tt = time.perf_counter()
-                path = saver.save(cfg.output_dir, step, state.state_dict(), config)
+                path = saver.save(cfg.output_dir, step, state.state_dict(), config,
+                                  pipeline_files(batches.consumed_state()))
                 tm.add("checkpoint", time.perf_counter() - tt)
                 print("checkpoint:", path)
             if cfg.eval_interval and step % cfg.eval_interval == 0:

@@ -30,8 +30,14 @@ read), ``vq_stats`` (the VQ activation and error statistics) and
 ``--wandb`` (with its ``--project`` and ``--tags``) logs to the JSONL file
 only without the wandb package, as the JAX logger does.
 
-Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-``--dataset files``, ``--data_pipeline grain`` and ``--data_workers``,
+The data: ``--dataset synthetic`` (procedural trajectory frames),
+``moving_mnist`` or ``files`` (the images under ``--image_dir_path`` whose
+paths match ``--image_fn_regex``, listed once in ``--file_list_fn`` and
+decoded by PIL); with ``--data_pipeline grain`` MovingMNIST or the files
+stream through Grain (``data_workers`` processes) and every checkpoint keeps
+the consumed position (``grain_state.json``) that ``--checkpoint`` restores.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
 ``--n_model > 1``.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
@@ -45,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,9 +59,11 @@ import torch.nn.functional as F
 
 from world_modelz_tpu_torch._device import DeviceLike, platform_device
 from world_modelz_tpu_torch.data import (
+    FileListImageDataset,
     MovingMNIST,
     PrefetchIterator,
     SyntheticTrajectorySource,
+    load_file_list,
 )
 from world_modelz_tpu_torch.models import VQAutoEncoder
 from world_modelz_tpu_torch.ops.vq import vq_reset_stats, vq_reuse_inactive
@@ -67,13 +75,14 @@ from world_modelz_tpu_torch.train import (
     host_schedule,
     latest_checkpoint,
     make_optimizer,
+    pipeline_files,
     restore_checkpoint,
+    restore_pipeline,
     save_checkpoint,
     step_decay_schedule,
 )
 from world_modelz_tpu_torch.utils import MetricLogger, save_image
 from world_modelz_tpu_torch.utils.config import (
-    check_defaults,
     config_from_dict,
     config_to_dict,
     dataclass_cli,
@@ -107,13 +116,15 @@ class TrainVqaeConfig:
     num_embeddings: int = 512
     in_channels: int = 3
 
-    dataset: str = "synthetic"  # synthetic|moving_mnist ("files": not ported)
-    data_pipeline: str = "native"  # "grain" is not ported
-    data_workers: int = 0  # grain worker processes: not ported
+    dataset: str = "synthetic"  # synthetic|moving_mnist|files
+    # "native" = the in-repo sources; "grain" = the deterministic,
+    # checkpointable Grain stream (moving_mnist and files)
+    data_pipeline: str = "native"
+    data_workers: int = 0  # grain worker processes (0 = in-process)
     image_size: int = 64
-    file_list_fn: str = "file_list.json"  # --dataset files: not ported
-    image_dir_path: str = ""  # --dataset files: not ported
-    image_fn_regex: str = r".*\.png$"  # --dataset files: not ported
+    file_list_fn: str = "file_list.json"  # the files dataset's cached list
+    image_dir_path: str = ""  # the files dataset's (recursive) glob
+    image_fn_regex: str = r".*\.png$"  # the files dataset's path filter
 
     checkpoint_interval: int = 2500
     latent_loss_weight: float = 0.005
@@ -129,28 +140,17 @@ class TrainVqaeConfig:
     checkpoint: str = ""  # resume path
 
 
-# flags kept for parity with the JAX CLI whose features are not ported:
-# nothing reads them, so a value other than the default raises
-_UNPORTED_FIELDS = {
-    "data_workers": ("grain worker processes", "A.8"),
-    "file_list_fn": ("the files dataset", "A.8"),
-    "image_dir_path": ("the files dataset", "A.8"),
-    "image_fn_regex": ("the files dataset", "A.8"),
-}
-
-
 def check_supported(cfg: TrainVqaeConfig) -> None:
     """Raise for options of features not ported (NotImplementedError) and
     for values the JAX CLI refuses too (ValueError)."""
-    check_defaults(cfg, _UNPORTED_FIELDS)
-    if cfg.dataset == "files":
-        raise unported("--dataset files", "A.8")
-    if cfg.dataset not in ("moving_mnist", "synthetic"):
+    if cfg.dataset not in ("moving_mnist", "synthetic", "files"):
         raise ValueError(f"unknown dataset {cfg.dataset!r}")
-    if cfg.data_pipeline == "grain":
-        raise unported("--data_pipeline grain", "A.8")
-    if cfg.data_pipeline != "native":
+    if cfg.data_pipeline not in ("native", "grain"):
         raise ValueError(f"unknown data_pipeline {cfg.data_pipeline!r}")
+    if cfg.data_pipeline == "grain" and cfg.dataset == "synthetic":
+        raise ValueError(
+            f"--data_pipeline grain is not supported for dataset "
+            f"{cfg.dataset!r} (random-access sources only)")
     if cfg.n_model > 1:
         raise unported("--n_model > 1 (model parallelism)", "A.9")
     if cfg.n_model < 1:
@@ -161,13 +161,27 @@ def check_supported(cfg: TrainVqaeConfig) -> None:
     _loss_fn(cfg.loss_fn)
 
 
-def build_batch_fn(
-    cfg: TrainVqaeConfig, seed: int
-) -> Tuple[Callable[[], np.ndarray], None]:
-    """Host batch source -> ((() -> (B, H, W, C) float32 in [0, 1]), None:
-    no checkpointable pipeline)."""
+def build_batch_fn(cfg: TrainVqaeConfig, seed: int) -> Tuple[Callable[[], np.ndarray], Any]:
+    """Host batch source (JAX ``build_batch_fn``) -> ((() -> (B, H, W, C)
+    float32 in [0, 1]), the Grain pipeline or None)."""
     check_supported(cfg)
     rng = np.random.default_rng(seed)
+    if cfg.data_pipeline == "grain":
+        from world_modelz_tpu_torch.data.grain_pipeline import GrainClipPipeline
+
+        if cfg.dataset == "moving_mnist":
+            ds = MovingMNIST(seq_len=1, image_size=cfg.image_size, digit_size=24,
+                             num_digits=2)
+            pipe = GrainClipPipeline(ds, cfg.batch_size, seed=seed,
+                                     worker_count=cfg.data_workers)
+            return (lambda: pipe.sample_batch()[:, 0]), pipe
+        files = load_file_list(cfg.file_list_fn, cfg.image_dir_path, cfg.image_fn_regex)
+        pipe = GrainClipPipeline(FileListImageDataset(files, cfg.batch_size, seed=seed),
+                                 cfg.batch_size, seed=seed, worker_count=cfg.data_workers)
+        return pipe.sample_batch, pipe
+    if cfg.dataset == "files":
+        files = load_file_list(cfg.file_list_fn, cfg.image_dir_path, cfg.image_fn_regex)
+        return FileListImageDataset(files, cfg.batch_size, seed=seed).next_batch, None
     if cfg.dataset == "moving_mnist":
         if cfg.in_channels != 1:
             raise ValueError(
@@ -349,8 +363,13 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
     start_step = state.step
     config = config_to_dict(cfg)
 
-    batch_fn, _ = build_batch_fn(cfg, cfg.manual_seed)
-    batches = PrefetchIterator(batch_fn, depth=2, device=device)
+    batch_fn, pipeline = build_batch_fn(cfg, cfg.manual_seed)
+    if cfg.checkpoint:
+        restore_pipeline(pipeline, cfg.checkpoint)
+    # a Grain position rides the queue with its batch: a checkpoint records
+    # the position consumed, not the one prefetched ahead
+    batches = PrefetchIterator(batch_fn, depth=2, device=device,
+                               state_fn=getattr(pipeline, "get_state", None))
     logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                           project=cfg.project, config=config_to_dict(cfg),
                           tags=cfg.tags)
@@ -397,7 +416,8 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
                       f"perplexity {m['perplexity']:.1f} lr {m['lr']:.2e}")
 
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
-                path = saver.save(cfg.output_dir, step, state.state_dict(), config)
+                path = saver.save(cfg.output_dir, step, state.state_dict(), config,
+                                  pipeline_files(batches.consumed_state()))
                 print("checkpoint:", path)
                 save_image(
                     recon[:16].float().cpu().numpy(),
@@ -409,8 +429,11 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
         finally:
             batches.close()
             logger.close()
+            if pipeline is not None:
+                pipeline.close()
 
-    final = save_checkpoint(cfg.output_dir, cfg.max_steps, state.state_dict(), config)
+    final = save_checkpoint(cfg.output_dir, cfg.max_steps, state.state_dict(), config,
+                            pipeline_files(batches.consumed_state()))
     print("final checkpoint:", final)
     return TrainResult(state, history, rejected, final, logger.path)
 

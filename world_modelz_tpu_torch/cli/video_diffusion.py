@@ -43,12 +43,21 @@ into its static inputs first, so any k gives bitwise the same state.
 ``--timing_report`` writes the JAX package's timing report
 (``train.timing``).
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports them: other datasets, the grain pipeline and device
-compositing, and parallelism. The flags of those features that are kept
-only for parity with the JAX CLI raise at any value other than their
-default. ``--wandb`` logs to the JSONL file only, as the JAX logger does
-without the package.
+The data (``build_clip_fn``, JAX's): ``--dataset moving_mnist`` ships uint8
+clips, or with ``--device_composite`` each clip's sprites and positions,
+composited inside the step (``data.device_composite``, inside the step's
+CUDA graph on the card); ``synthetic`` and ``video`` (files under
+``--data_dir``, decoded by OpenCV) ship uint8 clips of a
+``BufferedTrajectorySampler`` (``buffer_size``, ``skip_frames``);
+``--data_pipeline grain`` streams MovingMNIST or a ``TrajectoryClipDataset``
+through Grain (``data_workers`` processes), and every checkpoint keeps the
+consumed position (``grain_state.json``) that ``--checkpoint`` restores.
+Every batch is normalized (or composited) on the device by ``as_frames``.
+
+Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
+``--dataset minerl`` (the ``minerl`` package and its data are absent) and
+parallelism. ``--wandb`` logs to the JSONL file only, as the JAX logger
+does without the package.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -70,7 +79,15 @@ import torch.nn.functional as F
 
 from world_modelz_tpu_torch._device import platform_device
 from world_modelz_tpu_torch.cli.train_vqae import load_tokenizer
-from world_modelz_tpu_torch.data import MovingMNIST, PrefetchIterator
+from world_modelz_tpu_torch.data import (
+    BufferedTrajectorySampler,
+    MovingMNIST,
+    PrefetchIterator,
+    SyntheticTrajectorySource,
+    VideoFileTrajectorySource,
+    as_frames,
+    batch_to,
+)
 from world_modelz_tpu_torch.diffusion import corrupt_tokens, rollout_frames
 from world_modelz_tpu_torch.models import (
     VQAutoEncoder,
@@ -89,8 +106,10 @@ from world_modelz_tpu_torch.train import (
     loss_aware_update,
     loss_aware_weights,
     make_optimizer,
+    pipeline_files,
     reject_nonfinite,
     restore_checkpoint,
+    restore_pipeline,
     warmup_cosine_schedule,
 )
 from world_modelz_tpu_torch.serve import eval_mode
@@ -107,7 +126,6 @@ from world_modelz_tpu_torch.train.dispatch import (
 )
 from world_modelz_tpu_torch.train.timing import TrainTiming
 from world_modelz_tpu_torch.utils.config import (
-    check_defaults,
     config_to_dict,
     dataclass_cli,
     unported,
@@ -131,11 +149,19 @@ class VideoDiffusionConfig:
     bf16: bool = False  # bfloat16 compute with f32 master weights
     nan_guard: bool = True  # reject steps with non-finite loss/grads
 
-    dataset: str = "moving_mnist"  # only moving_mnist is ported
-    device_composite: bool = False  # not ported
-    data_pipeline: str = "native"  # "grain" is not ported
-    data_workers: int = 0  # grain worker processes: not ported
-    data_dir: str = ""
+    dataset: str = "moving_mnist"  # moving_mnist|synthetic|video (minerl raises)
+    # ship sprite trajectories instead of pixel clips and composite the
+    # frames inside the step (data/device_composite.py; moving_mnist on the
+    # native pipeline only). The gain needs steps_per_dispatch > 1: at 1
+    # the loop reads every step's stats, and the prefetch thread's Python
+    # (sample_batch_traj) holds the GIL while the loop feeds and launches
+    # the next step, so the card waits on it
+    device_composite: bool = False
+    # "native" = the in-repo sources; "grain" = the deterministic,
+    # checkpointable Grain stream (data/grain_pipeline.py)
+    data_pipeline: str = "native"
+    data_workers: int = 0  # grain worker processes (0 = in-process)
+    data_dir: str = ""  # MNIST (mnist.npz) or the video files
     image_size: int = 64
     n_past: int = 5
     num_digits: int = 2
@@ -171,8 +197,8 @@ class VideoDiffusionConfig:
     heads: int = 1
     dropout: float = 0.0
 
-    buffer_size: int = 100_000  # Minecraft dataset: not ported
-    skip_frames: int = 2  # Minecraft dataset: not ported
+    buffer_size: int = 100_000  # the trajectory sampler's buffer, in frames
+    skip_frames: int = 2  # trajectory frames skipped between kept ones
 
     n_model: int = 1  # > 1 not ported
     n_seq: int = 1  # > 1 not ported
@@ -189,53 +215,78 @@ class VideoDiffusionConfig:
     topk: int = -1  # evaluation sampling: top-k logits (-1 = off)
 
 
-# flags kept for parity with the JAX CLI whose features are not ported:
-# nothing reads them, so a value other than the default raises
-_UNPORTED_FIELDS = {
-    "data_workers": ("grain worker processes", "A.8"),
-    "buffer_size": ("the Minecraft dataset's shuffle buffer", "A.8"),
-    "skip_frames": ("the Minecraft dataset's frame skip", "A.8"),
-}
-
-
 def check_supported(cfg: VideoDiffusionConfig) -> None:
-    """Raise NotImplementedError for options of features not ported."""
-    check_defaults(cfg, _UNPORTED_FIELDS)
+    """Raise NotImplementedError for options of features not ported, and
+    ValueError for values the JAX CLI refuses too."""
     if cfg.log_fence not in ("deferred", "sync"):
         raise ValueError(
             f"--log_fence must be 'deferred' or 'sync', got {cfg.log_fence!r}")
-    if cfg.dataset != "moving_mnist":
-        raise unported(f"--dataset {cfg.dataset}", "A.8")
-    if cfg.data_pipeline != "native":
-        raise unported(f"--data_pipeline {cfg.data_pipeline}", "A.8")
-    if cfg.device_composite:
-        raise unported("--device_composite", "A.8")
+    if cfg.dataset == "minerl":
+        raise unported("--dataset minerl (the minerl package and its data)", "A.8")
+    if cfg.dataset not in ("moving_mnist", "synthetic", "video"):
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
+    if cfg.data_pipeline not in ("native", "grain"):
+        raise ValueError(f"unknown data_pipeline {cfg.data_pipeline!r}")
+    if cfg.device_composite and (
+            cfg.dataset != "moving_mnist" or cfg.data_pipeline != "native"):
+        raise ValueError(
+            "--device_composite needs the procedural moving_mnist source "
+            "on the native pipeline (trajectories are a moving_mnist "
+            "concept; grain batches are pixel records)")
     if cfg.n_model > 1 or cfg.n_seq > 1 or cfg.fsdp:
         raise unported("--n_model / --n_seq / --fsdp parallelism", "A.9")
 
 
 def build_clip_fn(cfg: VideoDiffusionConfig, seed: int):
-    """Host source of (B, n_past+1, H, W, C) uint8 clips, and the sampler
-    to close (None for MovingMNIST)."""
+    """Host source of (B, n_past+1, ...) batches (JAX ``build_clip_fn``):
+    ``clip_fn(b)`` gives uint8 (B, n_past+1, H, W, C) clips, or with
+    ``device_composite`` a trajectory dict; ``as_frames`` makes frames of
+    either on the device. Returns (clip_fn, the sampler or pipeline to
+    close, or None for MovingMNIST's native source)."""
     check_supported(cfg)
     rng = np.random.default_rng(seed)
-    ds = MovingMNIST(
-        data_root=cfg.data_dir or None,
-        seq_len=cfg.n_past + 1,
-        image_size=cfg.image_size,
-        num_digits=cfg.num_digits,
-        digit_size=cfg.digit_size,
-        deterministic=False,
-    )
-    return (lambda b: ds.sample_batch_u8(rng, b)), None
+    grain = cfg.data_pipeline == "grain"
+    if grain:
+        from world_modelz_tpu_torch.data.grain_pipeline import GrainClipPipeline
+    if cfg.dataset == "moving_mnist":
+        ds = MovingMNIST(
+            data_root=cfg.data_dir or None,
+            seq_len=cfg.n_past + 1,
+            image_size=cfg.image_size,
+            num_digits=cfg.num_digits,
+            digit_size=cfg.digit_size,
+            deterministic=False,
+        )
+        if grain:  # float32 records
+            pipe = GrainClipPipeline(ds, cfg.batch_size, seed=seed,
+                                     worker_count=cfg.data_workers)
+            return pipe.sample_batch, pipe
+        if cfg.device_composite:
+            return (lambda b: ds.sample_batch_traj(rng, b)), None
+        return (lambda b: ds.sample_batch_u8(rng, b)), None
+    if cfg.dataset == "video":
+        src = VideoFileTrajectorySource(cfg.data_dir, frame_size=cfg.image_size)
+    else:
+        src = SyntheticTrajectorySource(frame_size=cfg.image_size)
+    if grain:
+        from world_modelz_tpu_torch.data.trajectory import TrajectoryClipDataset
+
+        ds = TrajectoryClipDataset(src, traj_len=cfg.n_past + 1,
+                                   skip_frames=cfg.skip_frames, seed=seed)
+        pipe = GrainClipPipeline(ds, cfg.batch_size, seed=seed,
+                                 worker_count=cfg.data_workers)
+        return pipe.sample_batch, pipe
+    sampler = BufferedTrajectorySampler(
+        src, buffer_size=cfg.buffer_size, traj_len=cfg.n_past + 1,
+        skip_frames=cfg.skip_frames, seed=seed)
+    return sampler.sample_batch, sampler
 
 
-def as_frames(batch: torch.Tensor) -> torch.Tensor:
-    """uint8 clips -> float32 in [0, 1] (on the batch's device); float
-    clips pass through."""
-    if batch.dtype == torch.uint8:
-        return batch.to(torch.float32) / 255.0
-    return batch
+def step_batch(batch) -> Dict[str, torch.Tensor]:
+    """A batch as the step program's static inputs, the dict ``step_body``
+    takes: ``{"frames": clips}``, or a trajectory dict's ``sprites`` and
+    ``pos``."""
+    return dict(batch) if isinstance(batch, dict) else {"frames": batch}
 
 
 def make_model(
@@ -383,15 +434,17 @@ def init_state(cfg, model: torch.nn.Module) -> TrainState:
 def step_body(
     state: TrainState,
     tok: VQAutoEncoder,
-    frames: torch.Tensor,
+    batch,
     cfg: VideoDiffusionConfig,
     draws: StepDraws,
 ) -> torch.Tensor:
     """One optimizer step (JAX ``step_body``, cli/video_diffusion.py:537-609)
-    on a (B, S, H, W, C) clip batch, on the device with no host read:
-    updates ``state``'s tensors in place (not ``state.step``) and returns
-    the packed (loss, grad norm, ok) float32 (3,) tensor."""
-    frames = as_frames(frames)
+    on a batch ``as_frames`` takes (the step program passes ``step_batch``'s
+    dict: (B, S, H, W, C) clips, or sprites and positions composited here),
+    on the device with no host read: updates ``state``'s tensors in place
+    (not ``state.step``) and returns the packed (loss, grad norm, ok)
+    float32 (3,) tensor."""
+    frames = as_frames(batch, cfg.image_size)
     b, s, hh, ww, c = frames.shape
     k = tok.num_embeddings
     tokens = tok.encode(frames.reshape(b * s, hh, ww, c)).long()
@@ -416,7 +469,7 @@ def step_body(
 def train_step(
     state: TrainState,
     tok: VQAutoEncoder,
-    frames: torch.Tensor,
+    frames,
     cfg: VideoDiffusionConfig,
     draws: StepDraws,
 ) -> Tuple[float, float, bool]:
@@ -537,7 +590,7 @@ def evaluate_and_save(
     seed frame first, one column per clip) and a GIF of its rows at 4 fps
     under ``cfg.output_dir`` (with ``save_frames``, one PNG per row too).
     ``logger`` records the grid (``log_image``). Returns the PNG's path."""
-    frames = as_frames(torch.from_numpy(clip_fn(cfg.eval_batch_size)).to(tok.device))
+    frames = as_frames(batch_to(clip_fn(cfg.eval_batch_size), tok.device), cfg.image_size)
     b, s, hh, ww, c = frames.shape
     tokens = tok.encode(frames.reshape(b * s, hh, ww, c))
     tokens = tokens.reshape(b, s, *tokens.shape[1:])
@@ -612,15 +665,31 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     tok, _tok_cfg = load_tokenizer(cfg.decoder_model, device)
     if cfg.tok_bf16:
         tokenizer_inference_cast(tok)
-    num_embeddings = tok.num_embeddings
-    clip_fn, _ = build_clip_fn(cfg, cfg.manual_seed)
-    # evaluation draws clips from a stream of its own (the training stream
-    # belongs to the prefetch thread) and noise from a generator of its own
-    eval_clip_fn, _ = build_clip_fn(cfg, cfg.manual_seed + 101)
+    clip_fn, sampler = build_clip_fn(cfg, cfg.manual_seed)
+    # evaluation draws clips from a stream of its own where JAX's does (the
+    # training stream belongs to the prefetch thread, and a Grain position
+    # must not move for it); the buffered trajectory sampler is shared, as
+    # JAX shares it
+    eval_sampler = None
+    if cfg.dataset == "moving_mnist" or cfg.data_pipeline == "grain":
+        eval_clip_fn, eval_sampler = build_clip_fn(cfg, cfg.manual_seed + 101)
+    else:
+        eval_clip_fn = clip_fn
     eval_gen = torch.Generator(device=device).manual_seed(cfg.manual_seed + 101)
+    try:
+        return _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen)
+    finally:
+        for s in (sampler, eval_sampler):
+            if s is not None:
+                s.close()
 
+
+def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) -> TrainResult:
+    """The rest of ``train``, on its tokenizer and data sources (``train``
+    closes the sources)."""
+    num_embeddings = tok.num_embeddings
     # probe the token-grid shape from one encoded clip (main2.py:399-404)
-    probe = as_frames(torch.from_numpy(clip_fn(1)).to(device))
+    probe = as_frames(batch_to(clip_fn(1), device), cfg.image_size)
     _, s, hh, ww, c = probe.shape
     if c != tok.in_channels:
         raise ValueError(
@@ -647,6 +716,7 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
         if cfg.checkpoint:
             restored, state.step, _ = restore_checkpoint(cfg.checkpoint)
             model.load_state_dict(restored["params"], strict=True)
+            restore_pipeline(sampler, cfg.checkpoint)
             print(f"evaluating {cfg.checkpoint} (step {state.step})")
         logger = MetricLogger(cfg.output_dir, cfg.name)
         try:
@@ -662,6 +732,7 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     if cfg.checkpoint:
         restored, at_step, _ = restore_checkpoint(cfg.checkpoint)
         state.load_state_dict(restored, at_step)
+        restore_pipeline(sampler, cfg.checkpoint)
         print(f"resumed from {cfg.checkpoint} at step {at_step}")
     start_step = state.step
 
@@ -674,7 +745,10 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
         lambda: clip_fn(cfg.batch_size),
         # a dispatch drains k batches at once: keep the worker a dispatch ahead
         depth=max(2, kdisp + 1), device=device,
-        probe_every=5 * kdisp if cfg.timing_report else 0)
+        probe_every=5 * kdisp if cfg.timing_report else 0,
+        # a Grain position rides the queue with its batch: a checkpoint
+        # records the position consumed, not the one prefetched ahead
+        state_fn=getattr(sampler, "get_state", None))
     logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                           project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
@@ -688,9 +762,11 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     program: Optional[StepProgram] = None
     seen_sizes = set()  # dispatch lengths already run
 
-    def feed(frames):
-        """A step's clip batch and draws into the program's inputs."""
-        io.tensors["frames"].copy_(frames)
+    def feed(batch):
+        """A step's batch (its clips, or sprites and positions) and draws
+        into the program's inputs."""
+        for k, v in step_batch(batch).items():
+            io.tensors[k].copy_(v)
         draw_step(gen, cfg.batch_size, n_tokens, n_buckets, num_embeddings,
                   out=io.draws)
 
@@ -705,11 +781,12 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
             frame_list = [next(batches) for _ in range(n)]
             tm.add("data", time.perf_counter() - tt)
             if program is None:
-                io = step_inputs({"frames": torch.empty_like(frame_list[0])},
+                io = step_inputs({k: torch.empty_like(v)
+                                  for k, v in step_batch(frame_list[0]).items()},
                                  StepDraws.empty(cfg.batch_size, n_tokens, n_buckets, device),
                                  kdisp)
                 program = step_program(state, io, lambda: step_body(
-                    state, tok, io.tensors["frames"], cfg, io.draws))
+                    state, tok, io.tensors, cfg, io.draws))
             rows = run_dispatch(program, io, tm, step, [
                 functools.partial(feed, f) for f in frame_list], frame_list[-1], seen_sizes)
             rejected += record_steps(history, guard, rows, step, cfg, state)
@@ -722,7 +799,8 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
                                      loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                 tt = time.perf_counter()
-                path = saver.save(cfg.output_dir, step, state.state_dict(), config)
+                path = saver.save(cfg.output_dir, step, state.state_dict(), config,
+                                  pipeline_files(batches.consumed_state()))
                 tm.add("checkpoint", time.perf_counter() - tt)
                 print("checkpoint:", path)
             if cfg.eval_interval and step % cfg.eval_interval == 0:

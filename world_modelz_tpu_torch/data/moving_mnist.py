@@ -9,10 +9,12 @@ built-in seven-segment renderer. The JAX module cannot be imported here
 (its package imports jax), so the port keeps its own copy; the tests hold
 the two clip by clip.
 
-Sprites are composited with numpy (``+=`` into the frame, then a clamp to
-[0, 1]): the numpy path of the JAX package's native compositor
-(``data/native.py``), which gives the same float32 sums. Trajectory batches
-for on-device compositing (``sample_batch_traj``) are not ported.
+Sprites are composited by the port's compiled compositor
+(``data/native.py``: ``+=`` into the frame, then a clamp to [0, 1]), or by
+its numpy path, which gives the same float32 bytes, as the JAX package's.
+``sample_batch_traj`` ships each clip's sprites and positions instead of its
+pixels, for compositing inside the step on the device
+(``data/device_composite.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from world_modelz_tpu_torch.data import native
 
 # seven-segment layouts for digits 0-9: (a, b, c, d, e, f, g)
 _SEGMENTS = {
@@ -111,22 +115,6 @@ def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
     )
 
 
-def _composite_sprite(
-    frames: np.ndarray, sprite: np.ndarray, pos_yx: np.ndarray
-) -> None:
-    """frames (T, H, W) f32 += sprite (K, K) at per-frame clipped
-    positions (data/native.py:85-115)."""
-    t, h, w = frames.shape
-    k = sprite.shape[0]
-    for i in range(t):
-        sy, sx = int(pos_yx[i, 0]), int(pos_yx[i, 1])
-        y0, y1 = max(0, sy), min(h, sy + k)
-        x0, x1 = max(0, sx), min(w, sx + k)
-        if y1 <= y0 or x1 <= x0:
-            continue
-        frames[i, y0:y1, x0:x1] += sprite[y0 - sy : y1 - sy, x0 - sx : x1 - sx]
-
-
 class MovingMNIST:
     """Bouncing-digit clip dataset; `ds[i]` -> (seq_len, H, W, 1) float32."""
 
@@ -212,12 +200,12 @@ class MovingMNIST:
     def __getitem__(self, index: int) -> np.ndarray:
         rng = np.random.default_rng(index)
         size = self.image_size
-        x = np.zeros((self.seq_len, size, size, 1), np.float32)
+        x = np.zeros((self.seq_len, size, size), np.float32)
         for _ in range(self.num_digits):
             bank_idx, pos = self._digit_track(rng)
-            _composite_sprite(x[..., 0], self.bank[bank_idx], pos)
-        np.clip(x, 0.0, 1.0, out=x)
-        return x
+            native.composite_sprite(x, self.bank[bank_idx], pos)
+        native.clamp01(x)
+        return x[..., None]
 
     def sample_batch(self, rng: np.random.Generator, batch_size: int) -> np.ndarray:
         """(B, seq_len, H, W, 1) float32 batch of random clips."""
@@ -232,3 +220,25 @@ class MovingMNIST:
         (a quarter of the float32 bytes)."""
         x = self.sample_batch(rng, batch_size)
         return (x * 255.0 + 0.5).astype(np.uint8)
+
+    def sample_batch_traj(self, rng: np.random.Generator, batch_size: int) -> dict:
+        """A trajectory batch for compositing on the device: each clip's
+        sprites and per-frame positions, from the same per-index RNG stream
+        as ``__getitem__`` (so clip i composited on the device is clip i
+        with its sprites quantized to 1/255).
+
+        Returns {'sprites': (B, D, K, K) uint8, 'pos': (B, D, S, 2) int32}.
+        """
+        if not hasattr(self, "_bank_u8"):
+            self._bank_u8 = (self.bank * 255.0 + 0.5).astype(np.uint8)
+        idx = rng.integers(0, self.length, batch_size)
+        d, k = self.num_digits, self.digit_size
+        sprites = np.empty((batch_size, d, k, k), np.uint8)
+        pos = np.empty((batch_size, d, self.seq_len, 2), np.int32)
+        for i, index in enumerate(idx):
+            r = np.random.default_rng(int(index))
+            for j in range(d):
+                bank_idx, p = self._digit_track(r)
+                sprites[i, j] = self._bank_u8[bank_idx]
+                pos[i, j] = p
+        return {"sprites": sprites, "pos": pos}

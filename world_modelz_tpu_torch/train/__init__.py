@@ -4,7 +4,9 @@ non-finite guard and checkpoints."""
 from world_modelz_tpu_torch.train.checkpoint import (
     AsyncCheckpointSaver,
     latest_checkpoint,
+    pipeline_files,
     restore_checkpoint,
+    restore_pipeline,
     save_checkpoint,
 )
 from world_modelz_tpu_torch.train.ema import ema_init, ema_update
@@ -56,6 +58,8 @@ __all__ = [
     "tree_all_finite",
     "save_checkpoint",
     "latest_checkpoint",
+    "pipeline_files",
+    "restore_pipeline",
     "restore_checkpoint",
     "AsyncCheckpointSaver",
 ]

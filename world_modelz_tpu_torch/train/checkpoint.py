@@ -3,9 +3,10 @@
 Port of ``world_modelz_tpu.train.checkpoint`` in the port's own format: a
 checkpoint is the directory ``{directory}/step_{step:07d}/`` holding
 ``state.pt`` (``torch.save`` of any nest of dicts, lists and tensors) and
-``wmz_config.json`` (``{"step", "config"}``), written last. The config file
-is the completeness marker: ``latest_checkpoint`` lists only directories
-where it landed. Reading the JAX package's orbax checkpoints waits for the
+``wmz_config.json`` (``{"step", "config"}``), written last, beside any extra
+files (name -> bytes, e.g. a Grain pipeline's ``grain_state.json``). The
+config file is the completeness marker: ``latest_checkpoint`` lists only
+directories where it landed, so a complete checkpoint has its extra files. Reading the JAX package's orbax checkpoints waits for the
 orbax -> numpy export tool.
 """
 
@@ -38,9 +39,11 @@ def save_checkpoint(
     step: int,
     state: Any,
     config: Optional[Dict[str, Any]] = None,
+    extra_files: Optional[Dict[str, bytes]] = None,
 ) -> str:
-    """Write ``state`` + ``config`` under ``directory/step_XXXXXXX``;
-    tensors are written from host copies. Returns the path."""
+    """Write ``state`` + ``config`` (and ``extra_files``, name -> bytes)
+    under ``directory/step_XXXXXXX``; tensors are written from host copies.
+    Returns the path."""
     directory = os.path.abspath(directory)
     path = os.path.join(directory, f"step_{step:07d}")
     os.makedirs(path, exist_ok=True)
@@ -50,6 +53,9 @@ def save_checkpoint(
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(_map_tensors(state, torch.Tensor.cpu), tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
+    for name, payload in (extra_files or {}).items():
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(payload)
     with open(marker + ".tmp", "w") as f:
         json.dump({"step": step, "config": config or {}}, f, indent=2)
     os.replace(marker + ".tmp", marker)
@@ -119,6 +125,7 @@ class AsyncCheckpointSaver:
         step: int,
         state: Any,
         config: Optional[Dict[str, Any]] = None,
+        extra_files: Optional[Dict[str, bytes]] = None,
     ) -> str:
         self.wait()
         snapshot = _map_tensors(state, torch.Tensor.clone)  # same device
@@ -126,10 +133,32 @@ class AsyncCheckpointSaver:
 
         def _write():
             try:
-                save_checkpoint(directory, step, snapshot, config)
+                save_checkpoint(directory, step, snapshot, config, extra_files)
             except Exception as e:  # surfaces on the next save/wait
                 self._error = e
 
         self._thread = threading.Thread(target=_write, daemon=True)
         self._thread.start()
         return path
+
+
+GRAIN_STATE_FILE = "grain_state.json"
+
+
+def pipeline_files(state: Optional[bytes]) -> Optional[Dict[str, bytes]]:
+    """The extra files of a checkpoint for an input pipeline's consumed
+    position (``PrefetchIterator.consumed_state()``; None without one)."""
+    return {GRAIN_STATE_FILE: state} if state is not None else None
+
+
+def restore_pipeline(pipeline: Any, checkpoint: str) -> bool:
+    """Put a checkpointable pipeline (one with ``set_state``) back to the
+    position the checkpoint at ``checkpoint`` recorded, when it recorded
+    one; returns whether it did."""
+    path = os.path.join(checkpoint, GRAIN_STATE_FILE)
+    if not (hasattr(pipeline, "set_state") and os.path.exists(path)):
+        return False
+    with open(path, "rb") as f:
+        pipeline.set_state(f.read())
+    print("input pipeline resumed from", path)
+    return True

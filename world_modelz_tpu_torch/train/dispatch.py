@@ -159,10 +159,11 @@ def dispatch_len(done: int, kdisp: int, max_steps: int, first_log: int,
 @dataclasses.dataclass
 class StepInputs:
     """A step program's static inputs and outputs: ``tensors`` (the clip or
-    token batch), ``draws`` (the step's random numbers), and the (k, 3)
-    ``stats`` buffer, whose row ``row`` the next step writes its packed
-    (loss, grad norm, ok) into; the step advances ``row``, modulo k (a
-    capture's warm-up calls run more than k steps from one ``start``)."""
+    token batch, or a trajectory batch's sprites and positions), ``draws``
+    (the step's random numbers), and the (k, 3) ``stats`` buffer, whose row
+    ``row`` the next step writes its packed (loss, grad norm, ok) into; the
+    step advances ``row``, modulo k (a capture's warm-up calls run more
+    than k steps from one ``start``)."""
 
     tensors: Dict[str, torch.Tensor]
     draws: Any
@@ -194,18 +195,20 @@ def step_inputs(tensors: Dict[str, torch.Tensor], draws: Any, k: int) -> StepInp
 
 
 def run_dispatch(program: StepProgram, io: StepInputs, tm: TrainTiming, step: int,
-                 feeds: Sequence[Callable[[], None]], last_input: torch.Tensor,
+                 feeds: Sequence[Callable[[], None]], last_input: Any,
                  seen_sizes: set) -> List[Row]:
     """One dispatch of ``len(feeds)`` steps from ``step``: each step's feed
     (its batch and draws into ``io``), then the program; then one host read
     of their stats. Charged to the timing's ``dispatch`` and ``device_wait``
     buckets, or, when a device probe is due, timed between value fences
-    (``last_input`` landed; the stats read) into ``probe``."""
+    (each tensor of ``last_input``, a tensor or a dict of them, landed; the
+    stats read) into ``probe``."""
     n = len(feeds)
     probe = tm.probe_due(step + n) and tm.opened and n in seen_sizes
     t0 = time.perf_counter()
     if probe:
-        fence_value(last_input)
+        for x in (last_input.values() if isinstance(last_input, dict) else [last_input]):
+            fence_value(x)
     td = time.perf_counter()
     io.start()
     for feed in feeds:
