@@ -33,7 +33,14 @@ trainer (``cli.train_vqae.train``) at ``train_vqae/mnist_b96`` for 200
 steps, and drives the sparse space-time
 trainer (``cli.sparse_diffusion.train``) at ``train_sparse/s16_n1024_b16``
 for 60 steps with its evaluation sweep, and again at ``--steps_per_dispatch``
-4 (bitwise equal), all with random seeded weights. The trainers' kernel
+4 (bitwise equal), holds the mixture-of-experts FFN's main path to its
+einsum form and the CPU's routing (``check_moe``), drives the sparse trainer
+with 8 experts (its step graph bitwise to its eager step) and with the
+external tokenizer at taming's Gumbel f8 widths (``--tokenizer taming:``,
+card vs CPU), and the five stages of the SOM-DDPM pipeline
+(``cli.som_pipeline``) at the JAX defaults' widths with the SOM's BMU search
+against float64 and the UNet against the CPU, all with random seeded
+weights. The trainers' kernel
 launches from their step graphs are counted as captured x replays and held
 to the profiler's counts.
 
@@ -2179,7 +2186,8 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
         def empty_draws():
             return sd.StepDraws.empty(cfg.batch_size, cfg.num_context, volume, 100, dev)
 
-        label = "step program train_sparse/s16_n1024_b16"
+        label = "step program train_sparse/s16_n1024_b16" + (
+            f", {cfg.moe_experts} experts" if cfg.moe_experts else "")
 
     def new_state():
         torch.manual_seed(11)
@@ -2931,7 +2939,7 @@ def sparse_tokenizer_checkpoint(torch, root, tokenizer=SPARSE_TOKENIZER,
 def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
                           tokenizer=SPARSE_TOKENIZER,
                           root=os.path.join(HERE, "build", "smoke_sparse"),
-                          steps_per_dispatch=1, full=True):
+                          steps_per_dispatch=1, full=True, label=None):
     """The sparse trainer at full width (``cli.sparse_diffusion.train``) at
     train_sparse/s16_n1024_b16 and ``steps_per_dispatch`` from a seeded
     tokenizer checkpoint. On the card the step is one CUDA graph, replayed
@@ -2959,7 +2967,7 @@ def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
         **dict(train, eval_interval=train["eval_interval"] if full else 0),
         decoder_model=tok_path, output_dir=os.path.join(root, "run"),
         platform="" if on_card else dev.type, steps_per_dispatch=steps_per_dispatch)
-    label = f"sparse training (k={steps_per_dispatch})"
+    label = label or f"sparse training (k={steps_per_dispatch})"
     log(f"{label}: train_sparse/s16_n1024_b16, cut to {cfg.max_steps} "
         f"steps (default 30,000), warmup {cfg.warmup} (500), cosine over "
         f"{cfg.max_steps}, buffer {cfg.buffer_size} frames (75,000), "
@@ -3534,6 +3542,540 @@ def profile_batch(torch, svc, clips, t_batch: float, backend: str) -> None:
 # -------------------------------------------------------------------- main
 
 
+# parallel.moe at the sparse trainer's width (SPARSE_MODEL: dim 512,
+# mlp_dim 1024; a training batch of 16 x 1,024 tokens) with 8 experts and
+# JAX's capacity factor 1.25 (160 slots an expert a row)
+MOE = dict(batch=16, tokens=1024, dim=512, hidden=1024, experts=8, capacity_factor=1.25)
+MOE_AGREE = {"float32": 0.999, "bfloat16": 0.99}  # routing, card vs CPU
+
+
+def check_moe(torch, dev, smi, moe=MOE):
+    """The mixture-of-experts FFN on the card: the main path
+    (``parallel.moe.moe_ffn_indexed``) against the plain einsum form
+    (``moe_ffn``), forward, load-balance loss and the gradients of x and the
+    five parameters, in f32 and bf16 (f32 outputs within 1e-6 x max(1,
+    max |y|), bf16 within 2^-7 x max |y|; gradients within GRAD_TOL x
+    max(max |g|, GRAD_FLOOR x the largest), bf16 2^-7); the main path twice,
+    bitwise (deterministic); the routing against the CPU's on the same
+    inputs (agreement rate, the gate gap of each flipped token); the share
+    of tokens dropped; each form's forward + backward device ms and peak
+    memory. Returns a record."""
+    from world_modelz_tpu_torch.parallel import moe as pm
+
+    b, n, d, hid, e = (moe[k] for k in ("batch", "tokens", "dim", "hidden", "experts"))
+    cap = pm.moe_capacity(moe["capacity_factor"], n, e)
+    gen = torch.Generator().manual_seed(21)
+    p0 = pm.moe_init(d, hid, e, generator=gen)
+    p0 = p0._replace(b_in=0.1 * torch.randn(p0.b_in.shape, generator=gen),
+                     b_out=0.1 * torch.randn(p0.b_out.shape, generator=gen))
+    x0 = torch.randn((b, n, d), generator=gen)
+    g0 = torch.randn((b, n, d), generator=gen)
+    forms = {"indexed": pm.moe_ffn_indexed, "einsum": pm.moe_ffn}
+    rec = {"capacity": cap}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        leaves = [t.to(dev, dtype).requires_grad_(True) for t in list(p0) + [x0]]
+        g = g0.to(dev)
+
+        def run(fn):
+            y, aux = fn(pm.MoEParams(*leaves[:5]), leaves[5], capacity=cap)
+            grads = torch.autograd.grad((y.float() * g).sum() + aux, leaves)
+            return y.detach(), aux.detach(), grads
+
+        outs = {name: run(fn) for name, fn in forms.items()}
+        again = run(pm.moe_ffn_indexed)
+        y_i, aux_i, gr_i = outs["indexed"]
+        y_e, aux_e, gr_e = outs["einsum"]
+        if not (torch.equal(again[0], y_i) and all(torch.equal(a, c)
+                                                   for a, c in zip(again[2], gr_i))):
+            raise AssertionError(f"moe {dt}: two runs of the main path differ")
+        scale = max(1.0, float(y_e.float().abs().max()))
+        y_err = float((y_i.float() - y_e.float()).abs().max())
+        y_tol = (1e-6 if dtype == torch.float32 else 2**-7) * scale
+        bitwise = float((y_i == y_e).float().mean())
+        top = max(float(t.float().abs().max()) for t in gr_e)
+        worst = 0.0
+        for name, a, c in zip(list(pm.MoEParams._fields) + ["x"], gr_i, gr_e):
+            mag = float(c.float().abs().max())
+            lim = (GRAD_TOL * max(mag, GRAD_FLOOR * top) if dtype == torch.float32
+                   else 2**-7 * max(mag, GRAD_FLOOR * top))
+            err = float((a.float() - c.float()).abs().max())
+            worst = max(worst, err / lim)
+            if not err <= lim:
+                raise AssertionError(f"moe {dt}: d{name} differs by {err} > {lim}")
+        if not y_err <= y_tol or abs(float(aux_i) - float(aux_e)) > 1e-6:
+            raise AssertionError(f"moe {dt}: outputs differ by {y_err} (tol {y_tol}), aux "
+                                 f"{float(aux_i)} vs {float(aux_e)}")
+        # routing against the CPU (the same dtype's gate product there)
+        pc = pm.MoEParams(*(t.to(dtype) for t in p0))
+        gate_c, exp_c = pm.route(pc, x0.to(dtype))
+        gate_d, exp_d = pm.route(pm.MoEParams(*(t.detach() for t in leaves[:5])),
+                                 leaves[5].detach())
+        flips = (exp_d.cpu() != exp_c)
+        agree = 1.0 - float(flips.float().mean())
+        top2 = gate_c.topk(2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1])[flips]
+        dropped = float((pm._slots(gate_d, exp_d) >= cap).float().mean())
+        if agree < MOE_AGREE[dt]:
+            raise AssertionError(f"moe {dt}: routing agrees with the CPU on {agree:.6f} of "
+                                 f"the tokens (< {MOE_AGREE[dt]})")
+        timing = {}
+        for name, fn in forms.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run(fn)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            ms = device_ms(torch, lambda fn=fn: run(fn), iters=10)
+            timing[name] = dict(ms=round(ms, 4), peak_mib=round(peak, 1))
+        rec[dt] = dict(max_abs_err=y_err, bitwise=bitwise, grad_err_over_limit=worst,
+                       routing_agree=agree, flips=int(flips.sum()), dropped=dropped,
+                       aux=float(aux_i), **{f"{k}_ms": v["ms"] for k, v in timing.items()},
+                       **{f"{k}_peak_mib": v["peak_mib"] for k, v in timing.items()})
+        log(f"moe {dt} (B={b}, N={n}, D={d}, H={hid}, E={e}, C={cap}): main path (index) vs "
+            f"einsum on the card: out max_abs_err {y_err:.3g} (tol {y_tol:.3g}), "
+            f"{bitwise * 100:.4f}% bitwise; gradients worst err/limit {worst:.3g}; aux "
+            f"{float(aux_i):.6f}; the main path twice bitwise; routing vs the CPU "
+            f"{agree * 100:.4f}% ({int(flips.sum())} flips, gate gaps "
+            f"{[round(float(v), 8) for v in gaps[:8]]}); dropped {dropped * 100:.3f}% of "
+            f"the tokens; forward + backward: index {timing['indexed']['ms']:.4f} ms "
+            f"(peak +{timing['indexed']['peak_mib']:.1f} MiB), einsum "
+            f"{timing['einsum']['ms']:.4f} ms (+{timing['einsum']['peak_mib']:.1f} MiB); "
+            f"on {smi}")
+    return rec
+
+
+def drive_sparse_moe(torch, dev, launches, smi, dense, experts=8, steps=30):
+    """The sparse trainer at train_sparse/s16_n1024_b16 with ``experts``
+    mixture-of-experts FFNs: its step program bitwise against the eager
+    step (``check_step_program``), then ``steps`` steps at k = 1
+    (``drive_sparse_training``: the flash kernels' launches exactly
+    captured x replays), its steps/s beside the dense run's (``dense``).
+    Returns (the launch counts, the run's record, the step check's)."""
+    train = dict(SPARSE_TRAIN, moe_experts=experts, max_steps=steps,
+                 checkpoint_interval=steps, eval_interval=0)
+    step = check_step_program(torch, dev, smi, kind="sparse", train=train, timed=10,
+                              root=os.path.join(HERE, "build", "smoke_step_moe"))
+    counts, rec = drive_sparse_training(
+        torch, dev, launches, smi, train=train, full=False,
+        root=os.path.join(HERE, "build", "smoke_sparse_moe"),
+        label=f"sparse training, {experts} experts (k=1)")
+    log(f"sparse training with {experts} experts: {rec['steps_per_s']:.4f} steps/s over steps "
+        f"11-{steps}, against {dense['steps_per_s']:.4f} dense (steps 11-60, same call); "
+        f"on {smi}")
+    return counts, rec, step
+
+
+# taming's published Gumbel f8 VQGAN (the Sber variant's tokenizer) as far
+# as the minimal build takes its widths: 8,192 codes of 256, z 256, ch 128,
+# ch_mult (1, 1, 2, 4): 64 x 64 frames -> 8 x 8 tokens
+GUMBEL_F8 = dict(model=dict(target="taming.models.vqgan.GumbelVQ", params=dict(
+    kl_weight=1e-8, n_embed=8192, embed_dim=256,
+    ddconfig=dict(double_z=False, z_channels=256, resolution=256, in_channels=3, out_ch=3,
+                  ch=128, ch_mult=[1, 1, 2, 4], num_res_blocks=2, attn_resolutions=[32],
+                  dropout=0.0))))
+EXT_AGREE = 0.99  # tokens, card vs CPU (argmax of 8,192 f32 logits)
+
+
+def check_external_tokenizer(torch, dev, launches, smi,
+                             root=os.path.join(HERE, "build", "smoke_external")):
+    """``models.external.TamingGumbelVQAdapter`` at GUMBEL_F8 on seeded
+    weights (a JSON config, which is yaml): encode of 64 x 64 synthetic
+    frames, card vs CPU (tokens agreeing on EXT_AGREE), decode of the same
+    tokens (PIXEL_RTOL x max(1, max |pixel|)); then the sparse trainer with
+    ``--tokenizer taming:...`` at H = W = 8 (the f8 grid), a few steps and
+    one evaluation, its flash launches captured x replays and no
+    ``vq_encode``; then ``NativeTokenizer`` over the sparse trainer's seeded
+    tokenizer (one ``vq_encode`` a call, the tokenizer's tokens) and the
+    trainer with ``--tokenizer native:...``. Returns (the launch counts, a
+    record)."""
+    import shutil
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli import sparse_diffusion as sd
+    from world_modelz_tpu_torch.data import SyntheticTrajectorySource
+    from world_modelz_tpu_torch.models import _gumbelvq_minimal
+    from world_modelz_tpu_torch.models.external import TamingGumbelVQAdapter
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg_path, ckpt = os.path.join(root, "gumbel_f8.yaml"), os.path.join(root, "model.ckpt")
+    with open(cfg_path, "w") as f:
+        json.dump(GUMBEL_F8, f)
+    torch.manual_seed(31)
+    model = _gumbelvq_minimal.build(**GUMBEL_F8["model"]["params"])
+    torch.save({"state_dict": model.state_dict()}, ckpt)
+    n_params = sum(p.numel() for p in model.parameters())
+    img = SPARSE_TRAIN["image_size"]
+    grid = img // 2 ** (len(GUMBEL_F8["model"]["params"]["ddconfig"]["ch_mult"]) - 1)
+    src = SyntheticTrajectorySource(num_trajectories=2, traj_frames=16, frame_size=img, seed=31)
+    frames = np.concatenate([np.stack(list(src.load_frames(t)))
+                             for t in src.trajectory_names()]).astype(np.float32) / 255.0
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = TamingGumbelVQAdapter(cfg_path, ckpt, device="cpu")
+        card = TamingGumbelVQAdapter(cfg_path, ckpt, device=dev)
+        want = cpu.encode(frames)
+        got = card.encode(frames).cpu()
+        agree = float((got == want).float().mean())
+        img_cpu = cpu.decode(want)
+        img_card = card.decode(want.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((img_card - img_cpu).abs().max())
+    tol = PIXEL_RTOL * max(1.0, float(img_cpu.abs().max()))
+    log(f"external tokenizer (taming Gumbel f8 widths, minimal build, {n_params:,} "
+        f"parameters, seeded): {frames.shape[0]} frames {img}x{img} -> tokens "
+        f"{tuple(got.shape)}; "
+        f"card vs CPU tokens {agree * 100:.4f}% equal; decode max_abs_err {err:.3g} (tol "
+        f"{tol:.3g}); cuDNN TF32 off")
+    if agree < EXT_AGREE or not err <= tol or tuple(got.shape[1:]) != (grid, grid):
+        raise AssertionError(f"external tokenizer: tokens agree {agree}, decode err {err}")
+    taming = external_sparse_run(
+        torch, dev, launches, smi, f"taming:{cfg_path},{ckpt}", grid, os.path.join(root, "run"),
+        f"sparse training with the external tokenizer (the f8 grid of {img} x {img} frames)")
+    # --tokenizer native: the sparse trainer's own seeded tokenizer behind
+    # NativeTokenizer, whose encode runs vq_encode: one launch a call, the
+    # same tokens as the tokenizer's
+    from world_modelz_tpu_torch.models.external import make_tokenizer
+
+    tok_path = sparse_tokenizer_checkpoint(torch, root)
+    native = make_tokenizer(f"native:{tok_path}", dev)
+    x = torch.from_numpy(frames).to(dev)
+    launches.clear()
+    z = native.encode(x)
+    one = dict(launches)
+    if (dev.type == "cuda" and one != {"vq_encode": 1}) or not torch.equal(
+            z, native.tok.encode(x)):
+        raise AssertionError(f"NativeTokenizer: launches {one}, tokens differ from the "
+                             f"tokenizer's: {not torch.equal(z, native.tok.encode(x))}")
+    tgrid = img // 2 ** SPARSE_TOKENIZER["downscale_steps"]
+    nat = external_sparse_run(torch, dev, launches, smi, f"native:{tok_path}", tgrid,
+                              os.path.join(root, "run_native"),
+                              "sparse training with --tokenizer native")
+    counts = {k: taming[0].get(k, 0) + nat[0].get(k, 0)
+              for k in set(taming[0]) | set(nat[0])}
+    return counts, dict(tokens_agree=agree, decode_err=err, losses=taming[1],
+                        native_losses=nat[1])
+
+
+def external_sparse_run(torch, dev, launches, smi, spec, grid, out, label):
+    """The sparse trainer at train_sparse/s16_n1024_b16 with ``--tokenizer
+    spec`` on an H = W = ``grid`` token grid, 6 steps and one evaluation:
+    finite losses, the flash kernels' launches captured x replays, and
+    ``vq_encode`` launched once a batch encode for a native tokenizer, never
+    for an adapter. Returns (the launch counts, the losses)."""
+    from world_modelz_tpu_torch.cli import sparse_diffusion as sd
+
+    # a 16 x 8 x 8 volume is 1,024 tokens: the time-dependent windows need
+    # more frames than the context spans, so the context is cut to at most
+    # half the volume
+    n_ctx = min(SPARSE_TRAIN["num_context"], SPARSE_TRAIN["S"] * grid * grid // 2)
+    train = dict(SPARSE_TRAIN, H=grid, W=grid, num_context=n_ctx,
+                 max_steps=6, warmup=2, checkpoint_interval=6, eval_interval=6,
+                 num_eval_iterations=2, eval_batch_size=2, log_interval=2)
+    cfg = sd.SparseDiffusionConfig(**train, tokenizer=spec, output_dir=out,
+                                   platform="" if dev.type == "cuda" else dev.type)
+    log(f"{label}: train_sparse/s16_n1024_b16 at H = W = {grid} ({cfg.S * grid * grid} tokens "
+        f"a volume, {cfg.num_context} in context (1,024)), cut to {cfg.max_steps} steps, one "
+        f"evaluation of {cfg.num_eval_iterations} iterations at B={cfg.eval_batch_size}")
+    launches.clear()
+    t0 = time.perf_counter()
+    result = sd.train(cfg)
+    wall = time.perf_counter() - t0
+    eager, graph = dict(launches), dict(result.program.launches)
+    losses = [h[1] for h in result.history]
+    want_graph = {k: cfg.depth * cfg.max_steps for k in ("flash_fwd", "flash_bwd_dq",
+                                                         "flash_bwd_dkv")}
+    encodes = len(range(0, cfg.max_steps, cfg.change_batch_interval))
+    want_vq = encodes if spec.startswith("native:") else 0
+    on_card = dev.type == "cuda"
+    if len(losses) != cfg.max_steps or not all(map(math.isfinite, losses)) \
+            or result.rejected or [e[1] for e in result.evals] != ["base", "ema"] \
+            or (on_card and (graph != want_graph or eager.get("vq_encode", 0) != want_vq)):
+        raise AssertionError(f"{label}: losses {losses}, rejected {result.rejected}, graph "
+                             f"{graph} (want {want_graph}), outside it {eager} ({want_vq} "
+                             f"vq_encode), evaluations {result.evals}")
+    log(f"{label}: {cfg.max_steps} steps in {wall:.3f} s (capture and evaluation incl.), "
+        f"{result.state.model.num_classes} classes, losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; launches from the step graph {graph}, outside it {eager} ({want_vq} vq_encode: "
+        f"one a batch encode through a native tokenizer, none through an adapter); "
+        f"evaluation PNGs " + ", ".join(os.path.basename(e[2]) for e in result.evals)
+        + f"; on {smi}")
+    counts = {k: eager.get(k, 0) + graph.get(k, 0) for k in set(eager) | set(graph)}
+    return counts, losses
+
+
+# the SOM-DDPM pipeline at the JAX defaults' widths: the autoencoder
+# (embedding_dim 64, hidden_planes 128, downscale_steps 3) at batch 96 on
+# 64 x 64 frames, a 128 x 128 SOM adapted in chunks of 32 (finetune: 8),
+# the UNet (model_channels 128, 3 res blocks, channel_mult (1, 2, 3)) at
+# batch 128 on 8 x 8 x 2 latents; the cuts are logged
+SOM_AE = dict(embedding_dim=64, hidden_planes=128, downscale_steps=3, batch_size=96,
+              image_size=64)
+SOM_UNET = dict(model_channels=128, num_res_blocks=3, channel_mult=(1, 2, 3))
+SOM_SOM = dict(som_width=128, som_height=128, adapt_batch_size=32)
+# the cuts: steps of each stage (defaults 10,000, 10,000, 10,000 and
+# 200,000), latents encoded (10,000), the evaluation's timesteps (1,000)
+SOM_STEPS = dict(ae=20, som=6, finetune=4, diffusion=20, examples=512, eval_timesteps=20)
+SOM_TIES = ((5, 6), (100, 9000), (128, 16383))  # SOM units made equal (lower, higher)
+SOM_TIE_RTOL = 1e-5  # a BMU may differ from float64's within this share of |x|^2 + |e|^2
+
+
+def check_som_bmu(torch, dev, ae, frames):
+    """The SOM's BMU search on the card (f32, TF32 off) against float64
+    distances computed on the card: every pick is the float64 nearest unit
+    or within SOM_TIE_RTOL of it; units made equal (SOM_TIES) and rows equal
+    to the higher copy go to the lower. Returns a record."""
+    from world_modelz_tpu_torch.ops.som import som_encode
+
+    som = ae.som
+    emb = som.embedding.clone()
+    for lo, hi in SOM_TIES:
+        emb[hi] = emb[lo]
+    state = som.replace(embedding=emb)
+    with torch.no_grad():
+        x = ae.encode_latent(frames).reshape(-1, ae.embedding_dim)
+    x = x.clone()
+    rows = torch.arange(len(SOM_TIES), device=dev) * 7
+    x[rows] = emb[torch.tensor([hi for _, hi in SOM_TIES], device=dev)]
+    pick = som_encode(state, x)
+    x64, e64 = x.double(), emb.double()
+    d64 = (x64 * x64).sum(1, keepdim=True) + (e64 * e64).sum(1) - 2.0 * (x64 @ e64.T)
+    best = d64.min(1).values
+    gap = d64.gather(1, pick[:, None])[:, 0] - best
+    scale = (x64 * x64).sum(1) + (e64 * e64).sum(1).max()
+    off = gap > 0
+    worst = float((gap / scale).max())
+    tied_ok = bool((pick[rows].cpu() == torch.tensor([lo for lo, _ in SOM_TIES])).all())
+    log(f"SOM BMU search ({x.shape[0]} latents x {emb.shape[0]} units of "
+        f"{emb.shape[1]}): {int(off.sum())} picks differ from float64's nearest, worst gap "
+        f"{worst:.3g} of |x|^2 + |e|^2 (tie margin {SOM_TIE_RTOL}); {len(SOM_TIES)} equal "
+        f"units: rows equal to the higher copy took the lower: {tied_ok}")
+    if worst > SOM_TIE_RTOL or not tied_ok:
+        raise AssertionError(f"SOM BMU: worst gap {worst}, ties to the lower {tied_ok}")
+    return dict(rows=int(x.shape[0]), off_float64=int(off.sum()), worst_gap=worst)
+
+
+def check_unet_parity(torch, dev, unet=SOM_UNET, batch=4, grid=8):
+    """The UNet at SOM_UNET on the card against the same weights on the CPU
+    (every parameter perturbed, so the zero-initialized convs count), both
+    fed the CPU's timestep embedding: outputs within PIXEL_RTOL x max(1,
+    max |eps|), then one ``ddpm_step`` each (MSE, AdamW) on the same batch,
+    times and noise: the loss within 1e-5 x max(1, loss) and every
+    gradient within GRAD_TOL x max(max |g|, GRAD_FLOOR x the largest). The
+    card's own embedding against the CPU's: within two f32 ulps of the
+    largest frequency's phase. Returns a record."""
+    from world_modelz_tpu_torch.cli import som_pipeline as sp
+    from world_modelz_tpu_torch.cli.video_diffusion import init_state
+    from world_modelz_tpu_torch.models import unet as unet_mod
+
+    cfg = sp.TrainDiffusionConfig(**unet, warmup=2, max_steps=10)
+    torch.manual_seed(41)
+    cpu = sp.make_unet(cfg, "cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    card = sp.make_unet(cfg, dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(42)
+    x = torch.rand((batch, grid, grid, 2), generator=gen) * 2 - 1
+    t = torch.rand((batch, 1), generator=gen)
+    eps = torch.randn((batch, grid, grid, 2), generator=gen)
+    emb_cpu = unet_mod.timestep_embedding(t, unet["model_channels"])
+    emb_card = unet_mod.timestep_embedding(t.to(dev), unet["model_channels"]).cpu()
+    emb_err = float((emb_card - emb_cpu).abs().max())
+    emb_tol = 2 * 5000.0 * 2.0**-23
+    own = unet_mod.timestep_embedding
+    unet_mod.timestep_embedding = lambda tt, dim, **kw: emb_cpu.to(tt.device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            cpu.eval(), card.eval()
+            want = cpu(x, t)
+            got = card(x.to(dev), t.to(dev)).cpu()
+            cpu.train(), card.train()
+        out_err = float((got - want).abs().max())
+        out_tol = PIXEL_RTOL * max(1.0, float(want.abs().max()))
+        losses, grads = {}, {}
+        for name, m, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            state = init_state(cfg, m)
+            stats = sp.ddpm_step(state, x.to(d), t.to(d), eps.to(d), cfg,
+                                 sp._recon_loss("MSE"))
+            losses[name] = float(stats[0])
+            grads[name] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    finally:
+        unet_mod.timestep_embedding = own
+        torch.backends.cudnn.allow_tf32 = tf32
+    top = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst, worst_name = 0.0, ""
+    for k, g in grads["cpu"].items():
+        lim = GRAD_TOL * max(float(g.abs().max()), GRAD_FLOOR * top)
+        r = float((grads["card"][k] - g).abs().max()) / lim
+        if r > worst:
+            worst, worst_name = r, k
+    loss_err = abs(losses["card"] - losses["cpu"])
+    log(f"UNet (model_channels {unet['model_channels']}, {unet['num_res_blocks']} res blocks, "
+        f"channel_mult {unet['channel_mult']}) on {tuple(x.shape)} card vs CPU, cuDNN TF32 "
+        f"off, "
+        f"the CPU's timestep embedding: eps max_abs_err {out_err:.3g} (tol {out_tol:.3g}); one "
+        f"train step: loss {losses['cpu']:.6f} vs {losses['card']:.6f}, gradients worst "
+        f"err/limit {worst:.3g} in {worst_name}; the card's own embedding within "
+        f"{emb_err:.3g} of the CPU's (tol {emb_tol:.3g})")
+    if not (out_err <= out_tol and loss_err <= 1e-5 * max(1.0, losses["cpu"])
+            and worst <= 1.0 and emb_err <= emb_tol):
+        raise AssertionError(f"UNet card vs CPU: eps err {out_err}, loss err {loss_err}, "
+                             f"gradient err/limit {worst} in {worst_name}, embedding {emb_err}")
+    return dict(eps_err=out_err, grad_err_over_limit=worst, embedding_err=emb_err)
+
+
+def profile_som_loops(torch, dev, ae, frames, unet, dd_cfg, latent_shape) -> dict:
+    """The two Python loops of the pipeline, timed alone and profiled:
+    one ``som_adapt`` call on ``frames``' latents (the chunked update,
+    train_som's chunk) and one evaluation sample (``sample_latents``: a
+    UNet call a timestep). Returns their walls."""
+    from world_modelz_tpu_torch.cli import som_pipeline as sp
+    from world_modelz_tpu_torch.ops.som import som_adapt
+
+    with torch.no_grad():
+        h = ae.encode_latent(frames)
+    chunk = SOM_SOM["adapt_batch_size"]
+    chunks = -(-h[..., 0].numel() // chunk)
+
+    def adapt():
+        som_adapt(ae.som, h, 0.1, 4.0, adapt_batch_size=chunk)
+
+    def sample():
+        sp.sample_latents(unet, None, dd_cfg, latent_shape, 0)
+
+    out = {}
+    for name, fn, per in (("som_adapt", adapt, chunks),
+                          ("sample", sample, dd_cfg.eval_timesteps)):
+        fn()
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        wall = time.perf_counter() - t0
+        out[f"{name}_ms"] = wall * 1e3
+        log(f"{name}: {wall * 1e3:.3f} ms alone, {wall * 1e6 / per:.2f} us a "
+            f"{'chunk' if name == 'som_adapt' else 'timestep'} ({per})")
+        if dev.type == "cuda":
+            profile_busy(torch, f"one {name} ({per} "
+                         f"{'chunks of ' + str(chunk) if name == 'som_adapt' else 'timesteps'})",
+                         fn, wall, 1)
+    return out
+
+
+def drive_som_pipeline(torch, dev, smi, root=os.path.join(HERE, "build", "smoke_som")):
+    """The five stages of ``cli.som_pipeline`` at the JAX defaults' widths
+    on synthetic frames, each reading the previous stage's checkpoint, a
+    few steps each (cuts logged): ``train_ae``, ``train_som`` (the SOM
+    adapt's us a chunk), ``check_som_bmu``, ``finetune_ae``,
+    ``create_diffusion_dataset``, ``check_unet_parity``, ``train_diffusion``
+    with one evaluation sample at cut timesteps. Returns a record."""
+    import shutil
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli import som_pipeline as sp
+
+    shutil.rmtree(root, ignore_errors=True)
+    rec = {}
+    n = SOM_STEPS
+    b, img = SOM_AE["batch_size"], SOM_AE["image_size"]
+    grid = img // 2 ** SOM_AE["downscale_steps"]
+    platform = "" if dev.type == "cuda" else dev.type
+    # the trainers as a user runs them: PyTorch's default TF32 settings
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        ae_cfg = sp.TrainAeConfig(**SOM_AE, platform=platform, max_steps=n["ae"],
+                                  checkpoint_interval=0, log_interval=10,
+                                  output_dir=os.path.join(root, "ae"))
+        r1 = sp.train_ae(ae_cfg)
+        som_cfg = sp.TrainSomConfig(ae_checkpoint=r1.path, batch_size=b, image_size=img,
+                                    platform=platform, **SOM_SOM, max_steps=n["som"],
+                                    checkpoint_interval=0, log_interval=3,
+                                    output_dir=os.path.join(root, "som"))
+        chunks = -(-b * grid * grid // som_cfg.adapt_batch_size)
+        r2 = sp.train_som(som_cfg)
+        frames = torch.from_numpy(sp.image_batch_fn("synthetic", "", "", "", b, img, 5)())
+        rec["bmu"] = check_som_bmu(torch, dev, r2.model, frames.to(dev))
+        ft_cfg = sp.FinetuneAeConfig(som_checkpoint=r2.path, batch_size=b, image_size=img,
+                                     platform=platform, max_steps=n["finetune"],
+                                     checkpoint_interval=0, log_interval=2,
+                                     output_dir=os.path.join(root, "finetune"))
+        r3 = sp.finetune_ae(ft_cfg)
+        fine_chunks = -(-b * grid * grid // ft_cfg.som_adapt_batch)
+        lat = os.path.join(root, "latents.npz")
+        t0 = time.perf_counter()
+        data = sp.create_diffusion_dataset(sp.CreateDatasetConfig(
+            checkpoint=r3.path, batch_size=b, image_size=img, max_examples=n["examples"],
+            dataset_fn=lat, platform=platform))
+        create_s = time.perf_counter() - t0
+        rec["unet"] = check_unet_parity(torch, dev, unet=SOM_UNET, grid=grid)
+        dd_cfg = sp.TrainDiffusionConfig(
+            input_dataset=lat, decoder_model=r3.path, batch_size=128, **SOM_UNET,
+            platform=platform, max_steps=n["diffusion"], warmup=5,
+            eval_interval=n["diffusion"], eval_timesteps=n["eval_timesteps"],
+            eval_batch_size=8, eval_trace_steps=4, checkpoint_interval=n["diffusion"],
+            log_interval=10, output_dir=os.path.join(root, "diffusion"))
+        t0 = time.perf_counter()
+        r5 = sp.train_diffusion(dd_cfg)
+        diffusion_s = time.perf_counter() - t0
+        rec.update(profile_som_loops(torch, dev, r2.model, frames.to(dev), r5.model, dd_cfg,
+                                     (grid, grid, 2)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ae, _ = sp.load_som_ae(r3.path, device=dev)
+    problems = []
+    for name, r in (("train_ae", r1), ("train_som", r2), ("finetune_ae", r3),
+                    ("train_diffusion", r5)):
+        vals = [v for h in r.history for k, v in h.items() if k in ("loss", "som_error")]
+        if not r.path or not os.path.isdir(r.path) or not all(map(math.isfinite, vals)) \
+                or not all(h["ok"] for h in r.history):
+            problems.append(f"{name}: {r.path} {r.history}")
+    if data.shape != (n["examples"], grid, grid, 2) or not np.abs(data).max() <= 1.0:
+        problems.append(f"latents {data.shape}")
+    if (ae.som_width, ae.som_height) != (SOM_SOM["som_width"], SOM_SOM["som_height"]):
+        problems.append(f"the finetuned SOM is {ae.som_width} x {ae.som_height}")
+    pngs = [f for f in os.listdir(dd_cfg.output_dir) if f.endswith(".png")]
+    if sorted(pngs) != [f"diffusion_sampling_{n['diffusion']:07d}_{tag}.png"
+                        for tag in ("base", "ema")]:
+        problems.append(f"evaluation PNGs {pngs}")
+    if problems:
+        raise AssertionError("SOM-DDPM pipeline: " + "; ".join(problems))
+    rec.update(ae_steps_per_s=r1.steps_per_sec, som_steps_per_s=r2.steps_per_sec,
+               som_us_per_chunk=1e6 / (r2.steps_per_sec * chunks),
+               finetune_steps_per_s=r3.steps_per_sec,
+               finetune_us_per_chunk=1e6 / (r3.steps_per_sec * fine_chunks),
+               create_s=create_s, diffusion_steps_per_s=r5.steps_per_sec,
+               diffusion_s=diffusion_s)
+    log(f"SOM-DDPM pipeline (each stage from the last's checkpoint, synthetic {img} x {img} "
+        f"frames): train_ae {SOM_AE} cut to {ae_cfg.max_steps} steps (default 10,000): "
+        f"{r1.steps_per_sec:.4f} steps/s; train_som {SOM_SOM} ({chunks} "
+        f"chunks a step), cut to {som_cfg.max_steps} steps (10,000): "
+        f"{r2.steps_per_sec:.4f} steps/s = {rec['som_us_per_chunk']:.2f} us a chunk; "
+        f"finetune_ae adapt batch {ft_cfg.som_adapt_batch} ({fine_chunks} chunks a step), "
+        f"cut to {ft_cfg.max_steps} steps (10,000): {r3.steps_per_sec:.4f} steps/s = "
+        f"{rec['finetune_us_per_chunk']:.2f} us a chunk; create_diffusion_dataset "
+        f"{n['examples']} examples (10,000) in {create_s:.3f} s; train_diffusion {SOM_UNET} "
+        f"at batch 128, "
+        f"cut to {dd_cfg.max_steps} steps (200,000): {r5.steps_per_sec:.4f} steps/s, with one "
+        f"evaluation (base and EMA) of {dd_cfg.eval_timesteps} timesteps (1,000), trace "
+        f"{dd_cfg.eval_trace_steps}, in {diffusion_s:.3f} s; losses: ae "
+        f"{r1.history[-1]['loss']:.5f}, som_error {r2.history[-1]['som_error']:.5f}, "
+        f"finetune {r3.history[-1]['loss']:.5f}, ddpm {r5.history[-1]['loss']:.5f}; TF32: "
+        f"matmul off, cuDNN on; on {smi}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3619,21 +4161,29 @@ def main() -> int:
         torch, dev, _build.LAUNCHES, smi, steps_per_dispatch=4, full=False,
         root=os.path.join(HERE, "build", "smoke_sparse_k4"))
     compare_dispatch_runs(torch, "sparse training", [sparse_a, sparse_b])
+    # sparse diffusion's rest (mixture of experts, the external tokenizer)
+    # and the SOM-DDPM pipeline
+    moe = check_moe(torch, dev, smi)
+    sparse_moe, moe_a, moe_step = drive_sparse_moe(torch, dev, _build.LAUNCHES, smi, sparse_a)
+    sparse_ext, ext = check_external_tokenizer(torch, dev, _build.LAUNCHES, smi)
+    som = drive_som_pipeline(torch, dev, smi)
     from world_modelz_tpu_torch.data import native
 
     log(f"sparse training: {sparse_a['steps_per_s']:.4f} (k=1), {sparse_b['steps_per_s']:.4f} "
         f"(k=4) steps/s over steps 11-60, frames rendered by the host compositor's "
         f"{native.backend()} path (render_trajectory)")
-    # launches of the eight main paths, each counted in its own runs (the
+    # launches of the ten main paths, each counted in its own runs (the
     # graphs' as captured x replays)
     paths = (serving, serving_fused, training, rollout, serving_http,
-             training_fused, tokenizer, sparse)
+             training_fused, tokenizer, sparse, sparse_moe, sparse_ext)
     counts = {key: sum(p.get(key, 0) for p in paths)
               for key in set().union(*paths)}
     log(f"launches: serving {serving}, fused serving {serving_fused}, training "
         f"{training}, rollout and evaluation {rollout}, exported programs over "
         f"HTTP {serving_http}, fused training "
-        f"{training_fused}, tokenizer training {tokenizer}, sparse training {sparse}")
+        f"{training_fused}, tokenizer training {tokenizer}, sparse training {sparse}, "
+        f"sparse training with experts {sparse_moe}, sparse training with the external "
+        f"tokenizer {sparse_ext}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -3684,7 +4234,8 @@ def main() -> int:
     # the trainers' step graphs: the launches their replays made in the main
     # training runs (in the totals above), and a step's captured launches
     runs = {"train_step/m3_b64_g8_full": train_a, "fused": train_fused,
-            "train_sparse/s16_n1024_b16": sparse_a}
+            "train_sparse/s16_n1024_b16": sparse_a,
+            "train_sparse/s16_n1024_b16 moe_experts 8": moe_a}
     for k in kernels:
         per_step = {run: rec["per_step"][k["name"]] for run, rec in runs.items()
                     if rec["per_step"].get(k["name"])}
@@ -3692,11 +4243,13 @@ def main() -> int:
             k["training_graphs"] = dict(
                 launches=sum(rec["graph"].get(k["name"], 0) for rec in runs.values()),
                 per_step=per_step)
+    steps["sparse_moe"] = moe_step
+    log(json.dumps({"moe": moe, "external_tokenizer": ext, "som_ddpm": som}))
     log(json.dumps({"step_programs": steps, "i3d": i3d, "composite": composite, "dispatch": [
         {key: r.get(key) for key in ("k", "data", "steps_per_s", "busy", "device_ms_per_step",
                                      "host_calls_per_step", "capture_s", "peak_gib",
                                      "data_ms", "batch_bytes", "data_wait_pct")}
-        for r in dispatch_runs + [sparse_a, sparse_b]]}))
+        for r in dispatch_runs + [sparse_a, sparse_b, moe_a]]}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

@@ -94,11 +94,18 @@ def test_sparse_bridge_round_trips_and_loads_strict(jax_model):
     model = VqSparseDiffusionModel(SHAPE, device="cpu", **MODEL)
     model.load_state_dict(state, strict=True)
     assert model.embedding.weight.shape == (K + 1, MODEL["dim"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        VqSparseDiffusionModel(SHAPE, device="cpu", moe_experts=2, **MODEL)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        convert.sparse_state_dict_from_params(
-            {"transformer": {"MoEFeedForward_0": {}}})
+    # mixture-of-experts FFNs: flax's MoEFeedForward_{i} arrays, as they are
+    jm = JaxSparseModel(shape=SHAPE, attn_backend="xla", moe_experts=2, **MODEL)
+    moe_params = jax.device_get(jax.jit(jm.init)(
+        jax.random.PRNGKey(1), jnp.zeros((1, N_CTX), jnp.int32),
+        jnp.zeros((1, N_CTX), jnp.int32))["params"])
+    moe_state = convert.sparse_state_dict_from_params(moe_params)
+    moe_model = VqSparseDiffusionModel(SHAPE, device="cpu", moe_experts=2, **MODEL)
+    moe_model.load_state_dict(moe_state, strict=True)
+    for name in ("w_gate", "w_in", "b_in", "w_out", "b_out"):
+        np.testing.assert_array_equal(
+            moe_state[f"transformer.layers.1.1.fn.{name}"].numpy(),
+            moe_params["transformer"]["MoEFeedForward_1"][name])
 
 
 def _inputs(seed, b=3):
@@ -488,9 +495,8 @@ def test_decode_volume_clamps_the_mask_token(tok_path):
 
 
 UNPORTED = [
-    dict(dataset="minerl"), dict(tokenizer="taming:a,b"), dict(moe_experts=2),
-    dict(moe_capacity_factor=2.0), dict(moe_aux_weight=0.1), dict(n_model=2),
-    dict(n_pipe=2), dict(fsdp=True), dict(n_micro=2),
+    dict(dataset="minerl"), dict(n_model=2), dict(n_pipe=2), dict(fsdp=True),
+    dict(n_micro=2),
 ]
 
 

@@ -15,7 +15,11 @@ search + EMA statistics kernel. Sparse space-time diffusion: the trainer
 synthetic trajectory volumes, with the flash-attention kernels) and its
 chunked volume sweep. Evaluation: the rollout CLI (``cli.rollout``) from a
 trained checkpoint to frames, GIFs, FVD and PSNR/SSIM, and the denoiser
-trainer's periodic evaluation. Layouts at public functions follow the
+trainer's periodic evaluation. The sparse trainer also takes
+mixture-of-experts FFNs (``parallel.moe``) and external tokenizers
+(``models.external``). SOM-DDPM: the five stages of ``cli.som_pipeline``
+(the SOM autoencoder, the SOM fit, the finetune, the latent dataset, the
+UNet DDPM). Layouts at public functions follow the
 JAX package: NHWC images in [0, 1], (B, S, H, W) token grids,
 (B, S, H, W, heads * dh) attention operands.
 
@@ -30,13 +34,15 @@ Entry points take ``device=None``, which means ``"cuda"``; pass
 Subpackages
 -----------
 ops        vector quantization (lookups, the EMA training forward,
-           dead-code revival, the kernels' plain versions)
+           dead-code revival, the kernels' plain versions), the SOM
 kernels    CUDA kernel wrappers, the attentions' autograd Functions, launch
            counters, the nvcc build
-models     tokenizer convs, local-3D and dense attention transformers, the
-           two denoisers
+models     tokenizer convs, local-3D and dense attention transformers
+           (mixture-of-experts FFNs), the two denoisers, external
+           tokenizers, the SOM autoencoder, the UNet
+parallel   the mixture-of-experts FFN (one device)
 diffusion  corruption, iterative-unmask sampler and multi-frame rollout;
-           sparse position samplers and the volume sweep
+           sparse position samplers and the volume sweep; the DDPM
 serve      batched rollout service (request coalescing, sessions)
 serve_http the stdlib HTTP front end and its client
 aot        serving artifacts: export, and the programs as CUDA graphs
@@ -51,7 +57,8 @@ cli        the trainers (``python -m ...cli.video_diffusion``,
            (``...cli.rollout``), ``...cli.make_gif``, serving:
            ``...cli.export_rollout``, ``...cli.serve_http``, and tools:
            ``...cli.sample_frames``, ``...cli.import_torch_vqae``,
-           ``...cli.import_torch_video``
+           ``...cli.import_torch_video``, ``...cli.import_torch_sparse``;
+           the SOM-DDPM stages (``...cli.som_pipeline <stage>``)
 utils      dataclass CLI configs, image grids, PNGs and GIFs, the JSONL
            logger, PSNR/SSIM, the FVD harness, FLOP counts, profiling
 convert    weight bridge from the JAX package's numpy parameter trees

@@ -22,6 +22,14 @@ uniformly, with
   stays outside the step, at JAX's steps, and a dispatch ends at it;
 - evaluation: the chunked volume sweep (``sparse_denoise_volume``), decoded
   to frames and written as a PNG grid, for the base and the EMA weights;
+- ``--moe_experts``: every FFN a top-1 mixture of experts
+  (``models.attention.MoEFeedForward``, ``--moe_capacity_factor``), its
+  load-balance loss weighted by ``--moe_aux_weight`` in the objective,
+  inside the step graph;
+- ``--tokenizer``: an external tokenizer (``models.external``,
+  ``native:<checkpoint>`` or ``taming:<config.yaml>,<model.ckpt>``) in
+  place of ``--decoder_model``, for the batch encode and the evaluation's
+  decode;
 - async checkpoints with the embedded config, resume, warm start and
   ``--single_batch`` (with its ``gt.png``);
 - a JSONL metric log: loss, grad norm, lr and steps/s at each log point,
@@ -40,9 +48,8 @@ processes), whose consumed position every checkpoint keeps
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports them: the MineRL dataset (A.8: the ``minerl`` package and its
-data are absent); the external tokenizer and mixture-of-experts FFNs (A.5);
-tensor, pipeline and FSDP parallelism (A.9). The flags of those features
-raise at any value other than their default.
+data are absent); tensor, pipeline and FSDP parallelism (A.9). The flags
+of those features raise at any value other than their default.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -56,7 +63,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,6 +92,7 @@ from world_modelz_tpu_torch.diffusion import (
     sparse_denoise_volume,
 )
 from world_modelz_tpu_torch.models import VQAutoEncoder, VqSparseDiffusionModel
+from world_modelz_tpu_torch.models.external import FrameTokenizer, make_tokenizer
 from world_modelz_tpu_torch.train import (
     AsyncCheckpointSaver,
     CheckpointGuard,
@@ -116,6 +124,10 @@ from world_modelz_tpu_torch.utils.config import (
 from world_modelz_tpu_torch.utils.image import make_grid, save_image
 from world_modelz_tpu_torch.utils.logging import MetricLogger
 
+# the in-repo tokenizer or an external one: both encode (B, H, W, C) [0, 1]
+# images to (B, h, w) tokens and decode them back
+Tokenizer = Union[VQAutoEncoder, FrameTokenizer]
+
 
 @dataclasses.dataclass
 class SparseDiffusionConfig:
@@ -139,8 +151,10 @@ class SparseDiffusionConfig:
     # weights-only warm start: params/EMA, fresh optimizer/sampler, step 0
     init_from: str = ""
 
-    decoder_model: str = ""  # tokenizer checkpoint path (required)
-    tokenizer: str = ""  # external tokenizer: not ported
+    decoder_model: str = ""  # tokenizer checkpoint (required without --tokenizer)
+    # external tokenizer spec: "native:<checkpoint>" or
+    # "taming:<config.yaml>,<model.ckpt>" (models/external.py)
+    tokenizer: str = ""
     dataset: str = "synthetic"  # synthetic|video (minerl raises)
     mlr_data_dir: str = ""  # the video files (--dataset video)
     image_size: int = 64
@@ -185,9 +199,11 @@ class SparseDiffusionConfig:
     # tokens on
     attn_backend: str = "auto"
 
-    moe_experts: int = 0  # > 0 not ported
-    moe_capacity_factor: float = 1.25  # MoE: not ported
-    moe_aux_weight: float = 1e-2  # MoE: not ported
+    # mixture-of-experts FFNs (models/attention.py MoEFeedForward): every
+    # FFN becomes moe_experts top-1-routed experts
+    moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2  # load-balance loss weight
 
     n_model: int = 1  # > 1 not ported
     fsdp: bool = False  # not ported
@@ -203,8 +219,6 @@ class SparseDiffusionConfig:
 # flags kept for parity with the JAX CLI whose features are not ported:
 # nothing reads them, so a value other than the default raises
 _UNPORTED_FIELDS = {
-    "moe_capacity_factor": ("mixture-of-experts FFNs", "A.5"),
-    "moe_aux_weight": ("mixture-of-experts FFNs", "A.5"),
     "n_micro": ("pipeline parallelism", "A.9"),
 }
 
@@ -224,12 +238,12 @@ def check_supported(cfg: SparseDiffusionConfig) -> None:
         raise unported("--dataset minerl (the minerl package and its data)", "A.8")
     if cfg.dataset not in ("synthetic", "video"):
         raise ValueError(f"unknown dataset {cfg.dataset!r}")
-    if cfg.tokenizer:
-        raise unported("--tokenizer (external tokenizers)", "A.5")
     if cfg.data_pipeline not in ("native", "grain"):
         raise ValueError(f"unknown data_pipeline {cfg.data_pipeline!r}")
-    if cfg.moe_experts > 0:
-        raise unported("--moe_experts (mixture-of-experts FFNs)", "A.5")
+    if cfg.moe_experts > 0 and cfg.n_pipe > 1:
+        raise ValueError(
+            "--moe_experts cannot combine with --n_pipe (the pipelined "
+            "forward does not thread the MoE aux-loss collection)")
     if cfg.n_model > 1 or cfg.n_pipe > 1 or cfg.fsdp:
         raise unported("--n_model / --n_pipe / --fsdp parallelism", "A.9")
 
@@ -276,14 +290,16 @@ def make_model(
         heads=cfg.heads,
         attn_backend=cfg.attn_backend,
         moe_experts=cfg.moe_experts,
+        moe_capacity_factor=cfg.moe_capacity_factor,
         device=device,
     )
     return model.train()
 
 
-def encode_batch(tok: VQAutoEncoder, frames: torch.Tensor,
+def encode_batch(tok: Tokenizer, frames: torch.Tensor,
                  shape: Tuple[int, int, int]) -> torch.Tensor:
-    """(B, S, H, W, C) uint8 frames -> (B, S, h, w) tokens (int64)."""
+    """(B, S, H, W, C) uint8 frames -> (B, S, h, w) tokens (int64), through
+    the tokenizer or an external ``FrameTokenizer``."""
     b, s, hh, ww, c = frames.shape
     if c != tok.in_channels:
         raise ValueError(
@@ -300,10 +316,11 @@ def encode_batch(tok: VQAutoEncoder, frames: torch.Tensor,
 
 
 @torch.no_grad()
-def decode_volume(tok: VQAutoEncoder, volume: torch.Tensor,
+def decode_volume(tok: Tokenizer, volume: torch.Tensor,
                   decode_n: int = 16) -> np.ndarray:
     """Chunked decode of a (B, S, h, w) token volume to (B, S, H, W, C)
-    frames, mask tokens clamped to 0 (sparse_diffusion.py:118-136)."""
+    frames, mask tokens clamped to 0 (sparse_diffusion.py:118-136),
+    through the tokenizer or an external ``FrameTokenizer``."""
     volume = torch.where(volume >= tok.num_embeddings, 0, volume)
     b, s, h, w = volume.shape
     flat = volume.reshape(b * s, h, w)
@@ -413,7 +430,7 @@ def train_step(
 def run_eval(
     model: VqSparseDiffusionModel,
     weights: Optional[Dict[str, torch.Tensor]],
-    tok: VQAutoEncoder,
+    tok: Tokenizer,
     cfg: SparseDiffusionConfig,
     step: int,
     tag: str,
@@ -474,7 +491,7 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     step's (loss, grad norm, ok) and the evaluations written."""
     check_supported(cfg)
     device = platform_device(cfg.platform)
-    if not cfg.decoder_model:
+    if not cfg.decoder_model and not cfg.tokenizer:
         raise ValueError("--decoder_model (tokenizer checkpoint) is required")
     if cfg.checkpoint and cfg.init_from:
         raise ValueError("--checkpoint (full resume) and --init_from "
@@ -482,7 +499,10 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     torch.manual_seed(cfg.manual_seed)
     os.makedirs(cfg.output_dir, exist_ok=True)
 
-    tok, _ = load_tokenizer(cfg.decoder_model, device)
+    if cfg.tokenizer:
+        tok = make_tokenizer(cfg.tokenizer, device)
+    else:
+        tok, _ = load_tokenizer(cfg.decoder_model, device)
     num_embeddings = tok.num_embeddings
     shape = (cfg.S, cfg.H, cfg.W)
     volume = cfg.S * cfg.H * cfg.W

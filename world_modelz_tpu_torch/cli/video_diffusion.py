@@ -496,21 +496,28 @@ def ce_step(
     ``r`` (None: no sampler update); with ``cfg.nan_guard`` the old state is
     kept where the loss or the grad norm is not finite. Writes the state in
     place and returns the packed (loss, grad norm, ok) float32 (3,)
-    tensor."""
+    tensor. With ``cfg.moe_experts`` > 0 (the sparse trainer's
+    mixture-of-experts FFNs) the loss also carries ``cfg.moe_aux_weight``
+    times the layers' mean load-balance loss, as JAX's ``loss_fn``."""
     model = state.model
     opt = state.optimizer
     opt.zero_grad()
+    moe = getattr(cfg, "moe_experts", 0) > 0
+    kwargs = {"return_aux": True} if moe else {}
     if cfg.bf16:
         # a differentiable cast: the gradients land on the f32 masters
         low = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                for n, p in model.named_parameters()}
-        logits = torch.func.functional_call(model, low, inputs)
+        out = torch.func.functional_call(model, low, inputs, kwargs)
     else:
-        logits = model(*inputs)
+        out = model(*inputs, **kwargs)
+    logits, aux = out if moe else (out, None)
     ce = F.cross_entropy(
         logits.float().reshape(-1, logits.shape[-1]), target.reshape(-1),
         reduction="none")
     loss = ce.mean()
+    if moe:
+        loss = loss + cfg.moe_aux_weight * aux
     loss.backward()
     with torch.no_grad():
         loss = loss.detach()

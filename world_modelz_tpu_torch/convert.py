@@ -15,6 +15,11 @@ Layout changes:
 - flax's auto-named dense stack (``LayerNorm_{2i}``, ``DenseAttention_{i}``,
   ``LayerNorm_{2i+1}``, ``FeedForward_{i}``) -> ``transformer.layers.{i}``
 
+The SOM-DDPM's models: ``som_tokenizer_state_from_state`` (the SOM
+autoencoder's convs, BatchNorm statistics and ``SomState``) and
+``unet_state_dict_from_params`` (the UNet and ``SimpleDiffusionModel``,
+flax's auto-named layers to the port's lists of them).
+
 The two VQ statistics outside the reference layout (``activation_count``,
 ``accumulated_error``) go beside the state_dict: ``tokenizer_vq_stats``.
 ``tokenizer_checkpoint_from_state`` writes a JAX tokenizer's arrays (its
@@ -94,12 +99,12 @@ def sparse_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
     VqSparseDiffusionModel`` state_dict (the inverse of the JAX package's
     ``utils/torch_import.py:sparse_params_from_torch``). flax names the
     dense stack's modules in creation order: layer i is ``LayerNorm_{2i}``,
-    ``DenseAttention_{i}``, ``LayerNorm_{2i+1}``, ``FeedForward_{i}``."""
+    ``DenseAttention_{i}``, ``LayerNorm_{2i+1}``, ``FeedForward_{i}`` or,
+    with mixture-of-experts FFNs, ``MoEFeedForward_{i}``, whose ``w_gate``,
+    ``w_in``, ``b_in``, ``w_out`` and ``b_out`` keep their layout
+    (``layers.{i}.1.fn.w_gate`` ...). (The JAX package's importer reads no
+    MoE keys.)"""
     tr = params["transformer"]
-    if any(name.startswith("MoEFeedForward") for name in tr):
-        raise NotImplementedError(
-            "mixture-of-experts FFNs are not ported to world_modelz_tpu_torch "
-            "yet (ROADMAP A.5)")
     sd: StateDict = {}
     for name in ("pos_emb_s", "pos_emb_h", "pos_emb_w", "embedding"):
         sd[f"{name}.weight"] = _t(params[name]["embedding"])
@@ -112,8 +117,12 @@ def sparse_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
         if "to_out" in attn:
             _linear(sd, f"{base}.0.fn.to_out.0", attn["to_out"])
         _layernorm(sd, f"{base}.1.norm", tr[f"LayerNorm_{2 * i + 1}"])
-        _linear(sd, f"{base}.1.fn.net.0", tr[f"FeedForward_{i}"]["Dense_0"])
-        _linear(sd, f"{base}.1.fn.net.3", tr[f"FeedForward_{i}"]["Dense_1"])
+        if f"MoEFeedForward_{i}" in tr:
+            for name, w in tr[f"MoEFeedForward_{i}"].items():
+                sd[f"{base}.1.fn.{name}"] = _t(w)
+        else:
+            _linear(sd, f"{base}.1.fn.net.0", tr[f"FeedForward_{i}"]["Dense_0"])
+            _linear(sd, f"{base}.1.fn.net.3", tr[f"FeedForward_{i}"]["Dense_1"])
         i += 1
     if i == 0:
         raise KeyError("no DenseAttention_* layers in params['transformer']")
@@ -143,6 +152,21 @@ def tokenizer_state_dict_from_state(
     ``cluster_size`` (L, K) fills the reference's ``vq.cluster_size``
     buffer, which inference never reads; ones when omitted.
     """
+    sd = _autoencoder_state_dict(params, batch_stats)
+    codebook = np.asarray(codebook, np.float32)
+    if codebook.ndim != 3:
+        raise ValueError(f"codebook must be (L, K, D), got {codebook.shape}")
+    sd["vq.embedding"] = _t(codebook)
+    if cluster_size is None:
+        cluster_size = np.ones(codebook.shape[:2], np.float32)
+    sd["vq.cluster_size"] = _t(cluster_size)
+    return sd
+
+
+def _autoencoder_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                            ) -> StateDict:
+    """The conv encoder and decoder of JAX's ``_AEModule`` (the tokenizer's
+    and the SOM autoencoder's) -> ``encoder.*`` and ``decoder.*`` keys."""
     sd: StateDict = {}
     enc_p, enc_s = params["encoder"], batch_stats["encoder"]
     _conv(sd, "encoder._conv_1", enc_p["Conv_0"])
@@ -170,14 +194,6 @@ def tokenizer_state_dict_from_state(
             _conv(sd, f"{base}.conv_residual", p["Conv_2"])
         j += 1
     _conv(sd, f"decoder.decoder_stack.{j + 1}", dec_p["Conv_1"])
-
-    codebook = np.asarray(codebook, np.float32)
-    if codebook.ndim != 3:
-        raise ValueError(f"codebook must be (L, K, D), got {codebook.shape}")
-    sd["vq.embedding"] = _t(codebook)
-    if cluster_size is None:
-        cluster_size = np.ones(codebook.shape[:2], np.float32)
-    sd["vq.cluster_size"] = _t(cluster_size)
     return sd
 
 
@@ -221,3 +237,51 @@ def tokenizer_checkpoint_from_state(
     vq = tokenizer_vq_stats(codebook, activation_count, accumulated_error)
     return save_checkpoint(
         directory, 0, {"tokenizer": sd, "vq_stats": vq}, dict(config))
+
+
+def som_tokenizer_state_from_state(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                                   som: Any):
+    """A JAX ``SomTokenizerState`` (``params``, ``batch_stats`` and the
+    ``SomState``: its ``embedding``, ``activation_count``, ``width``,
+    ``height``) -> ``models.som_autoencoder.SomTokenizerState``, which
+    ``SomAutoEncoder.load_tokenizer_state`` loads (the state_dict with
+    ``strict=True``)."""
+    from world_modelz_tpu_torch.models.som_autoencoder import SomTokenizerState
+    from world_modelz_tpu_torch.ops.som import SomState
+
+    state = SomState(
+        embedding=_t(som.embedding),
+        activation_count=torch.from_numpy(np.array(som.activation_count, np.int32)),
+        width=int(som.width), height=int(som.height))
+    return SomTokenizerState(_autoencoder_state_dict(params, batch_stats), state)
+
+
+_FLAX_LISTS = {"Conv": "convs", "GroupNorm": "norms", "Dense": "dense",
+               "ResBlock": "res", "AttentionBlock": "attn"}
+
+
+def unet_state_dict_from_params(params: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """JAX ``UNetDiffusionModel`` or ``SimpleDiffusionModel`` params ->
+    ``models.unet``'s state_dict. The port keeps each block's layers in
+    lists in flax's creation order, so flax's ``{Kind}_{k}`` is the port's
+    ``{list}.{k}`` (``Conv`` -> ``convs``, ``GroupNorm`` -> ``norms``,
+    ``Dense`` -> ``dense``, ``ResBlock`` -> ``res``, ``AttentionBlock`` ->
+    ``attn``); the attention's 1-D convs ``qkv`` and ``proj_out`` (kernel
+    (1, in, out)) become linear layers."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name in ("qkv", "proj_out"):
+            sd[f"{prefix}{name}.weight"] = _t(np.asarray(p["kernel"])[0].T)
+            sd[f"{prefix}{name}.bias"] = _t(p["bias"])
+            continue
+        kind, _, k = name.rpartition("_")
+        key = f"{prefix}{_FLAX_LISTS[kind]}.{k}"
+        if kind == "Conv":
+            _conv(sd, key, p)
+        elif kind == "Dense":
+            _linear(sd, key, p)
+        elif kind == "GroupNorm":
+            _layernorm(sd, key, p)
+        else:
+            sd.update(unet_state_dict_from_params(p, f"{key}."))
+    return sd

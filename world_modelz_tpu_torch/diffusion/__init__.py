@@ -1,6 +1,8 @@
 """Masked discrete diffusion: corruption and sampling, and the sparse
-space-time position samplers and volume sweep."""
+space-time position samplers and volume sweep; the continuous Gaussian DDPM
+of the SOM-DDPM pipeline (``diffusion.ddpm``)."""
 
+from world_modelz_tpu_torch.diffusion.ddpm import alpha_bar, ddpm_corrupt, ddpm_sample
 from world_modelz_tpu_torch.diffusion.masked import (
     corrupt_tokens,
     generator_noise,
@@ -27,4 +29,7 @@ __all__ = [
     "sample_time_dependent",
     "sparse_denoise_volume",
     "GeneratorDraws",
+    "alpha_bar",
+    "ddpm_corrupt",
+    "ddpm_sample",
 ]

@@ -9,7 +9,8 @@ embeddings.
 
 The dense stack (reference: minecraft/transformer.py:34-80) is
 ``DenseAttention`` / ``DenseTransformer``: fused QKV, per-head scaled
-dot-product over all N tokens. ``dense_attention`` is the JAX package's
+dot-product over all N tokens, and FFNs that are either ``FeedForward`` or
+the mixture of experts ``MoEFeedForward`` (``parallel/moe.py``). ``dense_attention`` is the JAX package's
 ``backend="xla"`` branch; ``dense_attention_fwd``,
 ``dense_attention_bwd_dq`` and ``dense_attention_bwd_dkv`` are the plain
 versions of the three flash-attention kernels of
@@ -54,6 +55,7 @@ from world_modelz_tpu_torch.kernels.local3d_block import (
     local3d_block,
 )
 from world_modelz_tpu_torch.ops.dense import dense_apply, narrow
+from world_modelz_tpu_torch.parallel import moe
 
 NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
 # DenseAttention's "auto" backend takes the flash kernel from this many
@@ -118,6 +120,43 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
+
+
+class MoEFeedForward(nn.Module):
+    """Top-1 routed mixture-of-experts FFN, a drop-in for ``FeedForward``
+    (JAX's ``MoEFeedForward``, models/attention.py:63): the parameters
+    ``w_gate`` (dim, E), ``w_in`` (E, dim, hidden), ``b_in`` (E, hidden),
+    ``w_out`` (E, hidden, dim), ``b_out`` (E, dim) in flax's layout and
+    init, cast to the input's dtype at each call, and
+    max(1, ceil(capacity_factor * N / E)) slots per expert. ``forward``
+    returns (y, the load-balance loss), the loss JAX sows as ``moe_aux``.
+    ``impl``: ``"dispatch"`` the main path (``parallel.moe.
+    moe_ffn_indexed``, equal to JAX's dispatch einsums ``moe_ffn``),
+    ``"reference"`` every token through its own expert (``moe_reference``,
+    no capacity). No dropout, as in JAX."""
+
+    def __init__(self, dim: int, hidden_dim: int, num_experts: int,
+                 capacity_factor: float = 1.25, impl: str = "dispatch"):
+        super().__init__()
+        if impl not in ("dispatch", "reference"):
+            raise ValueError(f"impl must be 'dispatch' or 'reference', got {impl!r}")
+        self.num_experts, self.capacity_factor, self.impl = (
+            num_experts, capacity_factor, impl)
+        e, hid = num_experts, hidden_dim
+        self.w_gate = nn.Parameter(torch.randn(dim, e) * dim**-0.5)
+        self.w_in = nn.Parameter(torch.randn(e, dim, hid) * dim**-0.5)
+        self.b_in = nn.Parameter(torch.zeros(e, hid))
+        self.w_out = nn.Parameter(torch.randn(e, hid, dim) * hid**-0.5)
+        self.b_out = nn.Parameter(torch.zeros(e, dim))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        p = moe.MoEParams(*(w.to(x.dtype) for w in (
+            self.w_gate, self.w_in, self.b_in, self.w_out, self.b_out)))
+        if self.impl == "reference":
+            gate, expert = moe.route(p, x)
+            return moe.moe_reference(p, x), moe.load_balance_loss(gate, expert)
+        capacity = moe.moe_capacity(self.capacity_factor, x.shape[1], self.num_experts)
+        return moe.moe_ffn_indexed(p, x, capacity=capacity)
 
 
 @functools.lru_cache(maxsize=16)
@@ -818,7 +857,12 @@ class DenseAttention(nn.Module):
 class DenseTransformer(nn.Module):
     """Pre-norm residual stack of DenseAttention / FeedForward blocks
     (transformer.py:67-80), LayerNorm eps 1e-6. Submodules are named as
-    the reference state_dict (``layers.{i}.0.fn.to_qkv`` ...)."""
+    the reference state_dict (``layers.{i}.0.fn.to_qkv`` ...). With
+    ``moe_experts`` > 0 every FFN is a ``MoEFeedForward``
+    (``layers.{i}.1.fn.w_gate`` ...) of ``moe_experts`` experts of width
+    ``mlp_dim``; ``forward(x, return_aux=True)`` then also returns the
+    layers' mean load-balance loss (the JAX trainer's mean over the sown
+    ``moe_aux`` values)."""
 
     def __init__(
         self,
@@ -829,21 +873,43 @@ class DenseTransformer(nn.Module):
         mlp_dim: int,
         dropout: float = 0.0,
         attn_backend: str = "auto",
+        moe_experts: int = 0,
+        moe_capacity_factor: float = 1.25,
+        moe_impl: str = "dispatch",
     ):
         super().__init__()
+
+        def ffn():
+            if moe_experts > 0:
+                return MoEFeedForward(dim, mlp_dim, moe_experts,
+                                      capacity_factor=moe_capacity_factor, impl=moe_impl)
+            return FeedForward(dim, mlp_dim, dropout=dropout)
+
         self.layers = nn.ModuleList(
             nn.ModuleList([
                 PreNorm(dim, DenseAttention(
                     dim, heads=heads, dim_head=dim_head, dropout=dropout,
                     backend=attn_backend,
                 )),
-                PreNorm(dim, FeedForward(dim, mlp_dim, dropout=dropout)),
+                PreNorm(dim, ffn()),
             ])
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_aux: bool = False):
+        aux = []
         for attn, ff in self.layers:
             x = attn(x) + x
-            x = ff(x) + x
-        return x
+            y = ff(x)
+            if isinstance(y, tuple):
+                y, a = y
+                aux.append(a)
+            x = y + x
+        if not return_aux:
+            return x
+        if not aux:
+            raise ValueError("return_aux needs mixture-of-experts FFNs (moe_experts > 0)")
+        total = aux[0]  # summed in layer order, as JAX's Python sum
+        for a in aux[1:]:
+            total = total + a
+        return x, total / len(aux)

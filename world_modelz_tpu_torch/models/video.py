@@ -106,6 +106,10 @@ class VqSparseDiffusionModel(nn.Module):
     the reference state_dict's (``utils/torch_import.py:
     sparse_params_from_torch`` of the JAX package reads them), so
     ``convert.sparse_state_dict_from_params`` loads with ``strict=True``.
+    ``moe_experts`` > 0 makes every FFN a mixture of experts
+    (``models.attention.MoEFeedForward``, ``moe_capacity_factor``,
+    ``moe_impl``); ``forward(..., return_aux=True)`` then returns
+    (logits, the layers' mean load-balance loss).
     """
 
     def __init__(
@@ -120,15 +124,13 @@ class VqSparseDiffusionModel(nn.Module):
         dropout: float = 0.0,
         attn_backend: str = "auto",
         moe_experts: int = 0,
+        moe_capacity_factor: float = 1.25,
+        moe_impl: str = "dispatch",
         *,
         device: DeviceLike = None,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts FFNs (moe_experts > 0, parallel/moe.py) "
-                "are not ported to world_modelz_tpu_torch yet (ROADMAP A.5)")
         dev = resolve_device(device)
         self.shape = tuple(int(x) for x in shape)
         self.num_classes = num_classes
@@ -139,7 +141,8 @@ class VqSparseDiffusionModel(nn.Module):
         self.embedding = Embedding(num_classes + 1, dim)  # + mask class
         self.transformer = DenseTransformer(
             dim, depth, heads=heads, dim_head=dim_head, mlp_dim=mlp_dim,
-            dropout=dropout, attn_backend=attn_backend,
+            dropout=dropout, attn_backend=attn_backend, moe_experts=moe_experts,
+            moe_capacity_factor=moe_capacity_factor, moe_impl=moe_impl,
         )
         self.logit_proj = Dense(dim, num_classes)
         self.to(device=dev, dtype=dtype)
@@ -157,6 +160,10 @@ class VqSparseDiffusionModel(nn.Module):
                 + self.pos_emb_h((indices // w) % h)
                 + self.pos_emb_w(indices % w))
 
-    def forward(self, tokens: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, indices: torch.Tensor,
+                return_aux: bool = False):
         x = self.embedding(tokens.long()) + self.pos_embedding_3d(indices.long())
+        if return_aux:
+            x, aux = self.transformer(x, return_aux=True)
+            return self.logit_proj(x), aux
         return self.logit_proj(self.transformer(x))

@@ -1,5 +1,6 @@
-"""Plain PyTorch ops: the vector quantizer (``ops.vq``, exported here) and
-flax's dense apply (``ops.dense``)."""
+"""Plain PyTorch ops: the vector quantizer (``ops.vq``, exported here),
+the self-organizing map (``ops.som``) and flax's dense apply
+(``ops.dense``)."""
 
 from world_modelz_tpu_torch.ops.vq import (
     VQ1State,
