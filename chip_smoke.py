@@ -969,19 +969,21 @@ def check_local3d_bwd(torch, dev, depth=DENOISER["depth"]):
 VQ_TIED = ((12, 13), (20, 25), (63, 64), (7, 300), (128, 511))
 
 
-def vq_tie_case(torch, dev, n, dtype):
-    """A codebook whose codes VQ_TIED[i][1] repeat VQ_TIED[i][0], rows equal
-    to the higher copy (every other row), two rows all NaN, and the codes the
-    search must pick for those rows: the lower copy (ties go to the lowest
-    k), 0 for all-NaN distances. Returns (x, codebook, rows, want)."""
-    k, d = TOKENIZER["num_embeddings"], TOKENIZER["embedding_dim"]
+def vq_tie_case(torch, dev, n, dtype, k=TOKENIZER["num_embeddings"],
+                d=TOKENIZER["embedding_dim"]):
+    """A (k, d) codebook whose codes VQ_TIED[i][1] (those below k) repeat
+    VQ_TIED[i][0], rows equal to the higher copy (every other row), two rows
+    all NaN, and the codes the search must pick for those rows: the lower
+    copy (ties go to the lowest k), 0 for all-NaN distances. Returns (x,
+    codebook, rows, want)."""
+    tied = [(lo, hi) for lo, hi in VQ_TIED if hi < k]
     gen = torch.Generator(device=dev).manual_seed(3)
     codebook = torch.randn((k, d), generator=gen, device=dev)
-    for lo, hi in VQ_TIED:
+    for lo, hi in tied:
         codebook[hi] = codebook[lo]
     x = torch.randn((n, d), generator=gen, device=dev)
     rows = torch.arange(0, n, 2, device=dev)
-    pick = torch.tensor(VQ_TIED, device=dev)[rows % len(VQ_TIED)]
+    pick = torch.tensor(tied, device=dev)[rows % len(tied)]
     x[rows] = codebook[pick[:, 1]]
     want = pick[:, 0]
     nan_rows = torch.tensor([1, n - 1], device=dev)
@@ -1000,7 +1002,7 @@ def check_vq_ties(torch, name, got, rows, want):
             f"take the lowest code")
 
 
-def check_vq(torch, dev):
+def check_vq(torch, dev, cases=None, ties=None, records=None):
     """Kernel B against its plain version at the serving encode batch (f32,
     as the tokenizer feeds it, and bf16), at the training step's encode
     batch (64 clips of S frames), at the tokenize-benchmark batch, at
@@ -1008,19 +1010,24 @@ def check_vq(torch, dev):
     main paths (K not a whole number of 64-code chunks, D below 64, a
     ragged N); then ties and all-NaN rows (vq_tie_case) at the serving
     batch (f32, bf16: at K = 512 the plan splits a 128-row tile's codes over
-    four CTAs) and the sparse trainer's (one split). Returns the serving
-    f32 record."""
+    four CTAs) and the sparse trainer's (one split). ``cases`` ((name, N,
+    dtype, codebook)) and ``ties`` ((N, K, D)) replace those; ``records``
+    takes each f32 case's record by name. Returns the serving f32
+    record."""
     from world_modelz_tpu_torch.kernels import vq_encode_nearest
     from world_modelz_tpu_torch.ops.vq import vq_encode
 
     k, d = TOKENIZER["num_embeddings"], TOKENIZER["embedding_dim"]
+    ties = ties or [(n, k, d) for n in (8 * SEQ * GRID * GRID, SPARSE_TRAIN["batch_size"]
+                                        * SPARSE_TRAIN["S"] * SPARSE_TRAIN["H"]
+                                        * SPARSE_TRAIN["W"])]
     gen = torch.Generator(device=dev).manual_seed(1)
     codebook = torch.randn((k, d), generator=gen, device=dev)
     serving = None
     # its own generator: the other cases keep their inputs
     odd = torch.randn((101, 24), generator=torch.Generator(device=dev).manual_seed(2),
                       device=dev)
-    cases = [("serving", 8 * SEQ * GRID * GRID, torch.float32, codebook),
+    cases = cases or [("serving", 8 * SEQ * GRID * GRID, torch.float32, codebook),
              ("serving", 8 * SEQ * GRID * GRID, torch.bfloat16, codebook),
              ("train", TRAIN["batch_size"] * SEQ * GRID * GRID, torch.float32, codebook),
              ("bench", 256 * GRID * GRID, torch.float32, codebook),
@@ -1080,16 +1087,19 @@ def check_vq(torch, dev):
             f"(kernel/route {ms / cublas_ms:.4f}) | bound_us={bound_ms * 1e3:.4f} "
             f"({bound_by}; {products} TF32 products at the TF32 peak), on the "
             f"CUDA cores at the f32 peak {f32_bound_ms * 1e3:.4f}")
-        if name == "serving" and dtype == torch.float32:
-            serving = dict(max_abs_err=regret, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None, cublas_route_ms=cublas_ms)
+        if dtype == torch.float32:
+            rec = dict(max_abs_err=regret, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None, cublas_route_ms=cublas_ms)
+            if records is not None:
+                records[name] = rec
+            if name == "serving":
+                serving = rec
         del x, xf
-    for n in (8 * SEQ * GRID * GRID, SPARSE_TRAIN["batch_size"] * SPARSE_TRAIN["S"]
-              * SPARSE_TRAIN["H"] * SPARSE_TRAIN["W"]):
+    for n, k, d in ties:
         for dtype in (torch.float32, torch.bfloat16):
-            x, codebook, rows, want = vq_tie_case(torch, dev, n, dtype)
-            name = f"vq ties N={n} {str(dtype).replace('torch.', '')}"
+            x, codebook, rows, want = vq_tie_case(torch, dev, n, dtype, k, d)
+            name = f"vq ties N={n} K={k} D={d} {str(dtype).replace('torch.', '')}"
             check_vq_ties(torch, name, vq_encode_nearest(x, codebook), rows, want)
             plain = vq_encode(codebook[None], x[:, None]).reshape(-1)
             check_vq_ties(torch, f"{name} (plain version)", plain, rows, want)
@@ -1098,29 +1108,32 @@ def check_vq(torch, dev):
     return serving
 
 
-def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
+def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID,
+                   cases=None, ties=None, records=None):
     """Kernel C (``vq_train_stats``) against its plain version and float64
     sums at the tokenizer trainer's batch (96 frames of 8x8 latents), at a
     ragged N, with a codebook whose codes but 12 lie far from the data,
     and at a shape off the main paths (K = 101, D = 24, N = 1,000); then
     ties and all-NaN rows (vq_tie_case) at N = 3,072 (four code splits at
-    K = 512) and at the training batch. Returns the training-shape
-    record."""
+    K = 512) and at the training batch. ``cases`` ((name, N, codebook))
+    and ``ties`` ((N, K, D)) replace those; ``records`` takes each case's
+    record by name. Returns the training-shape record."""
     from world_modelz_tpu_torch.kernels import vq_encode_nearest, vq_train_stats
     from world_modelz_tpu_torch.ops.vq import vq_train_stats_reference
 
     k, d = TOKENIZER["num_embeddings"], TOKENIZER["embedding_dim"]
+    ties = ties or [(n, k, d) for n in (8 * SEQ * GRID * GRID, n_train)]
     gen = torch.Generator(device=dev).manual_seed(6)
     codebook = torch.randn((k, d), generator=gen, device=dev)
     far = codebook.clone()
     far[12:] += 100.0  # 500 codes no row is near
     record = None
-    for name, n, cb in (("train", n_train, codebook),
-                        ("ragged", n_train + 37, codebook),
-                        ("mostly_dead", n_train, far),
-                        ("odd_shape", 1000, torch.randn(
-                            (101, 24), device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(7)))):
+    for name, n, cb in cases or (("train", n_train, codebook),
+                                 ("ragged", n_train + 37, codebook),
+                                 ("mostly_dead", n_train, far),
+                                 ("odd_shape", 1000, torch.randn(
+                                     (101, 24), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(7)))):
         k, d = cb.shape
         x = torch.randn((n, d), generator=gen, device=dev)
         idx, q, cnt, err, dw = vq_train_stats(x, cb)
@@ -1194,13 +1207,15 @@ def check_vq_train(torch, dev, n_train=VQAE_TRAIN["batch_size"] * GRID * GRID):
             f"{ms / cublas_ms:.4f}) | bound_us={bound_ms * 1e3:.4f} ({bound_by}; "
             f"{SPLIT_TF32_PRODUCTS} TF32 products at the TF32 peak), on the CUDA "
             f"cores at the f32 peak {f32_bound_ms * 1e3:.4f}")
+        rec = dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None, cublas_route_ms=cublas_ms)
+        if records is not None:
+            records[name] = rec
         if name == "train":
-            record = dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                          cublas_route_ms=cublas_ms)
-    for n in (8 * SEQ * GRID * GRID, n_train):
-        x, cb, rows, want = vq_tie_case(torch, dev, n, torch.float32)
-        name = f"vq_train ties N={n}"
+            record = rec
+    for n, k, d in ties:
+        x, cb, rows, want = vq_tie_case(torch, dev, n, torch.float32, k, d)
+        name = f"vq_train ties N={n} K={k} D={d}"
         idx, q, cnt, _, _ = vq_train_stats(x, cb)
         check_vq_ties(torch, name, idx, rows, want)
         check_vq_ties(torch, f"{name} (plain version)",
@@ -2108,7 +2123,7 @@ def state_diffs(torch, a, b):
 def check_step_program(torch, dev, smi, kind="video", backend="auto",
                        accumulation_steps=1, parity=3, timed=20,
                        root=os.path.join(HERE, "build", "smoke_step"), train=None,
-                       device_composite=False):
+                       device_composite=False, mesh=None, fsdp=False):
     """A trainer's step function (``step_body``) eagerly against its step
     program (``train.dispatch.StepProgram``: on the card one CUDA graph,
     replayed), at full width (``kind`` "video": train_step/m3_b64_g8_full
@@ -2120,7 +2135,11 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
     EMA and the sampler must be bitwise equal. Then ``timed`` eager steps
     against ``timed`` replays (A B B A) and once more the two states
     bitwise, then both profiled (busy share, host launch calls a step, the
-    graph's kernel counts held to captured x replays). Returns a record."""
+    graph's kernel counts held to captured x replays). With ``mesh`` (a
+    data axis with a process group) the replayed state is on it, so its
+    graph holds the step's collectives, while the eager state runs the same
+    step without a group; ``fsdp`` shards both optimizers. Returns a
+    record."""
     import shutil
 
     from world_modelz_tpu_torch.cli import sparse_diffusion as sd
@@ -2131,12 +2150,13 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
     on_card = dev.type == "cuda"
     platform = "" if on_card else dev.type
     shutil.rmtree(root, ignore_errors=True)
+    axis = (", a process group of one" if mesh is not None else "") + (", --fsdp" if fsdp else "")
     if kind == "video":
         train = train or TRAIN
         tok_path = seeded_tokenizer_checkpoint(torch, root, train=train)
         cfg = vd.VideoDiffusionConfig(**train, decoder_model=tok_path, platform=platform,
                                       accumulation_steps=accumulation_steps,
-                                      device_composite=device_composite)
+                                      device_composite=device_composite, fsdp=fsdp)
         tok, _ = vd.load_tokenizer(tok_path, dev)
         vd.tokenizer_inference_cast(tok)
         clip_fn, _ = vd.build_clip_fn(cfg, 7)
@@ -2162,7 +2182,8 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
     else:
         train = train or SPARSE_TRAIN
         tok_path = sparse_tokenizer_checkpoint(torch, root, train=train)
-        cfg = sd.SparseDiffusionConfig(**train, decoder_model=tok_path, platform=platform)
+        cfg = sd.SparseDiffusionConfig(**train, decoder_model=tok_path, platform=platform,
+                                       fsdp=fsdp)
         tok, _ = sd.load_tokenizer(tok_path, dev)
         sampler = sd.build_sampler(cfg)
         try:
@@ -2188,15 +2209,16 @@ def check_step_program(torch, dev, smi, kind="video", backend="auto",
 
         label = "step program train_sparse/s16_n1024_b16" + (
             f", {cfg.moe_experts} experts" if cfg.moe_experts else "")
+    label += axis
 
-    def new_state():
+    def new_state(mesh=None):
         torch.manual_seed(11)
-        return vd.init_state(cfg, new_model())
+        return vd.init_state(cfg, new_model(), mesh)
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
     try:
-        eager, graphed = new_state(), new_state()
+        eager, graphed = new_state(), new_state(mesh)
         io = step_inputs({key: torch.empty_like(v) for key, v in data[0].items()},
                          empty_draws(), max(parity, timed))
         program = vd.step_program(graphed, io, lambda: body(graphed, io.tensors, io.draws))
@@ -4076,6 +4098,255 @@ def drive_som_pipeline(torch, dev, smi, root=os.path.join(HERE, "build", "smoke_
     return rec
 
 
+# masked-denoise at the CLI's defaults (cli/masked_denoise.py): level 5 at
+# 64 x 64, so 2 x 2 patches (D = 12), 1,024 tokens a grid, 256 codes, gMLP
+# width 512 and depth 5, batch 14; cut to 20 fitting and 30 training steps
+MASKED_DENOISE = dict(batch_size=14, d_model=512, depth=5, level=5, image_size=64,
+                      codebook_size=256, vq_steps=20, max_steps=30, eval_interval=30,
+                      checkpoint_interval=30, log_interval=10)
+
+
+def check_masked_denoise(torch, dev, launches, smi, md=MASKED_DENOISE,
+                         root=os.path.join(HERE, "build", "smoke_md"), gmlp_batch=2):
+    """The masked-denoise slice at the CLI's width: the VQ kernels against
+    their plain versions at the patch quantizer's widths (``vq_encode``
+    at D = 12 and 48, N = a step's 14,336 patch vectors, with ties;
+    ``vq_train_stats`` at D = 12); the gMLP's f32 logits on the card
+    against the CPU (TF32 off, LOGIT_TOL); then ``train`` (the patch VQ fit
+    through ``vq_train_stats``, the steps from their CUDA graph, whose
+    encode is ``vq_encode``, one evaluation PNG and a checkpoint), its step
+    graph replayed against the same step run eagerly from the same state
+    (bitwise), and the replayed step timed (the wall with its host batch
+    and draws; the device's, back to back, by CUDA events). Returns (the
+    launch counts of the run, the kernels' records by case)."""
+    import collections
+    import copy
+    import shutil
+
+    import numpy as np
+
+    from world_modelz_tpu_torch.cli import masked_denoise as mdm
+    from world_modelz_tpu_torch.models.gmlp import GMLP
+
+    on_card = dev.type == "cuda"
+    shutil.rmtree(root, ignore_errors=True)
+    patch = md["image_size"] // 2 ** md["level"]
+    n_tok, k, d = (md["image_size"] // patch) ** 2, md["codebook_size"], 3 * patch * patch
+    rows = md["batch_size"] * n_tok
+    recs = {}
+    if on_card:
+        gen = torch.Generator(device=dev).manual_seed(21)
+        cb = {dd: torch.randn((k, dd), generator=gen, device=dev) for dd in (d, 48)}
+        check_vq(torch, dev, cases=[(f"masked_denoise_d{dd}", rows, torch.float32, cb[dd])
+                                    for dd in (d, 48)],
+                 ties=[(rows, k, dd) for dd in (d, 48)], records=recs)
+        check_vq_train(torch, dev, cases=[(f"masked_denoise_d{d}_train", rows, cb[d])],
+                       ties=[(rows, k, d)], records=recs)
+    torch.manual_seed(5)
+    cpu = GMLP(k + 1, k, md["d_model"], md["depth"], n_tok, vq_embedding_dim=d, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, k + 1, (gmlp_batch, n_tok), generator=g)
+    emb = torch.randn((gmlp_batch, n_tok, d), generator=g)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = cpu(tokens, emb)
+            got = card(tokens.to(dev), emb.to(dev)).cpu()
+        err = float((got - want).abs().max())
+        log(f"masked_denoise gMLP f32 logits {tuple(got.shape)} (d_model {md['d_model']}, "
+            f"depth {md['depth']}, {n_tok} tokens): card vs CPU max_abs_err={err:.3g} "
+            f"(tol {LOGIT_TOL}, logits span {float(want.abs().max()):.3g})")
+        if not err <= LOGIT_TOL:
+            raise AssertionError(f"masked_denoise gMLP logits differ by {err}")
+        del cpu, card
+        cfg = mdm.MaskedDenoiseConfig(**md, output_dir=root,
+                                      platform="" if on_card else dev.type)
+        launches.clear()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = mdm.train(cfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else math.nan
+        counts = dict(collections.Counter(launches) + res.program.launches)
+        losses = res.losses
+        if len(losses) != cfg.max_steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"masked_denoise losses: {losses}")
+        png = os.path.join(root, f"{cfg.name}_eval_{cfg.max_steps:07d}.png")
+        if res.evals != [png] or not os.path.getsize(png):
+            raise AssertionError(f"masked_denoise evaluation PNG: {res.evals}")
+        if not os.path.isfile(os.path.join(root, f"step_{cfg.max_steps:07d}", "state.pt")):
+            raise AssertionError("masked_denoise checkpoint did not land")
+        if on_card and (counts.get("vq_train_stats") != cfg.vq_steps or counts.get(
+                "vq_encode") != cfg.max_steps + WARMUPS):
+            raise AssertionError(
+                f"masked_denoise launches {counts}: expected {cfg.vq_steps} vq_train_stats "
+                f"(the fit) and {cfg.max_steps} + {WARMUPS} vq_encode (replays + the "
+                "capture's warm-ups)")
+        # the step graph against the same step eagerly, from one state
+        task, program, io = res.task, res.program, res.program.inputs
+        eager_model = mdm.make_model(cfg, task, dev).train()
+        eager_model.load_state_dict(res.model.state_dict())
+        eager_opt = mdm.make_denoise_optimizer(cfg, eager_model)
+        eager_opt.load_state_dict(res.optimizer.state_dict())
+        batch_fn = mdm._batch_fn(cfg, 9)
+        g_e = torch.Generator(device=dev).manual_seed(9)
+        g_g = torch.Generator(device=dev).manual_seed(9)
+        for i in range(3):
+            images = torch.from_numpy(batch_fn()).to(dev)
+            e = mdm.step_body(eager_model, eager_opt, task, images,
+                              mdm.draw_step(g_e, cfg.batch_size, n_tok, k), cfg)
+            io.tensors["images"].copy_(images)
+            mdm.draw_step(g_g, cfg.batch_size, n_tok, k, out=io.draws)
+            io.start()
+            program()
+            same = torch.equal(e.view(torch.int32), io.stats[0].view(torch.int32)) and all(
+                torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                            b.view(torch.int32) if b.is_floating_point() else b)
+                for a, b in zip(eager_opt.state_tensors().values(),
+                                res.optimizer.state_tensors().values()))
+            if not same:
+                raise AssertionError(f"masked_denoise: replay {i + 1} differs from the "
+                                     f"eager step ({e.tolist()} vs {io.stats[0].tolist()})")
+        rec = dict(wall_s=round(wall, 3), losses=[round(x, 5) for x in losses[::10]],
+                   peak_gib=round(peak, 3), launches=counts)
+        if on_card:
+            n = 20
+
+            def replays():
+                for _ in range(n):
+                    io.tensors["images"].copy_(torch.from_numpy(batch_fn()))
+                    mdm.draw_step(g_g, cfg.batch_size, n_tok, k, out=io.draws)
+                    io.start()
+                    program()
+                torch.cuda.synchronize()
+
+            replays()
+            t0 = time.perf_counter()
+            replays()
+            step_s = (time.perf_counter() - t0) / n
+            # the profile of the same replays: device ms, busy share, and its
+            # kernel counts held to captured x replays; the graph's own step
+            # count, advanced on the device, says how many replays ran
+            count0 = int(res.optimizer.count_t)
+            rec.update(profile_steps(torch, "masked_denoise replayed steps", replays, n,
+                                     step_s * n, captured=program.captured))
+            ran = int(res.optimizer.count_t) - count0
+            if ran % n:
+                raise AssertionError(f"masked_denoise: the graph counted {ran} steps in "
+                                     f"profiles of {n} replays")
+            # the graph alone, back to back between CUDA events
+            rec.update(steps_per_s=round(1 / step_s, 4),
+                       events_ms_per_step=round(cuda_ms(torch, program, n), 4),
+                       capture_s=round(program.capture_seconds, 4),
+                       captured=dict(program.captured.wrappers))
+            rec["md_vq"] = {name: r for name, r in recs.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"masked_denoise: {', '.join(f'{k} {v}' for k, v in md.items())}; fit {cfg.vq_steps} + {cfg.max_steps} steps in "
+        f"{wall:.3f} s, losses every 10 {rec['losses']}; 3 replays == 3 eager steps "
+        f"bitwise (stats, parameters, moments, count); {rec.get('steps_per_s')} steps/s "
+        f"replayed with the host batch and draws, {rec.get('device_ms_per_step')} ms of "
+        f"kernels a step by the profiler (busy share {rec.get('busy')}), the graph alone "
+        f"{rec.get('events_ms_per_step')} ms a step by CUDA events; peak {rec['peak_gib']} GiB; launches "
+        f"{counts}; on {smi}")
+    return counts, rec
+
+
+def check_data_parallel(torch, dev, smi, root=os.path.join(HERE, "build", "smoke_dp"),
+                        runs=os.path.join(HERE, "build", "smoke")):
+    """The data axis on the card with a world of one under NCCL: the video
+    trainer's step at train_step/m3_b64_g8_full and the sparse step at
+    train_sparse/s16_n1024_b16, with and without --fsdp, captured with the
+    step's collectives (all-reduces, or reduce-scatter and all-gathers,
+    and the sampler's all-gather) and replayed, each bitwise equal to the
+    same step run eagerly without a process group (``check_step_program``;
+    the replicated video step timed too); then the rollout CLI's
+    --shard_batch on one rank against the unsharded rollout, bitwise, on
+    the newest checkpoint under ``runs``. Destroys the group at the end.
+    Returns the records."""
+    import dataclasses
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from world_modelz_tpu_torch.cli import rollout as ro
+    from world_modelz_tpu_torch.parallel.mesh import make_mesh
+    from world_modelz_tpu_torch.train import latest_checkpoint
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    out = {}
+    try:
+        mesh = make_mesh()
+        if mesh.group is None or mesh.world != 1:
+            raise AssertionError(f"expected a process group of one, got {mesh}")
+        for kind in ("video", "sparse"):
+            for fsdp in (False, True):
+                timed = 20 if (kind, fsdp) == ("video", False) else 0
+                out[f"{kind}{'_fsdp' if fsdp else ''}"] = check_step_program(
+                    torch, dev, smi, kind=kind, mesh=mesh, fsdp=fsdp, timed=timed,
+                    root=os.path.join(root, f"{kind}{'_fsdp' if fsdp else ''}"))
+        ckpt = latest_checkpoint(os.path.join(runs, "run"))  # the training phase's
+        base = ro.RolloutConfig(checkpoint=ckpt, batch_size=8, num_frames=2,
+                                num_eval_iterations=4, output_dir=os.path.join(root, "ro"),
+                                platform="" if dev.type == "cuda" else dev.type)
+        plain = ro.run(base).decoded
+        sharded = ro.run(dataclasses.replace(
+            base, shard_batch=True, output_dir=os.path.join(root, "ro_sharded"))).decoded
+        if not np.array_equal(plain, sharded):
+            raise AssertionError(
+                f"--shard_batch on one rank differs from the unsharded rollout by "
+                f"{float(np.abs(plain - sharded).max())}")
+        log(f"data parallel: --shard_batch on a {backend} world of one == the unsharded "
+            f"rollout bitwise ({plain.shape} pixels, {os.path.basename(ckpt)})")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def in_child_process(phase: str):
+    """``phase`` (a name of CHILD_PHASES) run by this script in a child
+    process on the same card, the kernel library already built; returns
+    what the phase returned. The masked-denoise phase runs so because late
+    in one long process torch.profiler loses kernel records: in the same
+    run, profiles of 100 eager vq_encode calls recorded 159 of their 200
+    kernels while CUDA events timed all of them, and every profile of 20
+    masked-denoise replays counted 19 vq_encode launches while the graph
+    ran 20 (PERF.md); in a fresh process the same profile counts them
+    all."""
+    out = os.path.join(HERE, "build", f"phase_{phase}.json")
+    if os.path.exists(out):
+        os.remove(out)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", phase, out],
+                   check=True, timeout=900)
+    with open(out) as f:
+        return json.load(f)
+
+
+def run_child_phase(torch, phase: str, out: str) -> int:
+    """The child's side of ``in_child_process``."""
+    from world_modelz_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    result = CHILD_PHASES[phase](torch, torch.device("cuda"), _build.LAUNCHES, nvidia_smi())
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+CHILD_PHASES = {"masked_denoise": check_masked_denoise}
+
+
 def main() -> int:
     import torch
 
@@ -4094,6 +4365,8 @@ def main() -> int:
     pkg = os.path.dirname(os.path.abspath(world_modelz_tpu_torch.__file__))
     if pkg != os.path.join(HERE, "world_modelz_tpu_torch"):
         raise RuntimeError(f"imported the port from {pkg}, not from {HERE}")
+    if sys.argv[1:2] == ["--phase"]:
+        return run_child_phase(torch, *sys.argv[2:4])
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -4167,6 +4440,12 @@ def main() -> int:
     sparse_moe, moe_a, moe_step = drive_sparse_moe(torch, dev, _build.LAUNCHES, smi, sparse_a)
     sparse_ext, ext = check_external_tokenizer(torch, dev, _build.LAUNCHES, smi)
     som = drive_som_pipeline(torch, dev, smi)
+    # masked-denoise (its VQ kernels at the patch widths, the gMLP, the
+    # trainer's step graph; in a fresh process, whose profiler keeps every
+    # kernel record), then the data axis under NCCL (a world of one; the
+    # group is gone after it)
+    masked_denoise, md = in_child_process("masked_denoise")
+    data_parallel = check_data_parallel(torch, dev, smi)
     from world_modelz_tpu_torch.data import native
 
     log(f"sparse training: {sparse_a['steps_per_s']:.4f} (k=1), {sparse_b['steps_per_s']:.4f} "
@@ -4175,7 +4454,7 @@ def main() -> int:
     # launches of the ten main paths, each counted in its own runs (the
     # graphs' as captured x replays)
     paths = (serving, serving_fused, training, rollout, serving_http,
-             training_fused, tokenizer, sparse, sparse_moe, sparse_ext)
+             training_fused, tokenizer, sparse, sparse_moe, sparse_ext, masked_denoise)
     counts = {key: sum(p.get(key, 0) for p in paths)
               for key in set().union(*paths)}
     log(f"launches: serving {serving}, fused serving {serving_fused}, training "
@@ -4183,7 +4462,7 @@ def main() -> int:
         f"HTTP {serving_http}, fused training "
         f"{training_fused}, tokenizer training {tokenizer}, sparse training {sparse}, "
         f"sparse training with experts {sparse_moe}, sparse training with the external "
-        f"tokenizer {sparse_ext}")
+        f"tokenizer {sparse_ext}, masked-denoise {masked_denoise}")
 
     kernels = [
         dict(name="local3d_fwd", route="cuda",
@@ -4244,6 +4523,15 @@ def main() -> int:
                 launches=sum(rec["graph"].get(k["name"], 0) for rec in runs.values()),
                 per_step=per_step)
     steps["sparse_moe"] = moe_step
+    # masked-denoise's VQ kernels at the patch widths (D = 12, 48), with its
+    # launches (in the totals above)
+    md_vq = md.pop("md_vq")
+    next(k for k in kernels if k["name"] == "vq_encode")["masked_denoise"] = dict(
+        launches=masked_denoise.get("vq_encode", 0),
+        d12=md_vq["masked_denoise_d12"], d48=md_vq["masked_denoise_d48"])
+    next(k for k in kernels if k["name"] == "vq_train_stats")["masked_denoise"] = dict(
+        launches=masked_denoise.get("vq_train_stats", 0), d12=md_vq["masked_denoise_d12_train"])
+    log(json.dumps({"masked_denoise": md, "data_parallel": data_parallel}))
     log(json.dumps({"moe": moe, "external_tokenizer": ext, "som_ddpm": som}))
     log(json.dumps({"step_programs": steps, "i3d": i3d, "composite": composite, "dispatch": [
         {key: r.get(key) for key in ("k", "data", "steps_per_s", "busy", "device_ms_per_step",

@@ -384,8 +384,9 @@ def test_rollout_presets_ema_and_checks(stack, tmp_path, capsys, monkeypatch):
     assert all(torch.equal(ema.weights[k], torch.as_tensor(want[k])) for k in want)
     with pytest.raises(ValueError, match="unknown preset"):
         ro.run(dataclasses.replace(base, preset="slow"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ro.run(dataclasses.replace(base, shard_batch=True))
+    # --shard_batch in one process: a data axis of one, the same pixels
+    sharded = ro.run(dataclasses.replace(base, shard_batch=True))
+    np.testing.assert_array_equal(sharded.decoded, result.decoded)
     with pytest.raises(ValueError, match="--checkpoint"):
         ro.run(dataclasses.replace(base, checkpoint=""))
     # the I3D extractor, on weights in the JAX layout (the default init);

@@ -208,11 +208,38 @@ def test_three_f32_train_steps_match_the_jax_step():
     """Loss, grad norm, params, AdamW moments, BN statistics and the VQ
     state after each of three steps; the lr halves after step 2. The
     BN-cancelled biases (exact gradient 0) within 2 lr per step."""
+    _three_steps_against_jax()
+
+
+def test_three_f32_train_steps_in_a_process_group_match_the_jax_step():
+    """The same three steps in a gloo process group of one, where the data
+    axis's path runs: BatchNorm's global-batch moments in two passes
+    (``models/conv.py:BatchNorm2d._global_forward``) and the VQ statistics
+    all-reduced, held to JAX's (global-batch) step with the same
+    tolerances."""
+    import socket
+
+    from world_modelz_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.group is not None
+        _three_steps_against_jax(mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _three_steps_against_jax(mesh=None):
     cfg = _cfg()
     jtok, jstate = _jax_state(5)
     opt, jstep = _jax_step_fn(jtok, cfg)
     jopt = opt.init(jstate.params)
-    pstate = tv.init_state(cfg, _port_from(jstate))
+    pstate = tv.init_state(cfg, _port_from(jstate), mesh)
     names = dict(pstate.tok.named_parameters())
     for i in range(3):
         batch = _images(10 + i)

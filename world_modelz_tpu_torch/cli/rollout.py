@@ -29,8 +29,14 @@ encode the ``vq_encode`` kernel.
 
 The sampler's draws come from a ``torch.Generator`` seeded ``manual_seed``,
 not from JAX's keys, so one seed gives other clips than the JAX CLI's (the
-data clips are the same). ``--shard_batch`` (data-parallel rollout) is not
-ported (ROADMAP A.9).
+data clips are the same).
+
+``--shard_batch`` rolls the batch out data-parallel: launched by
+``torchrun`` (NCCL on GPUs, gloo with ``--platform cpu``), each process
+rolls out its ``batch_size / world`` clips of the global batch, whose seed
+clips and sampler draws are made whole on every rank, so the pixels equal
+the unsharded rollout's; rank 0 gathers them and alone writes the PNGs,
+the GIF, FVD and PSNR/SSIM. A batch the processes do not divide raises.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -57,14 +63,17 @@ from world_modelz_tpu_torch.cli.video_diffusion import (
     make_model,
 )
 from world_modelz_tpu_torch.data import as_frames, batch_to
-from world_modelz_tpu_torch.diffusion import rollout_frames
+from world_modelz_tpu_torch.diffusion import generator_noise, rollout_frames
+from world_modelz_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    initialize_distributed,
+    process_device,
+    shard_host_batch,
+)
+from world_modelz_tpu_torch.parallel.mesh import Mesh, make_mesh
 from world_modelz_tpu_torch.train import restore_checkpoint
 from world_modelz_tpu_torch.utils import fvd as fvd_lib
-from world_modelz_tpu_torch.utils.config import (
-    config_from_dict,
-    dataclass_cli,
-    unported,
-)
+from world_modelz_tpu_torch.utils.config import config_from_dict, dataclass_cli
 from world_modelz_tpu_torch.utils.image import make_grid, save_gif, save_image
 from world_modelz_tpu_torch.utils.metrics import psnr, ssim
 
@@ -74,7 +83,7 @@ class RolloutConfig:
     checkpoint: str = ""  # video-diffusion checkpoint (required)
     platform: str = ""  # "" = the GPU (raises without one), "cpu"
     use_ema: bool = False
-    shard_batch: bool = False  # data-parallel rollout: not ported
+    shard_batch: bool = False  # data-parallel rollout over the processes
     batch_size: int = 4
     num_frames: int = 16
     num_eval_iterations: int = 30
@@ -111,7 +120,7 @@ class Rollout:
     first batch, from the token grid it probes), the tokenizer, the data
     source and the sampler's generator, on ``device``."""
 
-    def __init__(self, cfg: RolloutConfig, device: torch.device):
+    def __init__(self, cfg: RolloutConfig, device: torch.device, mesh: Optional[Mesh] = None):
         state, self.step, config = restore_checkpoint(cfg.checkpoint)
         self.cfg = cfg
         # the rollout takes pixel clips: a trajectory-shipping training
@@ -126,15 +135,21 @@ class Rollout:
         self.generator = torch.Generator(device=device).manual_seed(cfg.manual_seed)
         self.model = None
         self.token_shape = None  # (S, h, w), once the first batch is encoded
+        # the data axis a --shard_batch rollout spreads its batch over
+        self.mesh = mesh or Mesh()
 
     @torch.no_grad()
     def generate(self, frames: Optional[np.ndarray] = None) -> np.ndarray:
         """One rollout batch -> (B, num_frames, H, W, C) decoded pixels.
 
         ``frames`` overrides the seed clip (B, n_past+1, H, W, C); by
-        default a fresh batch is drawn from the data source."""
+        default a fresh batch is drawn from the data source. On a data axis
+        every rank rolls out its rows of the batch, under the whole batch's
+        draws, and every rank returns the whole batch's pixels."""
         if frames is None:
             frames = self.clip_fn(self.cfg.batch_size)
+        n = len(frames)
+        frames = shard_host_batch(frames, self.mesh)
         x = as_frames(batch_to(frames, self.device), self.train_cfg.image_size)
         b, s, hh, ww, c = x.shape
         tokens = self.tok.encode(x.reshape(b * s, hh, ww, c))
@@ -145,14 +160,20 @@ class Rollout:
             self.model = make_model(self.train_cfg, self.token_shape, k, self.device)
             self.model.load_state_dict(self.weights, strict=True)
             self.model.eval()
+        draws = {"generator": self.generator}
+        if self.mesh.world > 1:  # the whole batch's draws, this rank's rows
+            lo, hi = self.mesh.rows(n)
+            noise = generator_noise(self.generator, (n, *tokens.shape[2:]), k)
+            draws = {"noise": lambda t, i: tuple(d[lo:hi] for d in noise(t, i))}
         gen = rollout_frames(
             self.model, tokens, num_frames=self.cfg.num_frames, num_classes=k,
             mask_token=k, num_iterations=self.cfg.num_eval_iterations,
-            sample_topk=self.cfg.topk, generator=self.generator,
-        )  # (B, T, h, w)
+            sample_topk=self.cfg.topk, **draws,
+        )  # (b, T, h, w)
         t = gen.shape[1]
-        decoded = self.tok.decode(gen.reshape(b * t, *gen.shape[2:]))
-        return decoded.float().cpu().numpy().reshape(b, t, *decoded.shape[1:])
+        decoded = self.tok.decode(gen.reshape(b * t, *gen.shape[2:])).float()
+        decoded = all_gather_rows(decoded.reshape(b, t, *decoded.shape[1:]), self.mesh)
+        return decoded.cpu().numpy()
 
     def clips(self, n_past: int, seed: int, n: int) -> np.ndarray:
         """``n`` float clips of ``n_past + 1`` frames from the data source
@@ -193,13 +214,19 @@ def run(cfg: RolloutConfig) -> RolloutResult:
         cfg = dataclasses.replace(cfg, **SAMPLER_PRESETS[cfg.preset])
         print(f"sampler preset {cfg.preset}: "
               f"{cfg.num_eval_iterations} iterations, topk {cfg.topk}")
-    if cfg.shard_batch:
-        raise unported("--shard_batch (data-parallel rollout)", "A.9")
     device = platform_device(cfg.platform)
     if not cfg.checkpoint:
         raise ValueError("--checkpoint (video-diffusion run) is required")
+    mesh = None
+    if cfg.shard_batch:
+        initialize_distributed(device=device)
+        device = process_device(device)
+        mesh = make_mesh()
+        if cfg.batch_size % mesh.world != 0:
+            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by "
+                             f"{mesh.world} devices")
 
-    ro = Rollout(cfg, device)
+    ro = Rollout(cfg, device, mesh)
     try:
         return _run(cfg, device, ro)
     finally:
@@ -207,8 +234,10 @@ def run(cfg: RolloutConfig) -> RolloutResult:
 
 
 def _run(cfg: RolloutConfig, device: torch.device, ro: Rollout) -> RolloutResult:
-    """The rest of ``run``, on its restored checkpoint (``run`` closes it)."""
+    """The rest of ``run``, on its restored checkpoint (``run`` closes it).
+    Every rank rolls out; rank 0 alone writes and scores."""
     walls: List[float] = []
+    lead = ro.mesh.rank == 0
 
     def generate(frames=None):
         t0 = time.perf_counter()
@@ -219,15 +248,16 @@ def _run(cfg: RolloutConfig, device: torch.device, ro: Rollout) -> RolloutResult
     decoded = generate()
     b, t = decoded.shape[:2]
 
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    gif_frames = []
-    for i in range(t):
-        grid = make_grid(decoded[:, i], nrow=b)
-        save_image(grid, os.path.join(cfg.output_dir, f"{cfg.name}_frame_{i:04d}.png"))
-        gif_frames.append(grid)
-    gif_path = os.path.join(cfg.output_dir, f"{cfg.name}.gif")
-    save_gif(gif_frames, gif_path, fps=cfg.fps)
-    print(f"rollout: {t} frames -> {gif_path}")
+    if lead:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        gif_frames = []
+        for i in range(t):
+            grid = make_grid(decoded[:, i], nrow=b)
+            save_image(grid, os.path.join(cfg.output_dir, f"{cfg.name}_frame_{i:04d}.png"))
+            gif_frames.append(grid)
+        gif_path = os.path.join(cfg.output_dir, f"{cfg.name}.gif")
+        save_gif(gif_frames, gif_path, fps=cfg.fps)
+        print(f"rollout: {t} frames -> {gif_path}")
 
     fvd_record = gen_videos = real_videos = None
     if cfg.fvd:
@@ -237,6 +267,7 @@ def _run(cfg: RolloutConfig, device: torch.device, ro: Rollout) -> RolloutResult
             gen_clips.append(generate())
             n_gen += b
         gen_videos = np.concatenate(gen_clips, axis=0)[: cfg.fvd_clips]
+    if cfg.fvd and lead:
         # real clips of the same length, from the training data source
         real_videos = ro.clips(t - 1, cfg.manual_seed + 1, len(gen_videos))
         extractor = fvd_lib.make_extractor(
@@ -267,7 +298,7 @@ def _run(cfg: RolloutConfig, device: torch.device, ro: Rollout) -> RolloutResult
         seed_clip = long_clip[:, : n_past + 1]
         gt = long_clip[:, n_past : n_past + cfg.num_frames]
         pred = generate(seed_clip)  # (B, T, H, W, C)
-
+    if cfg.gt_metrics and lead:
         # tokenizer-roundtrip ceiling: the best any token-space model can do
         bt = torch.from_numpy(gt.reshape(-1, *gt.shape[2:])).to(device)
         ceiling = ro.tok.decode(ro.tok.encode(bt)).float().cpu().numpy()

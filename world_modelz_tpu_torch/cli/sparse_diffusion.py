@@ -46,10 +46,17 @@ The data: ``--dataset synthetic`` (procedural trajectories) or ``video``
 processes), whose consumed position every checkpoint keeps
 (``grain_state.json``) and ``--checkpoint`` restores.
 
+The data axis, as the video trainer's (``cli.video_diffusion``): under
+``torchrun`` the global batch splits over the processes (samplers seeded by
+(seed, rank)), the gradient is averaged over them (or reduce-scattered to
+shards with ``--fsdp``), the mixture-of-experts load-balance means are the
+global batch's, and rank 0 alone writes.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports them: the MineRL dataset (A.8: the ``minerl`` package and its
-data are absent); tensor, pipeline and FSDP parallelism (A.9). The flags
-of those features raise at any value other than their default.
+data are absent); ``--n_model``, ``--n_pipe`` and ``n_micro`` (tensor and
+pipeline parallelism, A.9). The flags of those features raise at any value
+other than their default.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -93,6 +100,13 @@ from world_modelz_tpu_torch.diffusion import (
 )
 from world_modelz_tpu_torch.models import VQAutoEncoder, VqSparseDiffusionModel
 from world_modelz_tpu_torch.models.external import FrameTokenizer, make_tokenizer
+from world_modelz_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    process_device,
+    local_rows,
+    rank_seed,
+)
+from world_modelz_tpu_torch.parallel.mesh import check_batch, make_mesh
 from world_modelz_tpu_torch.train import (
     AsyncCheckpointSaver,
     CheckpointGuard,
@@ -122,7 +136,7 @@ from world_modelz_tpu_torch.utils.config import (
     unported,
 )
 from world_modelz_tpu_torch.utils.image import make_grid, save_image
-from world_modelz_tpu_torch.utils.logging import MetricLogger
+from world_modelz_tpu_torch.utils.logging import rank_logger
 
 # the in-repo tokenizer or an external one: both encode (B, H, W, C) [0, 1]
 # images to (B, h, w) tokens and decode them back
@@ -206,7 +220,11 @@ class SparseDiffusionConfig:
     moe_aux_weight: float = 1e-2  # load-balance loss weight
 
     n_model: int = 1  # > 1 not ported
-    fsdp: bool = False  # not ported
+    # shard the optimizer's side over the data axis (parallel/fsdp.py): each
+    # rank updates 1 / world of the f32 parameters and holds that part of
+    # Adam's moments and the EMA; reduce-scattered gradients, the updated
+    # parameters all-gathered, whole on every rank
+    fsdp: bool = False
     n_pipe: int = 1  # > 1 not ported
     n_micro: int = 4  # pipeline microbatches: not ported
     wandb: bool = False  # without the wandb package: JSONL only
@@ -244,16 +262,17 @@ def check_supported(cfg: SparseDiffusionConfig) -> None:
         raise ValueError(
             "--moe_experts cannot combine with --n_pipe (the pipelined "
             "forward does not thread the MoE aux-loss collection)")
-    if cfg.n_model > 1 or cfg.n_pipe > 1 or cfg.fsdp:
-        raise unported("--n_model / --n_pipe / --fsdp parallelism", "A.9")
+    if cfg.n_model > 1 or cfg.n_pipe > 1:
+        raise unported("--n_model / --n_pipe (tensor and pipeline parallelism)", "A.9")
 
 
-def build_sampler(cfg: SparseDiffusionConfig):
+def build_sampler(cfg: SparseDiffusionConfig, seed: Optional[int] = None):
     """The JAX trainer's clip source (cli/sparse_diffusion.py:237-274):
     synthetic trajectories or video files, in its buffered sampler or, with
     ``--data_pipeline grain``, a Grain stream of a ``TrajectoryClipDataset``;
     ``sample_batch(b)`` gives (b, S, H, W, 3) uint8 clips, ``close()``
-    stops it."""
+    stops it. ``seed`` (default ``cfg.manual_seed``) seeds the sampling."""
+    seed = cfg.manual_seed if seed is None else seed
     if cfg.dataset == "video":
         src = VideoFileTrajectorySource(cfg.mlr_data_dir, frame_size=cfg.image_size)
     else:
@@ -267,12 +286,12 @@ def build_sampler(cfg: SparseDiffusionConfig):
 
         return GrainClipPipeline(
             TrajectoryClipDataset(src, traj_len=cfg.S, skip_frames=cfg.skip_frames,
-                                  seed=cfg.manual_seed),
-            cfg.batch_size, seed=cfg.manual_seed, worker_count=cfg.data_workers)
+                                  seed=seed),
+            cfg.batch_size, seed=seed, worker_count=cfg.data_workers)
     return BufferedTrajectorySampler(
         src, buffer_size=cfg.buffer_size,
         max_segment_length=cfg.max_segment_length, traj_len=cfg.S,
-        skip_frames=cfg.skip_frames, seed=cfg.manual_seed,
+        skip_frames=cfg.skip_frames, seed=seed,
     )
 
 
@@ -385,6 +404,7 @@ def step_body(
     read: updates ``state``'s tensors in place (not ``state.step``) and
     returns the packed (loss, grad norm, ok) float32 (3,) tensor."""
     model = state.model
+    draws = local_rows(draws, state.mesh)  # the global batch's draws: this rank's rows
     b = batch_z.shape[0]
     k = model.num_classes
     shape = model.shape
@@ -496,6 +516,14 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     if cfg.checkpoint and cfg.init_from:
         raise ValueError("--checkpoint (full resume) and --init_from "
                          "(weights-only) are mutually exclusive")
+    # the data axis: every process of a torchrun job, each its rows of the
+    # global batch from a sampler seeded by (seed, rank); rank 0 alone
+    # writes checkpoints, logs, evaluations and the timing report
+    initialize_distributed(device=device)
+    device = process_device(device)
+    mesh = make_mesh(n_model=cfg.n_model, n_pipe=cfg.n_pipe)
+    local_batch = check_batch(cfg.batch_size, mesh)
+    lead = mesh.rank == 0
     torch.manual_seed(cfg.manual_seed)
     os.makedirs(cfg.output_dir, exist_ok=True)
 
@@ -509,7 +537,7 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
 
     model = make_model(cfg, num_embeddings, device)
     print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
-    state = init_state(cfg, model)
+    state = init_state(cfg, model, mesh)
     lr_of = host_schedule(state.optimizer.schedule)
     if cfg.init_from:
         restored, at_step, _ = restore_checkpoint(cfg.init_from)
@@ -526,15 +554,16 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     gen = torch.Generator(device=device).manual_seed(cfg.manual_seed)
     n_buckets = state.sampler.weights.shape[0]
     kdisp = max(1, cfg.steps_per_dispatch)
-    sampler = build_sampler(cfg)
+    sampler = build_sampler(dataclasses.replace(cfg, batch_size=local_batch),
+                            rank_seed(cfg.manual_seed, mesh.rank))
     if cfg.checkpoint:
         restore_pipeline(sampler, cfg.checkpoint)
     batches = PrefetchIterator(
-        lambda: sampler.sample_batch(cfg.batch_size), depth=2, device=device,
+        lambda: sampler.sample_batch(local_batch), depth=2, device=device,
         # a Grain position rides the queue with its batch
         state_fn=getattr(sampler, "get_state", None))
-    logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
-                          project=cfg.project, config=config, tags=cfg.tags)
+    logger = rank_logger(mesh.rank, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+                         project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
     # JAX trainer samples the flag at log points)
@@ -543,7 +572,7 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     history: List[Tuple[int, float, float, bool, float]] = []
     evals: List[Tuple[int, str, str, float]] = []
     rejected = 0
-    io = step_inputs({"batch_z": torch.zeros((cfg.batch_size, *shape), dtype=torch.long,
+    io = step_inputs({"batch_z": torch.zeros((local_batch, *shape), dtype=torch.long,
                                              device=device)},
                      StepDraws.empty(cfg.batch_size, cfg.num_context, volume, n_buckets,
                                      device), kdisp)
@@ -573,7 +602,7 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
                 io.tensors["batch_z"].copy_(encode_batch(tok, next(batches), shape))
                 tm.add("data", time.perf_counter() - tt)
                 have_batch = True
-                if cfg.single_batch and step == 0:
+                if cfg.single_batch and step == 0 and lead:
                     gt = decode_volume(tok, io.tensors["batch_z"])
                     save_image(make_grid(gt.reshape(-1, *gt.shape[2:]), nrow=cfg.S),
                                os.path.join(cfg.output_dir, "gt.png"))
@@ -591,13 +620,16 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
                                      loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                 tt = time.perf_counter()
-                path = saver.save(cfg.output_dir, step, state.state_dict(), config,
-                                  pipeline_files(batches.consumed_state()))
+                whole = state.state_dict()  # gathered under --fsdp: every rank
+                if lead:
+                    path = saver.save(cfg.output_dir, step, whole, config,
+                                      pipeline_files(batches.consumed_state()))
+                    print("checkpoint:", path)
                 tm.add("checkpoint", time.perf_counter() - tt)
-                print("checkpoint:", path)
             if cfg.eval_interval and step % cfg.eval_interval == 0:
-                for tag, weights in (("base", None), ("ema", state.ema)):
-                    if tag == "ema" and weights is None:
+                ema = state.ema_weights()  # gathered under --fsdp: every rank
+                for tag, weights in (("base", None), ("ema", ema)):
+                    if (tag == "ema" and weights is None) or not lead:
                         continue
                     te = time.perf_counter()
                     path, _, _ = run_eval(model, weights, tok, cfg, step, tag)
@@ -607,8 +639,9 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
         try:
             saver.wait()  # the last save must land before exit
         finally:
-            report = write_timing(tm, cfg, batches, {
+            report = (write_timing(tm, cfg, batches, {
                 "num_context": cfg.num_context, "num_classes": num_embeddings}, config)
+                if lead else None)
             batches.close()
             sampler.close()
             logger.close()

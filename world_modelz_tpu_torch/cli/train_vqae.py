@@ -37,6 +37,16 @@ decoded by PIL); with ``--data_pipeline grain`` MovingMNIST or the files
 stream through Grain (``data_workers`` processes) and every checkpoint keeps
 the consumed position (``grain_state.json``) that ``--checkpoint`` restores.
 
+Data parallelism: launched by ``torchrun`` (one process a GPU, or CPU
+processes under gloo with ``--platform cpu``) the trainer splits the global
+``--batch_size`` over the processes; each draws its rows from a source
+seeded by (seed, rank), the gradients are averaged over the ranks, and the
+global batch's statistics are taken across them: BatchNorm's moments (two
+passes) and the quantizer's per-code counts, errors and input sums, summed
+before the EMA update (the ``vq_train_stats`` kernel stays on the path).
+Rank 0 alone writes checkpoints, logs and images; every rank reads a
+resume checkpoint.
+
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
 ``--n_model > 1``.
 
@@ -67,6 +77,13 @@ from world_modelz_tpu_torch.data import (
 )
 from world_modelz_tpu_torch.models import VQAutoEncoder
 from world_modelz_tpu_torch.ops.vq import vq_reset_stats, vq_reuse_inactive
+from world_modelz_tpu_torch.parallel.distributed import (
+    all_reduce_mean,
+    initialize_distributed,
+    process_device,
+    rank_seed,
+)
+from world_modelz_tpu_torch.parallel.mesh import Mesh, attach, check_batch, make_mesh
 from world_modelz_tpu_torch.train import (
     AsyncCheckpointSaver,
     CheckpointGuard,
@@ -81,7 +98,8 @@ from world_modelz_tpu_torch.train import (
     save_checkpoint,
     step_decay_schedule,
 )
-from world_modelz_tpu_torch.utils import MetricLogger, save_image
+from world_modelz_tpu_torch.utils import save_image
+from world_modelz_tpu_torch.utils.logging import rank_logger
 from world_modelz_tpu_torch.utils.config import (
     config_from_dict,
     config_to_dict,
@@ -285,10 +303,15 @@ class TrainState:
         self.step = step
 
 
-def init_state(cfg: TrainVqaeConfig, tok: VQAutoEncoder) -> TrainState:
+def init_state(cfg: TrainVqaeConfig, tok: VQAutoEncoder,
+               mesh: Optional[Mesh] = None) -> TrainState:
+    """A fresh state for ``tok`` on the data axis of ``mesh`` (None: one
+    process), whose batch statistics then cross the mesh."""
     schedule = step_decay_schedule(
         cfg.lr, steps_per_epoch=cfg.lr_decay_interval, epoch_step_size=1)
-    opt = make_optimizer(cfg.optimizer, tok.parameters(), schedule, cfg.weight_decay)
+    attach(tok, mesh or Mesh())
+    opt = make_optimizer(cfg.optimizer, tok.parameters(), schedule, cfg.weight_decay,
+                         mesh=mesh)
     buffers = list(tok.buffers())
     return TrainState(tok, opt, 0, buffers, [b.clone() for b in buffers])
 
@@ -306,18 +329,19 @@ def train_step(
     r_loss = _loss_fn(cfg.loss_fn)(recon, batch)
     total = r_loss + cfg.latent_loss_weight * out.commitment_loss
     total.backward()
-    grads = [p.grad for p in tok.parameters() if p.grad is not None]
-    gn = global_grad_norm(grads)
-    ok = torch.isfinite(total.detach()) & torch.isfinite(gn)
+    opt = state.optimizer
+    g = opt.reduced_grad()  # the global batch's (averaged over the data axis)
+    gn = global_grad_norm(opt.views(g))
+    losses = all_reduce_mean(torch.stack([
+        total.detach(), r_loss.detach(), out.commitment_loss.detach()]), opt.mesh)
+    ok = torch.isfinite(losses[0]) & torch.isfinite(gn)
     # the step's one host read: the guard decides on the host
-    vals = torch.stack([
-        total.detach(), r_loss.detach(), out.commitment_loss.detach(),
-        out.perplexity, gn, ok.to(torch.float32)]).tolist()
+    vals = torch.cat([losses, torch.stack([out.perplexity, gn, ok.to(torch.float32)])]).tolist()
     metrics = dict(zip(
         ("loss", "r_loss", "latent_loss", "perplexity", "grad_norm"), vals))
     ok_v = vals[-1] > 0.5
     if ok_v or not cfg.nan_guard:
-        state.optimizer.step()
+        opt.assign(opt.propose(g))
     else:  # undo the forward's in-place updates
         torch._foreach_copy_(state.buffers, state.saved)
     state.step += 1
@@ -349,12 +373,17 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
     step's metrics and the final checkpoint's path."""
     check_supported(cfg)
     device = platform_device(cfg.platform)
+    initialize_distributed(device=device)
+    device = process_device(device)
+    mesh = make_mesh(n_model=cfg.n_model)
+    local_cfg = dataclasses.replace(cfg, batch_size=check_batch(cfg.batch_size, mesh))
+    lead = mesh.rank == 0
     torch.manual_seed(cfg.manual_seed)
     tok = make_tokenizer(cfg, device)
     grid = tok.downscale_steps
     print("latent grid:", (cfg.image_size // 2**grid, cfg.image_size // 2**grid),
           "params:", sum(p.numel() for p in tok.parameters()))
-    state = init_state(cfg, tok)
+    state = init_state(cfg, tok, mesh)
     lr_of = host_schedule(state.optimizer.schedule)
     if cfg.checkpoint:
         restored, at_step, _ = restore_checkpoint(cfg.checkpoint)
@@ -363,21 +392,21 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
     start_step = state.step
     config = config_to_dict(cfg)
 
-    batch_fn, pipeline = build_batch_fn(cfg, cfg.manual_seed)
+    batch_fn, pipeline = build_batch_fn(local_cfg, rank_seed(cfg.manual_seed, mesh.rank))
     if cfg.checkpoint:
         restore_pipeline(pipeline, cfg.checkpoint)
     # a Grain position rides the queue with its batch: a checkpoint records
     # the position consumed, not the one prefetched ahead
     batches = PrefetchIterator(batch_fn, depth=2, device=device,
                                state_fn=getattr(pipeline, "get_state", None))
-    logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
-                          project=cfg.project, config=config_to_dict(cfg),
-                          tags=cfg.tags)
+    logger = rank_logger(mesh.rank, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+                         project=cfg.project, config=config_to_dict(cfg), tags=cfg.tags)
     saver = AsyncCheckpointSaver()
 
     def restore_latest():
         """Reload the newest on-disk checkpoint (guard escalation)."""
         saver.wait()  # an in-flight save must land first
+        mesh.barrier()  # rank 0's
         path = latest_checkpoint(cfg.output_dir) or cfg.checkpoint
         if not path:
             return None
@@ -415,7 +444,7 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
                 print(f"step {step}: loss {m['loss']:.4f} "
                       f"perplexity {m['perplexity']:.1f} lr {m['lr']:.2e}")
 
-            if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
+            if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0 and lead:
                 path = saver.save(cfg.output_dir, step, state.state_dict(), config,
                                   pipeline_files(batches.consumed_state()))
                 print("checkpoint:", path)
@@ -432,9 +461,12 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
             if pipeline is not None:
                 pipeline.close()
 
-    final = save_checkpoint(cfg.output_dir, cfg.max_steps, state.state_dict(), config,
-                            pipeline_files(batches.consumed_state()))
-    print("final checkpoint:", final)
+    final = os.path.join(os.path.abspath(cfg.output_dir), f"step_{cfg.max_steps:07d}")
+    if lead:
+        final = save_checkpoint(cfg.output_dir, cfg.max_steps, state.state_dict(), config,
+                                pipeline_files(batches.consumed_state()))
+        print("final checkpoint:", final)
+    mesh.barrier()  # the final checkpoint is there for every rank
     return TrainResult(state, history, rejected, final, logger.path)
 
 

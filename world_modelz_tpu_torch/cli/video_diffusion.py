@@ -54,15 +54,32 @@ through Grain (``data_workers`` processes), and every checkpoint keeps the
 consumed position (``grain_state.json``) that ``--checkpoint`` restores.
 Every batch is normalized (or composited) on the device by ``as_frames``.
 
+The data axis (``parallel.mesh``): launched by ``torchrun`` (one process a
+GPU under NCCL, or CPU processes under gloo with ``--platform cpu``) the
+global ``--batch_size`` splits over the processes, each drawing its rows
+from a source seeded by (seed, rank) and keeping its rows of the global
+batch's draws; the step averages the flat gradient over the ranks (an
+all-reduce inside the step's CUDA graph), takes the loss, grad norm and
+guard from the reduced values, and updates the sampler from every rank's
+times and losses. ``--fsdp`` shards the optimizer's side instead
+(``parallel.fsdp``: the gradient reduce-scattered, each rank updating its
+1 / world of the parameters with its part of Adam's moments and the EMA,
+the parameters all-gathered and whole on every rank; whole checkpoints).
+Rank 0 alone writes checkpoints,
+logs, evaluations and the timing report; every rank reads a resume
+checkpoint.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-``--dataset minerl`` (the ``minerl`` package and its data are absent) and
-parallelism. ``--wandb`` logs to the JSONL file only, as the JAX logger
-does without the package.
+``--dataset minerl`` (A.8: the ``minerl`` package and its data are absent)
+and ``--n_model`` / ``--n_seq`` (A.9). ``--wandb`` logs to the JSONL file
+only, as the JAX logger does without the package.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
     python -m world_modelz_tpu_torch.cli.video_diffusion \\
         --decoder_model <tokenizer checkpoint>
+    torchrun --nproc_per_node 4 -m world_modelz_tpu_torch.cli.video_diffusion \\
+        --decoder_model <tokenizer checkpoint> --batch_size 64 [--fsdp true]
 """
 
 from __future__ import annotations
@@ -112,6 +129,15 @@ from world_modelz_tpu_torch.train import (
     restore_pipeline,
     warmup_cosine_schedule,
 )
+from world_modelz_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    all_reduce_mean,
+    initialize_distributed,
+    process_device,
+    local_rows,
+    rank_seed,
+)
+from world_modelz_tpu_torch.parallel.mesh import Mesh, attach, check_batch, make_mesh
 from world_modelz_tpu_torch.serve import eval_mode
 from world_modelz_tpu_torch.train.dispatch import (
     StepInputs,
@@ -131,7 +157,7 @@ from world_modelz_tpu_torch.utils.config import (
     unported,
 )
 from world_modelz_tpu_torch.utils.image import make_grid, save_gif, save_image
-from world_modelz_tpu_torch.utils.logging import MetricLogger
+from world_modelz_tpu_torch.utils.logging import MetricLogger, rank_logger
 
 
 @dataclasses.dataclass
@@ -202,7 +228,11 @@ class VideoDiffusionConfig:
 
     n_model: int = 1  # > 1 not ported
     n_seq: int = 1  # > 1 not ported
-    fsdp: bool = False  # not ported
+    # shard the optimizer's side over the data axis (parallel/fsdp.py): each
+    # rank updates 1 / world of the f32 parameters and holds that part of
+    # Adam's moments and the EMA; reduce-scattered gradients, the updated
+    # parameters all-gathered, whole on every rank
+    fsdp: bool = False
     wandb: bool = False  # without the wandb package: JSONL only
     project: str = "vq-video-diffusion"
     tags: str = ""
@@ -233,8 +263,8 @@ def check_supported(cfg: VideoDiffusionConfig) -> None:
             "--device_composite needs the procedural moving_mnist source "
             "on the native pipeline (trajectories are a moving_mnist "
             "concept; grain batches are pixel records)")
-    if cfg.n_model > 1 or cfg.n_seq > 1 or cfg.fsdp:
-        raise unported("--n_model / --n_seq / --fsdp parallelism", "A.9")
+    if cfg.n_model > 1 or cfg.n_seq > 1:
+        raise unported("--n_model / --n_seq (tensor and sequence parallelism)", "A.9")
 
 
 def build_clip_fn(cfg: VideoDiffusionConfig, seed: int):
@@ -375,27 +405,49 @@ class TrainState:
     step: int = 0
     ema_flat: Optional[torch.Tensor] = None
 
+    @property
+    def mesh(self) -> Mesh:
+        return self.optimizer.mesh
+
     def tensors(self) -> List[torch.Tensor]:
         """The tensors a step writes."""
-        out = list(self.optimizer.state_tensors().values())
+        out = list(self.optimizer.state_tensors().values()) + self.optimizer.extra_tensors()
         if self.ema_flat is not None:
             out.append(self.ema_flat)
         return out + [self.sampler.weights, self.sampler.counts]
 
+    def ema_weights(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA by parameter name (None without one): ``ema``, or under
+        ``--fsdp`` the shards gathered whole, a collective every rank
+        calls."""
+        if self.ema_flat is None or self.ema is not None:
+            return self.ema
+        full = self.optimizer.gather_full(self.ema_flat)
+        names = [n for n, _ in self.model.named_parameters()]
+        return dict(zip(names, self.optimizer.views(full)))
+
     def state_dict(self) -> Dict:
+        """Whole tensors on every rank (gathered under ``--fsdp``: every
+        rank calls it)."""
         return {
             "params": self.model.state_dict(),
-            "ema": self.ema if self.ema is not None else {},
+            "ema": self.ema_weights() or {},
             "opt_state": self.optimizer.state_dict(),
             "sampler": self.sampler.state_dict(),
         }
 
     @torch.no_grad()
+    def _load_ema(self, src: Dict[str, torch.Tensor]) -> None:
+        names = [n for n, _ in self.model.named_parameters()]
+        full = torch.cat([src[n].reshape(-1).to(self.ema_flat.device) for n in names])
+        self.ema_flat.copy_(self.optimizer.local_shard(full))
+
+    @torch.no_grad()
     def load_state_dict(self, sd: Dict, step: int) -> None:
         self.model.load_state_dict(sd["params"], strict=True)
-        if self.ema is not None:
-            for k, v in self.ema.items():
-                v.copy_(sd["ema"][k])
+        self.optimizer.sync_from_params()
+        if self.ema_flat is not None:
+            self._load_ema(sd["ema"])
         self.optimizer.load_state_dict(sd["opt_state"])
         for k, v in self.sampler.state_dict().items():
             v.copy_(sd["sampler"][k])
@@ -407,26 +459,31 @@ class TrainState:
         EMA from the checkpoint's EMA (or its params when it has none); the
         optimizer, sampler and step stay fresh."""
         self.model.load_state_dict(sd["params"], strict=True)
-        if self.ema is not None:
-            src = sd.get("ema") or sd["params"]
-            for k, v in self.ema.items():
-                v.copy_(src[k])
+        self.optimizer.sync_from_params()
+        if self.ema_flat is not None:
+            self._load_ema(sd.get("ema") or sd["params"])
 
 
-def init_state(cfg, model: torch.nn.Module) -> TrainState:
+def init_state(cfg, model: torch.nn.Module, mesh: Optional[Mesh] = None) -> TrainState:
     """A fresh state for ``model`` under ``cfg`` (either diffusion
-    trainer's config): the optimizer (optax.MultiSteps with the config's
-    ``accumulation_steps``), the EMA of the parameters when ``ema_decay`` >
-    0, and the loss-aware sampler."""
+    trainer's config) on the data axis of ``mesh`` (None: one process): the
+    optimizer (optax.MultiSteps with the config's ``accumulation_steps``;
+    sharded with ``cfg.fsdp``), the EMA of the parameters when
+    ``ema_decay`` > 0 (sharded like the parameters), and the loss-aware
+    sampler. The model's batch reductions (the MoE load-balance term) take
+    the mesh too."""
     schedule = warmup_cosine_schedule(cfg.lr, cfg.warmup, cfg.max_steps)
+    attach(model, mesh or Mesh())
     # JAX wraps the optimizer in optax.MultiSteps only for more than one step
     opt = make_optimizer(cfg.optimizer, model.parameters(), schedule, cfg.weight_decay,
-                         accumulation_steps=max(1, getattr(cfg, "accumulation_steps", 1)))
+                         accumulation_steps=max(1, getattr(cfg, "accumulation_steps", 1)),
+                         mesh=mesh, fsdp=getattr(cfg, "fsdp", False))
     ema, ema_flat = None, None
     if cfg.ema_decay > 0:
         ema_flat = opt.flat.clone()
-        names = [n for n, _ in model.named_parameters()]
-        ema = dict(zip(names, opt.views(ema_flat)))
+        if not getattr(cfg, "fsdp", False):
+            names = [n for n, _ in model.named_parameters()]
+            ema = dict(zip(names, opt.views(ema_flat)))
     return TrainState(model, opt, ema, loss_aware_init(device=model.device),
                       ema_flat=ema_flat)
 
@@ -445,6 +502,7 @@ def step_body(
     (not ``state.step``) and returns the packed (loss, grad norm, ok)
     float32 (3,) tensor."""
     frames = as_frames(batch, cfg.image_size)
+    draws = local_rows(draws, state.mesh)  # the global batch's draws: this rank's rows
     b, s, hh, ww, c = frames.shape
     k = tok.num_embeddings
     tokens = tok.encode(frames.reshape(b * s, hh, ww, c)).long()
@@ -520,9 +578,13 @@ def ce_step(
         loss = loss + cfg.moe_aux_weight * aux
     loss.backward()
     with torch.no_grad():
-        loss = loss.detach()
-        g = opt.flat_grad()
-        gn = torch.linalg.vector_norm(g)
+        # over the data axis: the global batch's mean loss and gradient (the
+        # gradient reduce-scattered to shards under --fsdp), so every rank
+        # takes the same guard decision
+        mesh = state.mesh
+        loss = all_reduce_mean(loss.detach(), mesh)
+        g = opt.reduced_grad()
+        gn = opt.grad_norm(g)
         ok = torch.isfinite(loss) & torch.isfinite(gn)
         old = {"opt": opt.state_tensors()}
         new = {"opt": opt.propose(torch.nan_to_num(g))}
@@ -532,13 +594,16 @@ def ce_step(
             new["ema"] = state.ema_flat * d + new["opt"]["params"] * (1.0 - d)
         if r is not None:
             per_sample = ce.detach().reshape(target.shape[0], -1).mean(1)
-            upd = loss_aware_update(state.sampler, r, torch.nan_to_num(per_sample))
+            # every rank's times and losses, in the global batch's order
+            rows = all_gather_rows(torch.stack([r.reshape(-1), per_sample], 1), mesh)
+            upd = loss_aware_update(state.sampler, rows[:, 0], torch.nan_to_num(rows[:, 1]))
             old["sampler"] = {"weights": state.sampler.weights,
                               "counts": state.sampler.counts}
             new["sampler"] = {"weights": upd.weights, "counts": upd.counts}
         if cfg.nan_guard:
             new = reject_nonfinite(ok, old, new)
         opt.assign(new["opt"])
+        opt.publish()  # --fsdp: the shards gathered into the model's parameters
         if "ema" in new:
             state.ema_flat.copy_(new["ema"])
         if "sampler" in new:
@@ -558,10 +623,13 @@ def step_program(state: TrainState, io: StepInputs,
 def checkpoint_restorer(saver: AsyncCheckpointSaver, state: TrainState, cfg):
     """The guard's escalation for the diffusion trainers: reload the newest
     complete checkpoint under ``cfg.output_dir`` (or ``cfg.checkpoint``)
-    into ``state``; returns its path, or None when there is none."""
+    into ``state``; returns its path, or None when there is none. Every rank
+    restores (their guards see the same rows), after rank 0's in-flight
+    save has landed."""
 
     def restore_latest() -> Optional[str]:
         saver.wait()  # an in-flight save must land first
+        state.mesh.barrier()
         path = latest_checkpoint(cfg.output_dir) or cfg.checkpoint
         if not path:
             return None
@@ -667,33 +735,42 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     if cfg.checkpoint and cfg.init_from:
         raise ValueError("--checkpoint (full resume) and --init_from "
                          "(weights-only) are mutually exclusive")
+    # the data axis: every process of a torchrun job, each its rows of the
+    # global batch from a source seeded by (seed, rank)
+    initialize_distributed(device=device)
+    device = process_device(device)
+    mesh = make_mesh(n_model=cfg.n_model, n_seq=cfg.n_seq)
+    local_cfg = dataclasses.replace(cfg, batch_size=check_batch(cfg.batch_size, mesh))
     torch.manual_seed(cfg.manual_seed)
 
     tok, _tok_cfg = load_tokenizer(cfg.decoder_model, device)
     if cfg.tok_bf16:
         tokenizer_inference_cast(tok)
-    clip_fn, sampler = build_clip_fn(cfg, cfg.manual_seed)
+    clip_fn, sampler = build_clip_fn(local_cfg, rank_seed(cfg.manual_seed, mesh.rank))
     # evaluation draws clips from a stream of its own where JAX's does (the
     # training stream belongs to the prefetch thread, and a Grain position
     # must not move for it); the buffered trajectory sampler is shared, as
-    # JAX shares it
-    eval_sampler = None
-    if cfg.dataset == "moving_mnist" or cfg.data_pipeline == "grain":
+    # JAX shares it. Rank 0 alone evaluates
+    eval_clip_fn, eval_sampler = None, None
+    if mesh.rank == 0 and (cfg.dataset == "moving_mnist" or cfg.data_pipeline == "grain"):
         eval_clip_fn, eval_sampler = build_clip_fn(cfg, cfg.manual_seed + 101)
-    else:
+    elif mesh.rank == 0:
         eval_clip_fn = clip_fn
     eval_gen = torch.Generator(device=device).manual_seed(cfg.manual_seed + 101)
     try:
-        return _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen)
+        return _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen,
+                      mesh)
     finally:
         for s in (sampler, eval_sampler):
             if s is not None:
                 s.close()
 
 
-def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) -> TrainResult:
+def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen,
+           mesh: Mesh) -> TrainResult:
     """The rest of ``train``, on its tokenizer and data sources (``train``
-    closes the sources)."""
+    closes the sources), on the data axis of ``mesh``: rank 0 alone writes
+    checkpoints, logs, evaluations and the timing report."""
     num_embeddings = tok.num_embeddings
     # probe the token-grid shape from one encoded clip (main2.py:399-404)
     probe = as_frames(batch_to(clip_fn(1), device), cfg.image_size)
@@ -709,7 +786,8 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) 
 
     model = make_model(cfg, token_shape, num_embeddings, device, backend)
     print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
-    state = init_state(cfg, model)
+    state = init_state(cfg, model, mesh)
+    lead = mesh.rank == 0
     lr_of = host_schedule(state.optimizer.schedule)
     if cfg.init_from and not cfg.eval:
         restored, at_step, _ = restore_checkpoint(cfg.init_from)
@@ -725,6 +803,8 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) 
             model.load_state_dict(restored["params"], strict=True)
             restore_pipeline(sampler, cfg.checkpoint)
             print(f"evaluating {cfg.checkpoint} (step {state.step})")
+        if not lead:
+            return TrainResult(state, [], 0, token_shape, evals)
         logger = MetricLogger(cfg.output_dir, cfg.name)
         try:
             te = time.perf_counter()
@@ -748,16 +828,17 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) 
     n_tokens = token_shape[1] * token_shape[2]
     n_buckets = state.sampler.weights.shape[0]
     kdisp = max(1, cfg.steps_per_dispatch)
+    local_batch = cfg.batch_size // mesh.world
     batches = PrefetchIterator(
-        lambda: clip_fn(cfg.batch_size),
+        lambda: clip_fn(local_batch),
         # a dispatch drains k batches at once: keep the worker a dispatch ahead
         depth=max(2, kdisp + 1), device=device,
         probe_every=5 * kdisp if cfg.timing_report else 0,
         # a Grain position rides the queue with its batch: a checkpoint
         # records the position consumed, not the one prefetched ahead
         state_fn=getattr(sampler, "get_state", None))
-    logger = MetricLogger(cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
-                          project=cfg.project, config=config, tags=cfg.tags)
+    logger = rank_logger(mesh.rank, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+                         project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
     # JAX trainer samples the flag at log points)
@@ -806,13 +887,16 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) 
                                      loss_aware_weights(state.sampler))
             if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                 tt = time.perf_counter()
-                path = saver.save(cfg.output_dir, step, state.state_dict(), config,
-                                  pipeline_files(batches.consumed_state()))
+                whole = state.state_dict()  # gathered under --fsdp: every rank
+                if lead:
+                    path = saver.save(cfg.output_dir, step, whole, config,
+                                      pipeline_files(batches.consumed_state()))
+                    print("checkpoint:", path)
                 tm.add("checkpoint", time.perf_counter() - tt)
-                print("checkpoint:", path)
             if cfg.eval_interval and step % cfg.eval_interval == 0:
-                for tag, weights in (("base", None), ("ema", state.ema)):
-                    if tag == "ema" and weights is None:
+                ema = state.ema_weights()  # gathered under --fsdp: every rank
+                for tag, weights in (("base", None), ("ema", ema)):
+                    if (tag == "ema" and weights is None) or not lead:
                         continue
                     te = time.perf_counter()
                     path = evaluate_and_save(
@@ -825,8 +909,8 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen) 
         try:
             saver.wait()  # the last save must land before exit
         finally:
-            report = write_timing(tm, cfg, batches, {"token_shape": list(token_shape)},
-                                  config)
+            report = (write_timing(tm, cfg, batches, {"token_shape": list(token_shape)},
+                                   config) if lead else None)
             batches.close()
             logger.close()
     return TrainResult(state, history, rejected, token_shape, evals, program, report)

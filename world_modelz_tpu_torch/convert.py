@@ -285,3 +285,42 @@ def unet_state_dict_from_params(params: Mapping[str, Any], prefix: str = "") -> 
         else:
             sd.update(unet_state_dict_from_params(p, f"{key}."))
     return sd
+
+
+def gmlp_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``GMLP`` params -> ``models.gmlp.GMLP`` state_dict. The port's
+    modules carry flax's names, so the map is one to one: a Dense kernel
+    (in, out) becomes a Linear weight (out, in), a LayerNorm's scale its
+    weight, ``to_embed``'s embedding its weight, and the spatial gating
+    unit's ``proj_weight`` (stored as drawn, eps is subtracted at use) and
+    ``proj_bias`` keep their values and names."""
+    sd: StateDict = {}
+
+    def walk(prefix: str, node: Mapping) -> None:
+        if "kernel" in node:
+            _linear(sd, prefix, node)
+        elif "scale" in node:
+            _layernorm(sd, prefix, node)
+        elif "embedding" in node:
+            sd[f"{prefix}.weight"] = _t(node["embedding"])
+        else:
+            for name, child in node.items():
+                key = f"{prefix}.{name}" if prefix else name
+                if isinstance(child, Mapping):
+                    walk(key, child)
+                else:
+                    sd[key] = _t(child)
+
+    walk("", params)
+    return sd
+
+
+def vq_state_from_state(state: Any):
+    """A JAX ``VQState`` (its four arrays: ``codebook`` (L, K, D),
+    ``cluster_size``, ``activation_count``, ``accumulated_error``) ->
+    ``ops.vq.VQState`` of f32 tensors, e.g. the masked-denoise trainer's
+    patch quantizer."""
+    from world_modelz_tpu_torch.ops.vq import VQState
+
+    return VQState(*(_t(getattr(state, f)) for f in (
+        "codebook", "cluster_size", "activation_count", "accumulated_error")))

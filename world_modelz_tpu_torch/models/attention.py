@@ -133,7 +133,12 @@ class MoEFeedForward(nn.Module):
     ``impl``: ``"dispatch"`` the main path (``parallel.moe.
     moe_ffn_indexed``, equal to JAX's dispatch einsums ``moe_ffn``),
     ``"reference"`` every token through its own expert (``moe_reference``,
-    no capacity). No dropout, as in JAX."""
+    no capacity). No dropout, as in JAX. ``mesh`` (set by the trainers,
+    ``parallel.mesh.attach``): the load-balance term's batch means are the
+    global batch's over its data axis. ``global_aux`` False (a caller that
+    drops the term, such as sampling) keeps them this rank's, so no
+    collective runs and one rank may sample alone (the trainers' evaluation
+    on rank 0)."""
 
     def __init__(self, dim: int, hidden_dim: int, num_experts: int,
                  capacity_factor: float = 1.25, impl: str = "dispatch"):
@@ -148,15 +153,18 @@ class MoEFeedForward(nn.Module):
         self.b_in = nn.Parameter(torch.zeros(e, hid))
         self.w_out = nn.Parameter(torch.randn(e, hid, dim) * hid**-0.5)
         self.b_out = nn.Parameter(torch.zeros(e, dim))
+        self.mesh = None
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                global_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         p = moe.MoEParams(*(w.to(x.dtype) for w in (
             self.w_gate, self.w_in, self.b_in, self.w_out, self.b_out)))
+        mesh = self.mesh if global_aux else None
         if self.impl == "reference":
             gate, expert = moe.route(p, x)
-            return moe.moe_reference(p, x), moe.load_balance_loss(gate, expert)
+            return moe.moe_reference(p, x), moe.load_balance_loss(gate, expert, mesh)
         capacity = moe.moe_capacity(self.capacity_factor, x.shape[1], self.num_experts)
-        return moe.moe_ffn_indexed(p, x, capacity=capacity)
+        return moe.moe_ffn_indexed(p, x, capacity=capacity, mesh=mesh)
 
 
 @functools.lru_cache(maxsize=16)
@@ -565,10 +573,10 @@ class PreNorm(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.fn = fn
 
-    def forward(self, x: torch.Tensor, q: torch.Tensor = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, q: torch.Tensor = None, **kw) -> torch.Tensor:
         if q is None:
-            return self.fn(self.norm(x))
-        return self.fn(self.norm(x), q)
+            return self.fn(self.norm(x), **kw)
+        return self.fn(self.norm(x), q, **kw)
 
 
 class Local3dAttentionTransformer(nn.Module):
@@ -862,7 +870,8 @@ class DenseTransformer(nn.Module):
     (``layers.{i}.1.fn.w_gate`` ...) of ``moe_experts`` experts of width
     ``mlp_dim``; ``forward(x, return_aux=True)`` then also returns the
     layers' mean load-balance loss (the JAX trainer's mean over the sown
-    ``moe_aux`` values)."""
+    ``moe_aux`` values). Without ``return_aux`` the term is dropped, and its
+    means cross no data axis."""
 
     def __init__(
         self,
@@ -900,7 +909,8 @@ class DenseTransformer(nn.Module):
         aux = []
         for attn, ff in self.layers:
             x = attn(x) + x
-            y = ff(x)
+            y = (ff(x, global_aux=return_aux) if isinstance(ff.fn, MoEFeedForward)
+                 else ff(x))
             if isinstance(y, tuple):
                 y, a = y
                 aux.append(a)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from world_modelz_tpu_torch.parallel.distributed import mean_across
+
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU with torch's default slope 0.01 (autoencoder.py:19)."""
@@ -38,14 +40,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     (into scratch buffers at momentum 1, which leaves the batch mean and
     unbiased variance there), so no extra pass over the input is made.
     ``num_batches_tracked`` is left as it is. Eval mode is torch's.
+
+    With a ``mesh`` whose data axis has a process group (set by the
+    tokenizer trainer, ``parallel.mesh.attach``), the batch statistics are
+    the global batch's, as JAX's global view takes them: the moments are
+    reduced over the ranks in two passes, the mean first, then the centred
+    mean of squares (``torch.nn.SyncBatchNorm`` does not run on the CPU).
     """
 
     def __init__(self, planes: int):
         super().__init__(planes, eps=1e-5, momentum=0.1)
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None and self.mesh.group is not None:
+            return self._global_forward(x)
         stats = torch.zeros((2, x.shape[1]), dtype=self.running_mean.dtype,
                             device=x.device)
         y = F.batch_norm(x, stats[0], stats[1], self.weight, self.bias,
@@ -56,6 +67,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(keep).add_(stats[0], alpha=self.momentum)
             self.running_var.mul_(keep).add_(
                 stats[1], alpha=self.momentum * (n - 1) / n)
+        return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training forward over the global batch (equal per-rank batches):
+        the mean of the ranks' means, then of their centred mean squares."""
+        mean = mean_across(x.mean((0, 2, 3)), self.mesh)
+        xc = x - mean[None, :, None, None]
+        var = mean_across((xc * xc).mean((0, 2, 3)), self.mesh)
+        inv = torch.rsqrt(var + self.eps)
+        y = xc * (inv * self.weight)[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum  # flax's momentum
+            self.running_mean.mul_(keep).add_(mean.detach(), alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var.detach(), alpha=self.momentum)
         return y
 
 

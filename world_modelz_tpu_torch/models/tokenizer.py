@@ -136,6 +136,7 @@ class VQAutoEncoder(nn.Module):
             embedding_dim, [hidden_planes] * downscale_steps, in_channels
         )
         self.vq = VectorQuantizer(1, num_embeddings, embedding_dim)
+        self.mesh = None  # the data axis of a data-parallel trainer
         self.to(dev)
         self.eval()
 
@@ -168,7 +169,7 @@ class VQAutoEncoder(nn.Module):
             fused = h.device.type == "cuda" or self.vq_backend == "pallas"
             apply = vq_apply_fused if fused else vq_apply
             # the JAX tokenizer's EMA decay 0.99 and eps 1e-5 (the defaults)
-            out, new_vq = apply(self.vq.state(), h, train=train)
+            out, new_vq = apply(self.vq.state(), h, train=train, mesh=self.mesh)
             self.vq.load_state(new_vq)
             recon = self.decoder(out.quantized.permute(0, 3, 1, 2))
         finally:

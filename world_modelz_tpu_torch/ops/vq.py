@@ -13,14 +13,23 @@ statistics kernel). The CPU path and the tests use them; the CUDA path
 never does. ``vq_apply`` is the plain training forward for any L (JAX's
 ``vq_backend="xla"``); ``vq_apply_fused`` takes its statistics from the
 kernel wrapper (``kernels/vq_kernels.vq_train_stats``) for L = 1.
+
+Both training forwards take a ``mesh``: under data parallelism the batch's
+per-code statistics (counts, errors, input sums) are sums over the ranks'
+rows, all-reduced before the EMA update, so every rank's codebook is the
+global batch's (JAX's global view; the kernel's statistics are sums, so
+the kernel stays on the path).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from world_modelz_tpu_torch.parallel.distributed import all_reduce_sum
+from world_modelz_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -198,30 +207,33 @@ def vq_apply(
     decay: float = 0.99,
     eps: float = 1e-5,
     laplace_smoothing: bool = True,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[VQOutput, VQState]:
     """Quantize ``x`` (last dim D; the flatten reads (N, L, D)); when
     ``train``, also EMA-update the codebook with the batch's assignments to
     the old codebook. Activation and error statistics accumulate in both
     modes. Gradients reach ``x`` only through the commitment loss and the
-    straight-through output; the state is computed without a graph."""
+    straight-through output; the state is computed without a graph. With a
+    ``mesh`` the statistics and the perplexity are the global batch's."""
+    mesh = mesh or Mesh()
     num_latents, num_codes, dim = state.codebook.shape
     flat_x = x.reshape(-1, num_latents, dim)
-    n = flat_x.shape[0]
+    n = flat_x.shape[0] * mesh.world
     with torch.no_grad():
         fx = flat_x.detach().float()
         indices = codebook_distances(state.codebook, fx).argmin(-1).to(torch.int32)
         quantized = vq_decode(state.codebook, indices)  # (N, L, D)
         onehot = torch.nn.functional.one_hot(
             indices.long(), num_codes).to(torch.float32)  # (N, L, K)
-        counts = onehot.sum(0)  # (L, K)
+        counts = all_reduce_sum(onehot.sum(0), mesh)  # (L, K)
         sq_err = ((quantized.float() - fx) ** 2).sum(-1)  # (N, L)
-        err_sum = torch.einsum("nl,nlk->lk", sq_err, onehot)
+        err_sum = all_reduce_sum(torch.einsum("nl,nlk->lk", sq_err, onehot), mesh)
         new_state = state.replace(
             activation_count=state.activation_count + counts,
             accumulated_error=state.accumulated_error + err_sum,
         )
         if train:
-            dw = torch.einsum("nlk,nld->lkd", onehot, fx)
+            dw = all_reduce_sum(torch.einsum("nlk,nld->lkd", onehot, fx), mesh)
             cluster_size, codebook = _ema_codebook(
                 state, counts, dw, decay, eps, laplace_smoothing)
             new_state = new_state.replace(
@@ -245,6 +257,7 @@ def vq_apply_fused(
     decay: float = 0.99,
     eps: float = 1e-5,
     laplace_smoothing: bool = True,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[VQOutput, VQState]:
     """``vq_apply`` for a single-latent codebook with the search and the
     per-code statistics from ``kernels.vq_kernels.vq_train_stats``: the
@@ -258,11 +271,13 @@ def vq_apply_fused(
         raise NotImplementedError(
             f"vq_apply_fused takes a single-latent codebook, got L="
             f"{num_latents}; use vq_apply")
+    mesh = mesh or Mesh()
     flat_x = x.reshape(-1, dim)
-    n = flat_x.shape[0]
+    n = flat_x.shape[0] * mesh.world
     with torch.no_grad():
         idx, q, cnt, err, dw = vq_train_stats(
             flat_x.detach().float().contiguous(), state.codebook[0].contiguous())
+        cnt, err, dw = (all_reduce_sum(t, mesh) for t in (cnt, err, dw))
         counts = cnt[None]  # (L, K)
         new_state = state.replace(
             activation_count=state.activation_count + counts,

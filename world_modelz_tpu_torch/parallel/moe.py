@@ -37,6 +37,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from world_modelz_tpu_torch.parallel.distributed import all_reduce_mean, global_value
+from world_modelz_tpu_torch.parallel.mesh import Mesh
+
 
 class MoEParams(NamedTuple):
     """Stacked expert FFNs and the router (JAX's layout).
@@ -84,11 +87,18 @@ def route(params: MoEParams, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return gate, torch.argmax(gate, dim=-1)
 
 
-def load_balance_loss(gate: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
-    """E * sum_e mean(sel_e) * mean(gate_e) over the (B, N) tokens."""
+def load_balance_loss(gate: torch.Tensor, expert: torch.Tensor,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """E * sum_e mean(sel_e) * mean(gate_e) over the (B, N) tokens; with a
+    ``mesh``, both means are the global batch's (JAX's global view,
+    parallel/moe.py:121-124): reduced over its data axis before their
+    product, the gate's keeping this rank's share of the gradient."""
     e = gate.shape[-1]
+    mesh = mesh or Mesh()
     sel = F.one_hot(expert, e).to(gate.dtype)
-    return torch.sum(sel.mean((0, 1)) * gate.mean((0, 1))) * e
+    density = all_reduce_mean(sel.mean((0, 1)), mesh)
+    proxy = global_value(gate.mean((0, 1)), mesh)
+    return torch.sum(density * proxy) * e
 
 
 def _experts(params: MoEParams, expert_in: torch.Tensor) -> torch.Tensor:
@@ -108,7 +118,7 @@ def _slots(gate: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(
-    params: MoEParams, x: torch.Tensor, *, capacity: int
+    params: MoEParams, x: torch.Tensor, *, capacity: int, mesh: Optional[Mesh] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """JAX's ``moe_ffn``: top-1 routed expert FFN through the one-hot
     dispatch and combine einsums (the plain version).
@@ -131,14 +141,16 @@ def moe_ffn(
     expert_out = _experts(params, expert_in)
     combine = dispatch * gate_top[:, :, None, None]
     y = torch.einsum("bnec,ebcd->bnd", combine, expert_out).to(x.dtype)
-    return y, load_balance_loss(gate, expert)
+    return y, load_balance_loss(gate, expert, mesh)
 
 
 def moe_ffn_indexed(
-    params: MoEParams, x: torch.Tensor, *, capacity: int
+    params: MoEParams, x: torch.Tensor, *, capacity: int, mesh: Optional[Mesh] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_ffn`` with the tokens moved by index (the main path): the same
-    result, without the (B, N, E, C) tensors."""
+    result, without the (B, N, E, C) tensors. Capacity is per batch row, so
+    under data parallelism dispatch stays on the rank; only the
+    load-balance term's means cross the ``mesh``."""
     b, n, d = x.shape
     e = params.w_gate.shape[1]
     slots = e * capacity
@@ -163,7 +175,7 @@ def moe_ffn_indexed(
     # a dropped token reads the appended zero row
     picked = out.gather(1, torch.where(keep, flat, slots)[..., None].expand(b, n, d))
     y = (picked * gate_top[..., None]).to(x.dtype)
-    return y, load_balance_loss(gate, expert)
+    return y, load_balance_loss(gate, expert, mesh)
 
 
 def moe_reference(params: MoEParams, x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,12 @@ captured in a CUDA graph:
 
 ``propose`` computes the new state out of place, ``assign`` writes a state
 into the live buffers; ``step`` is the two for the parameters' ``.grad``.
+
+Data parallelism (``parallel.mesh``): with a mesh, ``reduced_grad`` is the
+flat gradient averaged over the ranks (one all-reduce), so every rank takes
+the global batch's update; ``parallel.fsdp.ShardedOptimizer`` keeps only
+this rank's shard of the state instead. One process has no group, and then
+no collective runs.
 torch's own ``capturable`` optimizers are not used: they refuse CPU
 tensors, so the CPU and the card would run different update code, and
 their per-parameter state would make the guard's select a launch per
@@ -31,6 +37,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import torch
+
+from world_modelz_tpu_torch.parallel.distributed import all_reduce_mean
+from world_modelz_tpu_torch.parallel.mesh import Mesh
 
 LearningRate = Union[float, Callable]
 
@@ -58,7 +67,9 @@ class ScheduledOptimizer:
         b2: float = 0.999,
         eps: float = 1e-8,
         accumulation_steps: int = 1,
+        mesh: Optional[Mesh] = None,
     ):
+        self.mesh = mesh or Mesh()
         self.params: List[torch.nn.Parameter] = list(params)
         if not self.params:
             raise ValueError("no parameters to optimize")
@@ -103,6 +114,35 @@ class ScheduledOptimizer:
         return torch.cat([
             (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
             for p in self.params])
+
+    def reduced_grad(self) -> torch.Tensor:
+        """The flat gradient of the global batch's mean loss: this rank's
+        ``flat_grad`` averaged over the data axis."""
+        return all_reduce_mean(self.flat_grad(), self.mesh)
+
+    def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """The global L2 norm of a ``reduced_grad``."""
+        return torch.linalg.vector_norm(g)
+
+    def publish(self) -> None:
+        """Make the parameters the model reads current after an ``assign``
+        (they are the flat buffer here: nothing to do)."""
+
+    def local_shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole flat vector (all of it here)."""
+        return full
+
+    def gather_full(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole flat vector of a ``local_shard`` (itself here)."""
+        return local
+
+    def sync_from_params(self) -> None:
+        """Take the state's parameters from the model's after a load (they
+        are the same buffer here: nothing to do)."""
+
+    def extra_tensors(self) -> List[torch.Tensor]:
+        """Buffers besides ``state_tensors`` that a step writes."""
+        return []
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """The live buffers an update changes, by name."""
@@ -156,8 +196,10 @@ class ScheduledOptimizer:
             live.copy_(state[key])
 
     def step(self) -> None:
-        """Apply one call with the parameters' ``.grad``."""
-        self.assign(self.propose(self.flat_grad()))
+        """Apply one call with the parameters' ``.grad`` (reduced over the
+        data axis)."""
+        self.assign(self.propose(self.reduced_grad()))
+        self.publish()
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -192,15 +234,22 @@ def make_optimizer(
     b1: float = 0.9,
     b2: float = 0.999,
     accumulation_steps: int = 1,
+    mesh: Optional[Mesh] = None,
+    fsdp: bool = False,
 ) -> ScheduledOptimizer:
     """``"adamw"`` (optax.adamw, eps 1e-8) or ``"adam"`` (optax.adam), with
-    optax.MultiSteps when ``accumulation_steps`` > 1."""
+    optax.MultiSteps when ``accumulation_steps`` > 1, over the data axis of
+    ``mesh``: replicated, or with ``fsdp`` sharded over it
+    (``parallel.fsdp.ShardedOptimizer``)."""
     name = name.lower()
     if name not in ("adamw", "adam"):
         raise ValueError(f"Unsupported optimizer: {name!r}")
-    return ScheduledOptimizer(
+    cls = ScheduledOptimizer
+    if fsdp:
+        from world_modelz_tpu_torch.parallel.fsdp import ShardedOptimizer as cls
+    return cls(
         params, learning_rate, weight_decay=weight_decay if name == "adamw" else None,
-        b1=b1, b2=b2, accumulation_steps=accumulation_steps)
+        b1=b1, b2=b2, accumulation_steps=accumulation_steps, mesh=mesh)
 
 
 @torch.no_grad()

@@ -96,3 +96,28 @@ class MetricLogger:
 
     def close(self) -> None:
         self._file.close()
+
+
+class NullLogger:
+    """A ``MetricLogger`` that writes nothing: the logger of every rank but
+    rank 0 in a data-parallel run."""
+
+    path = None
+
+    def log(self, step: int, **metrics: Any) -> None:
+        pass
+
+    def log_histogram(self, step: int, key: str, values: Any, **kw: Any) -> None:
+        pass
+
+    def log_image(self, step: int, key: str, image: np.ndarray) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def rank_logger(rank: int, *args: Any, **kwargs: Any):
+    """``MetricLogger(*args, **kwargs)`` on rank 0, a ``NullLogger`` on the
+    others."""
+    return MetricLogger(*args, **kwargs) if rank == 0 else NullLogger()
