@@ -58,6 +58,7 @@ the device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -4312,6 +4313,291 @@ def check_data_parallel(torch, dev, smi, root=os.path.join(HERE, "build", "smoke
     return out
 
 
+class PlainLocal3d:
+    """The local-3D Function's plain versions as an autograd Function on
+    the card (``models.attention``'s forward and split backward pair, at
+    the rounding points ``route`` fixes), so a halo-padded shard runs
+    through them as through the kernels."""
+
+    @staticmethod
+    def apply(q, k, v, extents, heads, route):
+        import torch
+
+        from world_modelz_tpu_torch.models import attention as pa
+
+        class _Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v):
+                ctx.save_for_backward(q, k, v)
+                return pa.local3d_attention_rounded(q, k, v, extents, heads, route[0])
+
+            @staticmethod
+            def backward(ctx, g):
+                q, k, v = ctx.saved_tensors
+                g = g.to(q.dtype).contiguous()
+                dq, lse, delta = pa.local3d_attention_bwd_dq(q, k, v, g, extents, heads)
+                dk, dv = pa._local3d_bwd_dkv(q, k, v, g, lse, delta, extents, heads, route[1])
+                return dq, dk, dv
+
+        return _Fn.apply(q, k, v)
+
+
+@contextlib.contextmanager
+def row_parallel_parts():
+    """``models.attention``'s ``reduce_from`` (the model axis's all-reduce)
+    replaced by one that keeps each group-less rank's part and passes it on
+    unsummed; yields the list of parts, which the caller sums."""
+    from world_modelz_tpu_torch.models import attention as pa
+
+    kept, real = [], pa.reduce_from
+
+    def keep(x, axis):
+        kept.append(x.detach())
+        return x
+
+    pa.reduce_from = keep
+    try:
+        yield kept
+    finally:
+        pa.reduce_from = real
+
+
+def seq_stitched(torch, arrays, extents, heads, n, attention=None):
+    """The clip's frames in ``n`` shards through
+    ``parallel.sequence.local3d_attention_seq`` (each shard's halos cut
+    from the whole K and V), stitched: (out, dq, dk, dv) of sum(out * g)."""
+    from world_modelz_tpu_torch.parallel.sequence import local3d_attention_seq
+
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in arrays[:3])
+    es, s_loc = extents[0], q.shape[1] // n
+    outs = []
+    for i in range(n):
+        lo, hi = i * s_loc, (i + 1) * s_loc
+        left = (k[:, lo - es:lo], v[:, lo - es:lo]) if i > 0 else None
+        right = (k[:, hi:hi + es], v[:, hi:hi + es]) if i < n - 1 else None
+        outs.append(local3d_attention_seq(q[:, lo:hi], k[:, lo:hi], v[:, lo:hi], extents,
+                                          heads, left, right, attention=attention))
+    out = torch.cat(outs, 1)
+    (out.float() * arrays[3].float()).sum().backward()
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def check_model_axes(torch, dev, launches, smi="", seq=((64, 6, 8, 8), 1, 128, (3, 1, 1)),
+                     sparse=(16, 1024, 512, 8, 64, 1024),
+                     block=((8, SEQ, GRID, GRID), 384, 2, 64, (1, 2, 1))):
+    """The model axes' shards on the card's kernels (no process group: each
+    shard of one card's computation, the collectives' sums taken here):
+
+    - sequence: m3's training shape (B=64, S=6 in 2 shards of 3 frames,
+      8 x 8, one head of 128, e_s 3), in f32 and bf16, each shard padded
+      with its halo through the local-3D Function (forward and the split
+      backward pair, at the sequence path's rounding points); the stitched
+      output and dQ/dK/dV against the same shards through the plain
+      versions: bf16 within FWD_BF16_TOL / LOCAL3D_BWD_BF16_TOL x max |x|,
+      f32 within F32_TOL / BWD_F32_TOL x max(1, max |x|);
+    - tensor parallelism: one layer of train_sparse/s16_n1024_b16 (dim 512,
+      8 heads of 64, mlp 1024, N = 1,024, B = 16, bf16) split into two head
+      halves by ``parallel.mesh.shard_params`` (each half on the flash
+      kernels, its part of ``to_out`` and of the FFN): the halves' outputs
+      summed against the whole layer's within FWD_BF16_TOL x max |y|, and
+      each half's weight gradients (the whole's, cut) within
+      FLASH_BWD_BF16_TOL x max |x|, the input's and the replicated
+      parameters' upstream of the split (the norms), whose two halves' bf16
+      gradients are added, within twice that;
+    - the fused block on a rank's share (the multi-head block shape, two
+      heads split in two, bf16): each rank's operands through the block
+      kernel against its plain version (FWD_BF16_TOL, >= FWD_BF16_EQUAL
+      bitwise), and the two shares summed against the whole block.
+
+    Every case must launch its kernels (on the card; ``seq``, ``sparse``
+    and ``block`` give the shapes, smaller for a rehearsal on the CPU, where
+    the plain versions run and nothing is timed). Returns the records."""
+    import copy
+
+    from world_modelz_tpu_torch.kernels import local3d_block_fwd, local3d_block_reference
+    from world_modelz_tpu_torch.models.attention import (
+        DenseTransformer,
+        Local3dAttentionTransformer,
+    )
+    from world_modelz_tpu_torch.parallel.mesh import Mesh, shard_params
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+
+    def err_of(got, want):
+        got, want = got.detach().float(), want.detach().float()
+        return float((got - want).abs().max()), float(want.abs().max())
+
+    # sequence parallelism: halo-padded shards through the local-3D kernels
+    cuda = dev.type == "cuda"
+    (b, s, h, w), heads, dh, ext = seq
+    n = 2
+    for dtype in (torch.float32, torch.bfloat16):
+        arrays = [torch.randn((b, s, h, w, heads * dh), generator=gen, device=dev).to(dtype)
+                  for _ in range(4)]
+        before = {k: launches[k] for k in ("local3d_fwd", "local3d_bwd_dq", "local3d_bwd_dkv")}
+        t0 = time.perf_counter()
+        got = seq_stitched(torch, arrays, ext, heads, n)
+        ran = {k: launches[k] - v for k, v in before.items()}
+        if cuda and any(v != n for v in ran.values()):
+            raise AssertionError(f"model axes: the halo shards launched {ran}, not {n} each")
+        want = seq_stitched(torch, arrays, ext, heads, n, attention=PlainLocal3d.apply)
+        tname = str(dtype).replace("torch.", "")
+        rec = {}
+        for label, g, p in zip(("out", "dq", "dk", "dv"), got, want):
+            err, peak = err_of(g, p)
+            if dtype == torch.bfloat16:
+                lim = (FWD_BF16_TOL if label == "out" else LOCAL3D_BWD_BF16_TOL) * peak
+            else:
+                lim = (F32_TOL if label == "out" else BWD_F32_TOL) * max(1.0, peak)
+            if not err <= lim:
+                raise AssertionError(
+                    f"model axes: seq halo {tname} {label}: max abs err {err} > {lim}")
+            rec[label] = dict(max_abs_err=err, tol=lim,
+                              bitwise_equal=float((g == p).float().mean()))
+        shard = [a[:, :s // n + ext[0]].contiguous().requires_grad_(True) for a in arrays[:3]]
+
+        def shard_step():  # one border shard, padded by its halo, fwd + bwd
+            from world_modelz_tpu_torch.kernels.local3d import local3d_attention
+
+            o = local3d_attention(*shard, ext, heads, (False, 0))
+            o.backward(arrays[3][:, :o.shape[1]])
+
+        def whole_step():
+            from world_modelz_tpu_torch.kernels.local3d import local3d_attention
+
+            o = local3d_attention(*[a.detach().requires_grad_(True) for a in arrays[:3]],
+                                  ext, heads)
+            o.backward(arrays[3])
+
+        rec["padded_shard_ms"] = cuda_ms(torch, shard_step, 10) if cuda else 0.0
+        rec["whole_clip_ms"] = cuda_ms(torch, whole_step, 10) if cuda else 0.0
+        rec["seconds"] = time.perf_counter() - t0
+        out[f"seq_{tname}"] = rec
+        log(f"model axes: seq halo m3 (B, S, H, W)={(b, s, h, w)} in {n} shards of "
+            f"{s // n} frames + e_s {ext[0]} halo, {tname}: "
+            + ", ".join(f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g}, bitwise "
+                        f"{v['bitwise_equal']:.5f})" for k, v in rec.items()
+                        if isinstance(v, dict))
+            + f"; a padded border shard fwd+bwd {rec['padded_shard_ms']:.4f} ms against the "
+            f"whole clip's {rec['whole_clip_ms']:.4f} ms")
+        del arrays, got, want, shard
+
+
+    # tensor parallelism: a sparse layer in two head halves on the flash
+    # kernels. Without a group the row-parallel sum is taken here: each
+    # half's part (f32) as the all-reduce would add it, then rounded and the
+    # bias added, as the layer does after its all-reduce
+    bsz, ntok, dim, heads, dh, mlp = sparse
+    torch.manual_seed(18)
+    whole = DenseTransformer(dim, 1, heads=heads, dim_head=dh, mlp_dim=mlp,
+                             attn_backend="flash").to(dev, torch.bfloat16).train()
+    parts = []
+    for r in range(2):
+        part = copy.deepcopy(whole)
+        plan = shard_params(part, Mesh(model=r, n_model=2))
+        if len(plan.splits) != 4:
+            raise AssertionError(f"model axes: the sparse layer split {plan.splits}")
+        parts.append((part, plan))
+    x = torch.randn((bsz, ntok, dim), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((bsz, ntok, dim), generator=gen, device=dev).to(torch.bfloat16)
+    rec = {}
+    before = launches["flash_fwd"], launches["flash_bwd_dq"], launches["flash_bwd_dkv"]
+    for i, (sub, bias) in enumerate((("attention", "0.fn.to_out.0.bias"),
+                                     ("ffn", "1.fn.net.3.bias"))):
+        xw = x.clone().requires_grad_(True)
+        yw = whole.layers[0][i](xw)
+        yw.backward(g)
+        dx = 0.0
+        with row_parallel_parts() as kept:
+            for part, _ in parts:
+                xr = x.clone().requires_grad_(True)
+                part.layers[0][i](xr).backward(g)
+                dx = dx + xr.grad.float()
+        y_sum = ((kept[0] + kept[1]).to(torch.bfloat16)
+                 + dict(whole.named_parameters())[f"layers.0.{bias}"])
+        # dx: the two halves' bf16 gradients added (the all-reduce), two
+        # roundings more than the whole's
+        for label, got, want, tol in (("y", y_sum, yw, FWD_BF16_TOL),
+                                      ("dx", dx, xw.grad, 2 * FLASH_BWD_BF16_TOL)):
+            e, pk = err_of(got, want)
+            if not e <= tol * pk:
+                raise AssertionError(f"model axes: sparse {sub} halves' {label}: err {e} > "
+                                     f"{tol * pk}")
+            rec[f"{sub}_{label}"] = dict(max_abs_err=e, tol=tol * pk)
+    ran = [launches[k] - v for k, v in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                           before)]
+    if cuda and ran != [3, 3, 3]:  # the whole and the two halves
+        raise AssertionError(f"model axes: the sparse attention launched {ran} flash kernels")
+    worst = 0.0
+    for name, p in whole.named_parameters():
+        grads = [dict(part.named_parameters())[name].grad.float() for part, _ in parts]
+        tol = FLASH_BWD_BF16_TOL
+        if name in parts[0][1].splits or name.endswith(("to_out.0.bias", "net.3.bias")):
+            # a rank's shard, or a bias added after the sum: each half's own
+            pairs = [(gr, plan.shard(name, p.grad)) for gr, (_, plan) in zip(grads, parts)]
+        else:  # upstream of the split (the norms, a column bias): the two
+            # halves' bf16 sums added, two roundings more than the whole's
+            pairs, tol = [(grads[0] + grads[1], p.grad)], 2 * FLASH_BWD_BF16_TOL
+        for gr, want in pairs:
+            e, pk = err_of(gr, want)
+            if not e <= tol * pk:
+                raise AssertionError(f"model axes: {name} grad err {e} > {tol * pk}")
+            worst = max(worst, e / max(pk, 1e-30))
+    rec["weight_grads_worst_rel"] = worst
+    out["tp_sparse_layer"] = rec
+    log(f"model axes: sparse layer (dim {dim}, {heads} heads of {dh}, mlp {mlp}, B {bsz}, "
+        f"N {ntok}, bf16) in 2 head halves (flash kernels on {heads // 2} heads each): "
+        + ", ".join(f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})"
+                    for k, v in rec.items() if isinstance(v, dict))
+        + f"; weight gradients, each half's against the whole's cut, worst {worst:.3g} x "
+        "max |g|")
+    del whole, parts, x, g
+
+    # the fused block on a rank's share
+    torch.manual_seed(19)
+    (b, s, h, w), dim, heads, dh, ext = block
+    tr = Local3dAttentionTransformer((s, h, w), dim, 16, ext, 1, heads, dh, dim,
+                                     backend="fused").to(dev, torch.bfloat16).train()
+    xq = torch.randn((b, s, h, w, dim), generator=gen, device=dev).to(torch.bfloat16)
+    attn = tr.layers[0][0]
+    y_whole = attn(xq, q=xq).detach()
+    shares, rec = [], {}
+    before = launches["local3d_block"]
+    for r in range(2):
+        part = copy.deepcopy(tr)
+        shard_params(part, Mesh(model=r, n_model=2))
+        layer = part.layers[0][0]
+        *ops, hr = layer.fn._fused_operands(layer.norm(xq), xq, torch.bfloat16)
+        ops = [t.detach().contiguous() for t in ops]
+        got = local3d_block_fwd(*ops, ext, hr)
+        plain = local3d_block_reference(*ops, ext, hr)
+        e, pk = err_of(got, plain)
+        lim = FWD_BF16_TOL * pk
+        equal = float((got == plain).float().mean())
+        if not (e <= lim and equal >= FWD_BF16_EQUAL):
+            raise AssertionError(f"model axes: fused block share {r}: err {e} (tol {lim}), "
+                                 f"{equal:.5f} bitwise")
+        rec[f"share{r}"] = dict(max_abs_err=e, tol=lim, bitwise_equal=equal, heads=hr)
+        with row_parallel_parts() as kept:
+            layer(xq, q=xq)
+        shares += kept
+    if cuda and launches["local3d_block"] - before < 4:
+        raise AssertionError("model axes: the shares did not run the block kernel")
+    e, pk = err_of((shares[0] + shares[1]).to(torch.bfloat16), y_whole)
+    lim = FWD_BF16_TOL * pk
+    if not e <= lim:
+        raise AssertionError(f"model axes: fused shares summed: err {e} > {lim}")
+    rec["summed"] = dict(max_abs_err=e, tol=lim)
+    out["fused_share"] = rec
+    log(f"model axes: fused block {(b, s, h, w)} dim {dim} {heads} heads of {dh} in two "
+        f"shares of one head: kernel vs plain {rec['share0']['max_abs_err']:.3g}, "
+        f"{rec['share1']['max_abs_err']:.3g} (bitwise {rec['share0']['bitwise_equal']:.5f}, "
+        f"{rec['share1']['bitwise_equal']:.5f}); shares summed vs the whole block {e:.3g} "
+        f"(tol {lim:.3g})")
+    return out
+
+
 def in_child_process(phase: str):
     """``phase`` (a name of CHILD_PHASES) run by this script in a child
     process on the same card, the kernel library already built; returns
@@ -4344,7 +4630,7 @@ def run_child_phase(torch, phase: str, out: str) -> int:
     return 0
 
 
-CHILD_PHASES = {"masked_denoise": check_masked_denoise}
+CHILD_PHASES = {"masked_denoise": check_masked_denoise, "model_axes": check_model_axes}
 
 
 def main() -> int:
@@ -4391,6 +4677,10 @@ def main() -> int:
     c = check_vq_train(torch, dev)
     flash = check_flash(torch, dev)
     block = check_local3d_block(torch, dev)
+    t_axes = time.perf_counter()
+    model_axes = check_model_axes(torch, dev, _build.LAUNCHES, smi)
+    model_axes["seconds"] = time.perf_counter() - t_axes
+    log(f"model axes: {model_axes['seconds']:.1f} s on {smi}")
     check_slice_parity(torch, dev)
     check_slice_parity(torch, dev, tokenizer=None, backend="fused")
     check_train_grads(torch, dev, _build.LAUNCHES)
@@ -4531,7 +4821,8 @@ def main() -> int:
         d12=md_vq["masked_denoise_d12"], d48=md_vq["masked_denoise_d48"])
     next(k for k in kernels if k["name"] == "vq_train_stats")["masked_denoise"] = dict(
         launches=masked_denoise.get("vq_train_stats", 0), d12=md_vq["masked_denoise_d12_train"])
-    log(json.dumps({"masked_denoise": md, "data_parallel": data_parallel}))
+    log(json.dumps({"masked_denoise": md, "data_parallel": data_parallel,
+                    "model_axes": model_axes}))
     log(json.dumps({"moe": moe, "external_tokenizer": ext, "som_ddpm": som}))
     log(json.dumps({"step_programs": steps, "i3d": i3d, "composite": composite, "dispatch": [
         {key: r.get(key) for key in ("k", "data", "steps_per_s", "busy", "device_ms_per_step",

@@ -393,12 +393,14 @@ def test_a_converted_jax_tokenizer_becomes_a_training_state(tmp_path):
     assert not any(t.any() for t in zero.values())
 
 
+# --n_model is ported (tests/test_torch_port_tensor_parallel.py): on one
+# process a model axis of two does not fit the world
 UNPORTED = [dict(n_model=2)]
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(ValueError, match="do not divide the world of 1 processes"):
         tv.train(_tiny(tmp_path, **kw))
 
 

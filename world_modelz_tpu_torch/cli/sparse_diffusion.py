@@ -52,17 +52,25 @@ The data axis, as the video trainer's (``cli.video_diffusion``): under
 shards with ``--fsdp``), the mixture-of-experts load-balance means are the
 global batch's, and rank 0 alone writes.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports them: the MineRL dataset (A.8: the ``minerl`` package and its
-data are absent); ``--n_model``, ``--n_pipe`` and ``n_micro`` (tensor and
-pipeline parallelism, A.9). The flags of those features raise at any value
-other than their default.
+The model axes (``parallel.mesh.make_mesh``): ``--n_model`` splits the
+attention by heads (each of q, k and v of the fused projection) and the
+FFNs over the model axis, and with ``--moe_experts`` the experts
+(E / n_model a rank, one all-reduce to combine them); ``--n_pipe`` streams
+``n_micro`` microbatches of each rank's rows through ``n_pipe`` stages of
+the layer stack (``parallel.pipelined_sparse``; not with MoE or
+``--fsdp``, as in JAX). Checkpoints are whole, and the evaluation runs the
+plain model on the gathered weights on rank 0.
+
+Not ported, and raising ``NotImplementedError`` with the ROADMAP item: the
+MineRL dataset (A.8: the ``minerl`` package and its data are absent).
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
     python -m world_modelz_tpu_torch.cli.sparse_diffusion \\
         --decoder_model <tokenizer checkpoint> --S 16 --num_context 1024 \\
         --heads 8 --attn_backend flash
+    torchrun --nproc_per_node 4 -m world_modelz_tpu_torch.cli.sparse_diffusion \\
+        --decoder_model <tokenizer checkpoint> --n_pipe 2 --n_micro 4
 """
 
 from __future__ import annotations
@@ -130,7 +138,6 @@ from world_modelz_tpu_torch.train.dispatch import (
 )
 from world_modelz_tpu_torch.train.timing import TrainTiming
 from world_modelz_tpu_torch.utils.config import (
-    check_defaults,
     config_to_dict,
     dataclass_cli,
     unported,
@@ -219,14 +226,17 @@ class SparseDiffusionConfig:
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 1e-2  # load-balance loss weight
 
-    n_model: int = 1  # > 1 not ported
+    n_model: int = 1  # tensor-parallel axis (experts over it with MoE)
     # shard the optimizer's side over the data axis (parallel/fsdp.py): each
     # rank updates 1 / world of the f32 parameters and holds that part of
     # Adam's moments and the EMA; reduce-scattered gradients, the updated
     # parameters all-gathered, whole on every rank
     fsdp: bool = False
-    n_pipe: int = 1  # > 1 not ported
-    n_micro: int = 4  # pipeline microbatches: not ported
+    # pipeline parallelism (parallel/pipelined_sparse.py): n_pipe stages
+    # stream n_micro microbatches; depth % n_pipe == 0 and
+    # batch_size % n_micro == 0. Deterministic path (dropout 0)
+    n_pipe: int = 1
+    n_micro: int = 4
     wandb: bool = False  # without the wandb package: JSONL only
     project: str = "sparse_diffusion"
     tags: str = ""
@@ -234,17 +244,9 @@ class SparseDiffusionConfig:
     output_dir: str = "outputs/sparse_diffusion"
 
 
-# flags kept for parity with the JAX CLI whose features are not ported:
-# nothing reads them, so a value other than the default raises
-_UNPORTED_FIELDS = {
-    "n_micro": ("pipeline parallelism", "A.9"),
-}
-
-
 def check_supported(cfg: SparseDiffusionConfig) -> None:
     """Raise NotImplementedError for options of features not ported, and
     ValueError for values the JAX CLI does not take either."""
-    check_defaults(cfg, _UNPORTED_FIELDS)
     if cfg.log_fence not in ("deferred", "sync"):
         raise ValueError(
             f"--log_fence must be 'deferred' or 'sync', got {cfg.log_fence!r}")
@@ -262,8 +264,16 @@ def check_supported(cfg: SparseDiffusionConfig) -> None:
         raise ValueError(
             "--moe_experts cannot combine with --n_pipe (the pipelined "
             "forward does not thread the MoE aux-loss collection)")
-    if cfg.n_model > 1 or cfg.n_pipe > 1:
-        raise unported("--n_model / --n_pipe (tensor and pipeline parallelism)", "A.9")
+    if cfg.fsdp and cfg.n_pipe > 1:
+        raise ValueError(
+            "--fsdp cannot combine with --n_pipe: pipeline stages own "
+            "their params per 'pipe' device; gathering them over 'data' "
+            "would serialize the schedule")
+    if cfg.n_pipe > 1:
+        if cfg.depth % cfg.n_pipe:
+            raise ValueError(f"depth {cfg.depth} not divisible by {cfg.n_pipe} stages")
+        if cfg.batch_size % cfg.n_micro:
+            raise ValueError(f"batch {cfg.batch_size} not divisible by n_micro {cfg.n_micro}")
 
 
 def build_sampler(cfg: SparseDiffusionConfig, seed: Optional[int] = None):
@@ -523,7 +533,7 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
     device = process_device(device)
     mesh = make_mesh(n_model=cfg.n_model, n_pipe=cfg.n_pipe)
     local_batch = check_batch(cfg.batch_size, mesh)
-    lead = mesh.rank == 0
+    lead = mesh.lead
     torch.manual_seed(cfg.manual_seed)
     os.makedirs(cfg.output_dir, exist_ok=True)
 
@@ -537,6 +547,10 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
 
     model = make_model(cfg, num_embeddings, device)
     print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
+    # under the model axes rank 0 evaluates a plain model on the gathered
+    # weights, as JAX's evaluation runs the unsharded module
+    axes = mesh.n_model > 1 or mesh.n_pipe > 1
+    eval_model = make_model(cfg, num_embeddings, device) if axes and lead else model
     state = init_state(cfg, model, mesh)
     lr_of = host_schedule(state.optimizer.schedule)
     if cfg.init_from:
@@ -562,7 +576,7 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
         lambda: sampler.sample_batch(local_batch), depth=2, device=device,
         # a Grain position rides the queue with its batch
         state_fn=getattr(sampler, "get_state", None))
-    logger = rank_logger(mesh.rank, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+    logger = rank_logger(mesh.process, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                          project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
@@ -627,12 +641,14 @@ def train(cfg: SparseDiffusionConfig) -> TrainResult:
                     print("checkpoint:", path)
                 tm.add("checkpoint", time.perf_counter() - tt)
             if cfg.eval_interval and step % cfg.eval_interval == 0:
-                ema = state.ema_weights()  # gathered under --fsdp: every rank
-                for tag, weights in (("base", None), ("ema", ema)):
+                # gathered under --fsdp and the model axes: every rank
+                ema = state.ema_weights()
+                base = state.whole_params() if axes else None
+                for tag, weights in (("base", base), ("ema", ema)):
                     if (tag == "ema" and weights is None) or not lead:
                         continue
                     te = time.perf_counter()
-                    path, _, _ = run_eval(model, weights, tok, cfg, step, tag)
+                    path, _, _ = run_eval(eval_model, weights, tok, cfg, step, tag)
                     evals.append((step, tag, path, time.perf_counter() - te))
                     tm.add("eval", time.perf_counter() - te)
     finally:

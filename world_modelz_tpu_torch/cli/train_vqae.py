@@ -45,10 +45,11 @@ global batch's statistics are taken across them: BatchNorm's moments (two
 passes) and the quantizer's per-code counts, errors and input sums, summed
 before the EMA update (the ``vq_train_stats`` kernel stays on the path).
 Rank 0 alone writes checkpoints, logs and images; every rank reads a
-resume checkpoint.
-
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``--n_model > 1``.
+resume checkpoint. ``--n_model`` splits the world into data x model (JAX's
+layout): no rule matches a conv tokenizer, so the model axis only
+replicates its work, the model ranks of one data coordinate drawing the
+same rows, and the batch and its statistics shard over ``data`` alone, as
+in JAX.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
@@ -104,7 +105,6 @@ from world_modelz_tpu_torch.utils.config import (
     config_from_dict,
     config_to_dict,
     dataclass_cli,
-    unported,
 )
 
 
@@ -149,7 +149,7 @@ class TrainVqaeConfig:
     vq_reuse_interval: int = 500
     log_interval: int = 50
 
-    n_model: int = 1  # > 1 not ported
+    n_model: int = 1  # model axis (the tokenizer is conv: it replicates)
     wandb: bool = False  # without the wandb package: JSONL only
     project: str = "mcvq"  # wandb project
     tags: str = ""  # wandb tags, comma-separated
@@ -169,8 +169,6 @@ def check_supported(cfg: TrainVqaeConfig) -> None:
         raise ValueError(
             f"--data_pipeline grain is not supported for dataset "
             f"{cfg.dataset!r} (random-access sources only)")
-    if cfg.n_model > 1:
-        raise unported("--n_model > 1 (model parallelism)", "A.9")
     if cfg.n_model < 1:
         raise ValueError(f"--n_model must be >= 1, got {cfg.n_model}")
     if cfg.vq_backend not in ("xla", "pallas"):
@@ -377,7 +375,7 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
     device = process_device(device)
     mesh = make_mesh(n_model=cfg.n_model)
     local_cfg = dataclasses.replace(cfg, batch_size=check_batch(cfg.batch_size, mesh))
-    lead = mesh.rank == 0
+    lead = mesh.lead
     torch.manual_seed(cfg.manual_seed)
     tok = make_tokenizer(cfg, device)
     grid = tok.downscale_steps
@@ -399,7 +397,7 @@ def train(cfg: TrainVqaeConfig) -> TrainResult:
     # the position consumed, not the one prefetched ahead
     batches = PrefetchIterator(batch_fn, depth=2, device=device,
                                state_fn=getattr(pipeline, "get_state", None))
-    logger = rank_logger(mesh.rank, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+    logger = rank_logger(mesh.process, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                          project=cfg.project, config=config_to_dict(cfg), tags=cfg.tags)
     saver = AsyncCheckpointSaver()
 

@@ -69,17 +69,32 @@ Rank 0 alone writes checkpoints,
 logs, evaluations and the timing report; every rank reads a resume
 checkpoint.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-``--dataset minerl`` (A.8: the ``minerl`` package and its data are absent)
-and ``--n_model`` / ``--n_seq`` (A.9). ``--wandb`` logs to the JSONL file
-only, as the JAX logger does without the package.
+The model axes (``parallel.mesh.make_mesh``, JAX's layouts, ``model``
+fastest): ``--n_model`` splits the attention and FFN weights over the
+model axis (``parallel.mesh.shard_params``: the rank's heads or, with one
+head, q, k and v gathered whole; row-parallel outputs), with ``--fsdp``
+too (each rank's flat buffer holds its shards and is sharded over its data
+group); ``--n_seq`` shards the clip's frames over the seq axis: each rank
+encodes its frames, the attention exchanges ``e_s``-frame halos
+(``parallel.sequence``), the loss (the last frame's, on the last seq
+rank) and the sampler's per-sample losses are summed over the seq group so
+every rank holds them, and the gradient is summed over it. Checkpoints are
+always whole (gathered), so a run resumes under any layout, and the
+evaluation runs the plain (unsharded) model on the gathered weights, as
+JAX's does.
+
+Not ported, and raising ``NotImplementedError`` with the ROADMAP item:
+``--dataset minerl`` (A.8: the ``minerl`` package and its data are
+absent). ``--wandb`` logs to the JSONL file only, as the JAX logger does
+without the package.
 
 Run (the GPU by default, ``--platform cpu`` for the CPU):
 
     python -m world_modelz_tpu_torch.cli.video_diffusion \\
         --decoder_model <tokenizer checkpoint>
     torchrun --nproc_per_node 4 -m world_modelz_tpu_torch.cli.video_diffusion \\
-        --decoder_model <tokenizer checkpoint> --batch_size 64 [--fsdp true]
+        --decoder_model <tokenizer checkpoint> --batch_size 64 [--fsdp true] \\
+        [--n_model 2] [--n_seq 2]
 """
 
 from __future__ import annotations
@@ -136,8 +151,18 @@ from world_modelz_tpu_torch.parallel.distributed import (
     process_device,
     local_rows,
     rank_seed,
+    reduce_from,
 )
-from world_modelz_tpu_torch.parallel.mesh import Mesh, attach, check_batch, make_mesh
+from world_modelz_tpu_torch.parallel.mesh import (
+    Mesh,
+    ParallelPlan,
+    attach,
+    check_batch,
+    make_mesh,
+    plan_of,
+    shard_params,
+)
+from world_modelz_tpu_torch.parallel.sequence import attach_seq, check_seq, frame_range
 from world_modelz_tpu_torch.serve import eval_mode
 from world_modelz_tpu_torch.train.dispatch import (
     StepInputs,
@@ -226,8 +251,8 @@ class VideoDiffusionConfig:
     buffer_size: int = 100_000  # the trajectory sampler's buffer, in frames
     skip_frames: int = 2  # trajectory frames skipped between kept ones
 
-    n_model: int = 1  # > 1 not ported
-    n_seq: int = 1  # > 1 not ported
+    n_model: int = 1  # tensor-parallel axis (parallel/mesh.py shard_params)
+    n_seq: int = 1  # sequence-parallel shards of the frame axis
     # shard the optimizer's side over the data axis (parallel/fsdp.py): each
     # rank updates 1 / world of the f32 parameters and holds that part of
     # Adam's moments and the EMA; reduce-scattered gradients, the updated
@@ -263,8 +288,8 @@ def check_supported(cfg: VideoDiffusionConfig) -> None:
             "--device_composite needs the procedural moving_mnist source "
             "on the native pipeline (trajectories are a moving_mnist "
             "concept; grain batches are pixel records)")
-    if cfg.n_model > 1 or cfg.n_seq > 1:
-        raise unported("--n_model / --n_seq (tensor and sequence parallelism)", "A.9")
+    if cfg.n_seq > 1:
+        check_seq(cfg.n_past + 1, cfg.extents[0], cfg.n_seq)
 
 
 def build_clip_fn(cfg: VideoDiffusionConfig, seed: int):
@@ -409,6 +434,20 @@ class TrainState:
     def mesh(self) -> Mesh:
         return self.optimizer.mesh
 
+    @property
+    def plan(self) -> ParallelPlan:
+        """Where the model's parameters live (``parallel.mesh``)."""
+        return plan_of(self.model)
+
+    def whole_params(self) -> Dict[str, torch.Tensor]:
+        """The whole parameters by name (gathered over the model axes: a
+        collective every rank calls)."""
+        return self.plan.gather_named(
+            {n: p.detach() for n, p in self.model.named_parameters()})
+
+    def _flat(self, v: torch.Tensor, numel: int) -> bool:
+        return v.dim() == 1 and v.shape[0] == numel
+
     def tensors(self) -> List[torch.Tensor]:
         """The tensors a step writes."""
         out = list(self.optimizer.state_tensors().values()) + self.optimizer.extra_tensors()
@@ -418,21 +457,26 @@ class TrainState:
 
     def ema_weights(self) -> Optional[Dict[str, torch.Tensor]]:
         """The EMA by parameter name (None without one): ``ema``, or under
-        ``--fsdp`` the shards gathered whole, a collective every rank
-        calls."""
-        if self.ema_flat is None or self.ema is not None:
-            return self.ema
-        full = self.optimizer.gather_full(self.ema_flat)
-        names = [n for n, _ in self.model.named_parameters()]
-        return dict(zip(names, self.optimizer.views(full)))
+        ``--fsdp`` and the model axes the shards gathered whole, a
+        collective every rank calls."""
+        if self.ema_flat is None:
+            return None
+        local = self.ema
+        if local is None:
+            full = self.optimizer.gather_full(self.ema_flat)
+            names = [n for n, _ in self.model.named_parameters()]
+            local = dict(zip(names, self.optimizer.views(full)))
+        return self.plan.gather_named(local)
 
     def state_dict(self) -> Dict:
-        """Whole tensors on every rank (gathered under ``--fsdp``: every
-        rank calls it)."""
+        """Whole tensors on every rank (gathered under ``--fsdp`` and the
+        model axes: every rank calls it)."""
+        plan, numel = self.plan, sum(self.optimizer._sizes)
         return {
-            "params": self.model.state_dict(),
+            "params": plan.gather_named(self.model.state_dict()),
             "ema": self.ema_weights() or {},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": {k: plan.gather_flat(v) if self._flat(v, numel) else v
+                          for k, v in self.optimizer.state_dict().items()},
             "sampler": self.sampler.state_dict(),
         }
 
@@ -444,11 +488,17 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict, step: int) -> None:
-        self.model.load_state_dict(sd["params"], strict=True)
+        """Restore a whole state (any layout's checkpoint): each rank takes
+        its part."""
+        plan = self.plan
+        self.model.load_state_dict(plan.shard_named(sd["params"]), strict=True)
         self.optimizer.sync_from_params()
         if self.ema_flat is not None:
-            self._load_ema(sd["ema"])
-        self.optimizer.load_state_dict(sd["opt_state"])
+            self._load_ema(plan.shard_named(sd["ema"]))
+        numel = sum(int(np.prod(s)) for s in plan.full.values())
+        self.optimizer.load_state_dict({
+            k: plan.shard_flat(v) if self._flat(v, numel) else v
+            for k, v in sd["opt_state"].items()})
         for k, v in self.sampler.state_dict().items():
             v.copy_(sd["sampler"][k])
         self.step = step
@@ -458,10 +508,11 @@ class TrainState:
         """A weights-only warm start (``--init_from``): the params, and the
         EMA from the checkpoint's EMA (or its params when it has none); the
         optimizer, sampler and step stay fresh."""
-        self.model.load_state_dict(sd["params"], strict=True)
+        plan = self.plan
+        self.model.load_state_dict(plan.shard_named(sd["params"]), strict=True)
         self.optimizer.sync_from_params()
         if self.ema_flat is not None:
-            self._load_ema(sd.get("ema") or sd["params"])
+            self._load_ema(plan.shard_named(sd.get("ema") or sd["params"]))
 
 
 def init_state(cfg, model: torch.nn.Module, mesh: Optional[Mesh] = None) -> TrainState:
@@ -471,13 +522,24 @@ def init_state(cfg, model: torch.nn.Module, mesh: Optional[Mesh] = None) -> Trai
     sharded with ``cfg.fsdp``), the EMA of the parameters when
     ``ema_decay`` > 0 (sharded like the parameters), and the loss-aware
     sampler. The model's batch reductions (the MoE load-balance term) take
-    the mesh too."""
+    the mesh too, and its model axes: the parameters placed over ``model``
+    or ``pipe`` (``parallel.mesh.shard_params``; the pipelined forward
+    with ``cfg.n_micro`` microbatches) and the frames over ``seq``."""
     schedule = warmup_cosine_schedule(cfg.lr, cfg.warmup, cfg.max_steps)
-    attach(model, mesh or Mesh())
+    mesh = mesh or Mesh()
+    attach(model, mesh)
+    plan = shard_params(model, mesh)
+    if mesh.n_pipe > 1:
+        model.pipeline = (mesh, cfg.n_micro)
+    if mesh.n_seq > 1:
+        attach_seq(model, mesh)
+    split = set(plan.split_names())
     # JAX wraps the optimizer in optax.MultiSteps only for more than one step
     opt = make_optimizer(cfg.optimizer, model.parameters(), schedule, cfg.weight_decay,
                          accumulation_steps=max(1, getattr(cfg, "accumulation_steps", 1)),
-                         mesh=mesh, fsdp=getattr(cfg, "fsdp", False))
+                         mesh=mesh, fsdp=getattr(cfg, "fsdp", False),
+                         split=([n in split for n, _ in model.named_parameters()],
+                                mesh.axis("pipe" if mesh.n_pipe > 1 else "model")))
     ema, ema_flat = None, None
     if cfg.ema_decay > 0:
         ema_flat = opt.flat.clone()
@@ -503,6 +565,9 @@ def step_body(
     float32 (3,) tensor."""
     frames = as_frames(batch, cfg.image_size)
     draws = local_rows(draws, state.mesh)  # the global batch's draws: this rank's rows
+    if state.mesh.n_seq > 1:  # this rank's frames of the clip
+        lo, hi = frame_range(frames.shape[1] // state.mesh.n_seq, state.mesh)
+        frames = frames[:, lo:hi]
     b, s, hh, ww, c = frames.shape
     k = tok.num_embeddings
     tokens = tok.encode(frames.reshape(b * s, hh, ww, c)).long()
@@ -519,7 +584,9 @@ def step_body(
         uniform_classes=draws.uniform_classes,
     )
     batch_z = tokens.clone()
-    batch_z[:, -1] = corrupted.reshape(target.shape)
+    mesh = state.mesh
+    if mesh.seq == mesh.n_seq - 1:  # the clip's last frame (under --n_seq, one rank's)
+        batch_z[:, -1] = corrupted.reshape(target.shape)
 
     return ce_step(state, (batch_z,), target, r, cfg)
 
@@ -573,6 +640,14 @@ def ce_step(
     ce = F.cross_entropy(
         logits.float().reshape(-1, logits.shape[-1]), target.reshape(-1),
         reduction="none")
+    mesh = state.mesh
+    if mesh.n_seq > 1:
+        # the last frame's loss, on the last seq rank: summed over the seq
+        # group (the others add zeros, their graphs kept for the backward's
+        # collectives), so every rank holds it
+        last = torch.full((), mesh.seq == mesh.n_seq - 1, dtype=torch.bool,
+                          device=ce.device)
+        ce = reduce_from(torch.where(last, ce, 0.0), mesh.axis("seq"))
     loss = ce.mean()
     if moe:
         loss = loss + cfg.moe_aux_weight * aux
@@ -581,7 +656,6 @@ def ce_step(
         # over the data axis: the global batch's mean loss and gradient (the
         # gradient reduce-scattered to shards under --fsdp), so every rank
         # takes the same guard decision
-        mesh = state.mesh
         loss = all_reduce_mean(loss.detach(), mesh)
         g = opt.reduced_grad()
         gn = opt.grad_norm(g)
@@ -752,9 +826,9 @@ def train(cfg: VideoDiffusionConfig, *, backend: str = "auto") -> TrainResult:
     # must not move for it); the buffered trajectory sampler is shared, as
     # JAX shares it. Rank 0 alone evaluates
     eval_clip_fn, eval_sampler = None, None
-    if mesh.rank == 0 and (cfg.dataset == "moving_mnist" or cfg.data_pipeline == "grain"):
+    if mesh.lead and (cfg.dataset == "moving_mnist" or cfg.data_pipeline == "grain"):
         eval_clip_fn, eval_sampler = build_clip_fn(cfg, cfg.manual_seed + 101)
-    elif mesh.rank == 0:
+    elif mesh.lead:
         eval_clip_fn = clip_fn
     eval_gen = torch.Generator(device=device).manual_seed(cfg.manual_seed + 101)
     try:
@@ -786,8 +860,13 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen,
 
     model = make_model(cfg, token_shape, num_embeddings, device, backend)
     print(f"parameters: {sum(p.numel() for p in model.parameters()):,}")
+    # under the model axes the evaluation runs a plain (unsharded) model on
+    # the gathered weights, as JAX's does; rank 0 alone evaluates
+    axes = mesh.n_model > 1 or mesh.n_seq > 1
+    lead = mesh.lead
+    eval_model = (make_model(cfg, token_shape, num_embeddings, device, backend)
+                  if axes and lead else model)
     state = init_state(cfg, model, mesh)
-    lead = mesh.rank == 0
     lr_of = host_schedule(state.optimizer.schedule)
     if cfg.init_from and not cfg.eval:
         restored, at_step, _ = restore_checkpoint(cfg.init_from)
@@ -797,19 +876,20 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen,
     evals: List[Tuple[int, str, str, float]] = []
     if cfg.eval:
         # eval-only: the checkpoint's weights suffice (as JAX, :469-535);
-        # unlike the JAX CLI, the grid also goes to the metric log
-        if cfg.checkpoint:
-            restored, state.step, _ = restore_checkpoint(cfg.checkpoint)
-            model.load_state_dict(restored["params"], strict=True)
-            restore_pipeline(sampler, cfg.checkpoint)
-            print(f"evaluating {cfg.checkpoint} (step {state.step})")
+        # unlike the JAX CLI, the grid also goes to the metric log; rank 0
+        # alone evaluates (on the plain model under the model axes)
         if not lead:
             return TrainResult(state, [], 0, token_shape, evals)
+        if cfg.checkpoint:
+            restored, state.step, _ = restore_checkpoint(cfg.checkpoint)
+            eval_model.load_state_dict(restored["params"], strict=True)
+            restore_pipeline(sampler, cfg.checkpoint)
+            print(f"evaluating {cfg.checkpoint} (step {state.step})")
         logger = MetricLogger(cfg.output_dir, cfg.name)
         try:
             te = time.perf_counter()
             path = evaluate_and_save(
-                cfg=cfg, model=model, weights=None, tok=tok, clip_fn=clip_fn,
+                cfg=cfg, model=eval_model, weights=None, tok=tok, clip_fn=clip_fn,
                 generator=torch.Generator(device=device).manual_seed(cfg.manual_seed),
                 tag="base", step=state.step, logger=logger, save_frames=True)
             evals.append((state.step, "base", path, time.perf_counter() - te))
@@ -837,7 +917,7 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen,
         # a Grain position rides the queue with its batch: a checkpoint
         # records the position consumed, not the one prefetched ahead
         state_fn=getattr(sampler, "get_state", None))
-    logger = rank_logger(mesh.rank, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
+    logger = rank_logger(mesh.process, cfg.output_dir, cfg.name, use_wandb=cfg.wandb,
                          project=cfg.project, config=config, tags=cfg.tags)
     saver = AsyncCheckpointSaver()
     # the port reads every step's ok flag, so the guard counts steps (the
@@ -894,13 +974,15 @@ def _train(cfg, backend, device, tok, clip_fn, sampler, eval_clip_fn, eval_gen,
                     print("checkpoint:", path)
                 tm.add("checkpoint", time.perf_counter() - tt)
             if cfg.eval_interval and step % cfg.eval_interval == 0:
-                ema = state.ema_weights()  # gathered under --fsdp: every rank
-                for tag, weights in (("base", None), ("ema", ema)):
+                # gathered under --fsdp and the model axes: every rank
+                ema = state.ema_weights()
+                base = state.whole_params() if axes else None
+                for tag, weights in (("base", base), ("ema", ema)):
                     if (tag == "ema" and weights is None) or not lead:
                         continue
                     te = time.perf_counter()
                     path = evaluate_and_save(
-                        cfg=cfg, model=model, weights=weights, tok=tok,
+                        cfg=cfg, model=eval_model, weights=weights, tok=tok,
                         clip_fn=eval_clip_fn, generator=eval_gen, tag=tag,
                         step=step, logger=logger)
                     evals.append((step, tag, path, time.perf_counter() - te))

@@ -26,6 +26,11 @@ The two VQ statistics outside the reference layout (``activation_count``,
 whole ``VQState``) as a port tokenizer checkpoint (``train/checkpoint.py``
 format, config embedded), which ``cli.train_vqae.load_tokenizer`` reads
 and ``cli.train_vqae`` resumes training from.
+
+``param_key_map`` reads any of these converters' key mapping back: which
+JAX leaf each state_dict entry comes from, and how its axes were permuted
+(the tensor-parallel rules of ``parallel.mesh`` are held to JAX's leaf by
+leaf through it).
 """
 
 from __future__ import annotations
@@ -324,3 +329,47 @@ def vq_state_from_state(state: Any):
 
     return VQState(*(_t(getattr(state, f)) for f in (
         "codebook", "cluster_size", "activation_count", "accumulated_error")))
+
+
+def _leaves(tree: Mapping[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path)
+        else:
+            yield path, np.shape(v)
+
+
+def _refill(tree: Mapping[str, Any], fill) -> Dict[str, Any]:
+    return {k: _refill(v, fill) if isinstance(v, Mapping) else fill(np.shape(v))
+            for k, v in tree.items()}
+
+
+def param_key_map(convert_fn, params: Mapping[str, Any]) -> Dict[str, tuple]:
+    """``convert_fn``'s (e.g. ``video_state_dict_from_params``) mapping on
+    the JAX tree ``params``: port key -> (the JAX leaf's "/"-joined path,
+    the JAX axis of each port axis). Found by converting the tree twice,
+    once with each leaf filled with its number and once with its elements
+    numbered (exact in f32 below 2^24 elements a leaf)."""
+    leaves = list(_leaves(params))
+    ids = iter(range(len(leaves)))
+    by_id = convert_fn(_refill(params, lambda shape: np.full(shape, next(ids), np.float32)))
+    numbered = convert_fn(_refill(params, lambda shape: np.arange(
+        int(np.prod(shape)), dtype=np.float32).reshape(shape)))
+    out = {}
+    for key, t in by_id.items():
+        if not t.is_floating_point() or t.numel() == 0:
+            continue
+        path, shape = leaves[int(t.reshape(-1)[0])]
+        idx = np.unravel_index(numbered[key].numpy().astype(np.int64), shape)
+        perm = []
+        for d in range(t.dim()):
+            if t.shape[d] == 1:
+                perm.append(None)
+                continue
+            step = [0] * t.dim()
+            step[d] = 1
+            moved = [j for j in range(len(shape)) if idx[j][tuple(step)] != idx[j][(0,) * t.dim()]]
+            perm.append(moved[0])
+        out[key] = (path, tuple(perm))
+    return out

@@ -272,9 +272,13 @@ def local3d_attention_fwd(
     v: torch.Tensor,
     extents: Extents,
     heads: int,
+    divide_after: Optional[bool] = None,
 ) -> torch.Tensor:
     """Windowed space-time attention; same contract as the plain version,
-    ``local3d_attention_rounded``.
+    ``local3d_attention_rounded``. ``divide_after`` None rounds P where
+    ``divides_after_product`` says for the shape; True or False holds it
+    to that rounding point (the sequence-parallel path's halo-padded
+    shards round where the JAX package's sequence path rounds).
 
     Args:
       q, k, v: (B, S, H, W, heads * dim_head), float32 or bfloat16.
@@ -286,17 +290,16 @@ def local3d_attention_fwd(
       on CUDA: training goes through ``local3d_attention``.
     """
     _check_layout(q, heads, k, v)
+    if divide_after is None:
+        divide_after = divides_after_product(q.shape, heads, extents, q.dtype)
     if on_cpu("local3d", q, k, v):
         from world_modelz_tpu_torch.models.attention import local3d_attention_rounded
 
-        return local3d_attention_rounded(
-            q, k, v, extents, heads,
-            divides_after_product(q.shape, heads, extents, q.dtype))
+        return local3d_attention_rounded(q, k, v, extents, heads, divide_after)
     args = _kernel_args(extents, heads, (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    divide_after = divides_after_product(q.shape, heads, extents, q.dtype)
     lib = load_library()
     LAUNCHES["local3d_fwd"] += 1
     status = lib.wmz_local3d_fwd(
@@ -351,10 +354,12 @@ def local3d_bwd_dkv(
     delta: torch.Tensor,
     extents: Extents,
     heads: int,
+    partial_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward pass 2: (dk, dv) from pass 1's lse and delta, in the input
     dtype, summed where ``bwd_route`` says the TPU backward for the shape
-    sums them."""
+    sums them (or in partials of ``partial_rows`` query rows when given, 0
+    one sum)."""
     _check_layout(q, heads, k, v, g)
     stat_shape = q.shape[:4] + (heads,)
     if lse.shape != stat_shape or delta.shape != stat_shape:
@@ -362,13 +367,13 @@ def local3d_bwd_dkv(
             f"lse and delta must be {tuple(stat_shape)}, got "
             f"{tuple(lse.shape)} and {tuple(delta.shape)}"
         )
+    if partial_rows is None:
+        partial_rows = bwd_route(q.shape, heads, extents, q.dtype).partial_rows
     if on_cpu("local3d", q, k, v, g, lse, delta):
-        from world_modelz_tpu_torch.models.attention import local3d_attention_bwd_dkv
+        from world_modelz_tpu_torch.models.attention import _local3d_bwd_dkv
 
-        return local3d_attention_bwd_dkv(q, k, v, g, lse, delta, extents,
-                                         heads)
+        return _local3d_bwd_dkv(q, k, v, g, lse, delta, extents, heads, partial_rows)
     args = _kernel_args(extents, heads, (q, k, v, g), (lse, delta))
-    partial_rows = bwd_route(q.shape, heads, extents, q.dtype).partial_rows
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:
@@ -390,11 +395,12 @@ class Local3dAttentionFunction(torch.autograd.Function):
     only q, k and v (the backward recomputes the scores)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, extents, heads):
+    def forward(ctx, q, k, v, extents, heads, route=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         ctx.extents, ctx.heads = extents, heads
+        ctx.route = route or (None, None)
         ctx.save_for_backward(q, k, v)
-        return local3d_attention_fwd(q, k, v, extents, heads)
+        return local3d_attention_fwd(q, k, v, extents, heads, ctx.route[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -402,8 +408,8 @@ class Local3dAttentionFunction(torch.autograd.Function):
         g = g.to(q.dtype).contiguous()
         dq, lse, delta = local3d_bwd_dq(q, k, v, g, ctx.extents, ctx.heads)
         dk, dv = local3d_bwd_dkv(q, k, v, g, lse, delta, ctx.extents,
-                                 ctx.heads)
-        return dq, dk, dv, None, None
+                                 ctx.heads, ctx.route[1])
+        return dq, dk, dv, None, None, None
 
 
 def local3d_attention(
@@ -412,8 +418,10 @@ def local3d_attention(
     v: torch.Tensor,
     extents: Extents,
     heads: int,
+    route: Optional[Tuple[bool, int]] = None,
 ) -> torch.Tensor:
     """Differentiable windowed attention: ``local3d_attention_fwd`` forward,
     ``local3d_bwd_dq`` then ``local3d_bwd_dkv`` backward (the kernels on
-    CUDA, their plain versions on the CPU)."""
-    return Local3dAttentionFunction.apply(q, k, v, tuple(extents), heads)
+    CUDA, their plain versions on the CPU). ``route`` (divide_after,
+    partial_rows) fixes the rounding points that the shape would pick."""
+    return Local3dAttentionFunction.apply(q, k, v, tuple(extents), heads, route)

@@ -56,6 +56,7 @@ from world_modelz_tpu_torch.kernels.local3d_block import (
 )
 from world_modelz_tpu_torch.ops.dense import dense_apply, narrow
 from world_modelz_tpu_torch.parallel import moe
+from world_modelz_tpu_torch.parallel.distributed import copy_to, gather_from, reduce_from
 
 NEG_INF = -1e9  # reference mask value (local_3d_attention.py:92)
 # DenseAttention's "auto" backend takes the flash kernel from this many
@@ -104,9 +105,29 @@ class Embedding(nn.Embedding):
         return _EmbeddingFunction.apply(indices, self.weight)
 
 
+def _col_bias(bias: torch.Tensor, width: int, tp) -> torch.Tensor:
+    """This model rank's ``width`` entries of a replicated column-parallel
+    bias (JAX keeps those biases whole), its gradient summed over ``tp``."""
+    return copy_to(bias, tp)[tp.index * width:(tp.index + 1) * width]
+
+
+def _row_parallel(x: torch.Tensor, weight: torch.Tensor, bias, tp) -> torch.Tensor:
+    """A row-parallel Dense: this rank's partial product (in f32 or wider,
+    so bf16 operands round once, after the sum), summed over ``tp``, then
+    the bias added once, as ``dense_apply`` adds it."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    wide = torch.promote_types(dt, torch.float32)
+    y = reduce_from(F.linear(x.to(wide), weight.to(wide)), tp).to(dt)
+    return y if bias is None else y + bias.to(dt)
+
+
 class FeedForward(nn.Module):
     """Dense -> GELU (tanh approximation, flax's ``nn.gelu``) -> Dense
-    (transformer.py:20-31)."""
+    (transformer.py:20-31). Under tensor parallelism (``tp``, set by
+    ``parallel.mesh.shard_params``) the first Dense is column-parallel and
+    the second row-parallel, one all-reduce."""
+
+    tp_params = ("net.0.weight", "net.3.weight")
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
@@ -117,9 +138,16 @@ class FeedForward(nn.Module):
             Dense(hidden_dim, dim),
             nn.Dropout(dropout),
         )
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        tp = self.tp
+        if tp is None:
+            return self.net(x)
+        up, act, drop, down, drop_out = self.net
+        h = dense_apply(copy_to(x, tp), up.weight,
+                        _col_bias(up.bias, up.weight.shape[0], tp))
+        return drop_out(_row_parallel(drop(act(h)), down.weight, down.bias, tp))
 
 
 class MoEFeedForward(nn.Module):
@@ -138,7 +166,12 @@ class MoEFeedForward(nn.Module):
     global batch's over its data axis. ``global_aux`` False (a caller that
     drops the term, such as sampling) keeps them this rank's, so no
     collective runs and one rank may sample alone (the trainers' evaluation
-    on rank 0)."""
+    on rank 0). Under expert sharding (``tp``, set by ``parallel.mesh.
+    shard_params`` where the model axis divides E; ``impl="dispatch"``
+    only) each model rank holds E / n_model experts and
+    ``moe_ffn_indexed`` combines their outputs with one all-reduce."""
+
+    tp_params = ("w_in", "w_out", "b_in", "b_out")
 
     def __init__(self, dim: int, hidden_dim: int, num_experts: int,
                  capacity_factor: float = 1.25, impl: str = "dispatch"):
@@ -154,6 +187,10 @@ class MoEFeedForward(nn.Module):
         self.w_out = nn.Parameter(torch.randn(e, hid, dim) * hid**-0.5)
         self.b_out = nn.Parameter(torch.zeros(e, dim))
         self.mesh = None
+        self.tp = None
+
+    def tp_supported(self, n: int) -> bool:
+        return self.impl == "dispatch"
 
     def forward(self, x: torch.Tensor,
                 global_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -164,7 +201,8 @@ class MoEFeedForward(nn.Module):
             gate, expert = moe.route(p, x)
             return moe.moe_reference(p, x), moe.load_balance_loss(gate, expert, mesh)
         capacity = moe.moe_capacity(self.capacity_factor, x.shape[1], self.num_experts)
-        return moe.moe_ffn_indexed(p, x, capacity=capacity, mesh=mesh)
+        sharded = {} if self.tp is None else {"tp": self.tp}
+        return moe.moe_ffn_indexed(p, x, capacity=capacity, mesh=mesh, **sharded)
 
 
 @functools.lru_cache(maxsize=16)
@@ -498,7 +536,23 @@ class Local3dAttention(nn.Module):
     keeping its (B, S, H, W, window) weights, as ``jax.checkpoint`` does
     (local_3d_attention.py:110-113); the kernel routes take no extra
     checkpoint (their backward reruns what it needs), as JAX's Pallas route
-    does not."""
+    does not.
+
+    Model axes (set by the trainers): ``tp`` (``parallel.mesh.
+    shard_params``) holds this rank's rows of ``to_q``, ``to_k``, ``to_v``
+    and columns of ``to_out``. Where ``heads`` divides by the axis the
+    attention runs on the rank's heads and ``to_out`` is row-parallel (one
+    all-reduce, its bias added once); otherwise (e.g. one head of 128)
+    q, k and v are gathered whole, every rank runs the whole attention and
+    keeps its columns of the output for its part of ``to_out``. With
+    ``"fused"`` the block kernel gets the rank's heads, its columns of
+    ``to_out`` and the bias on rank 0 alone, or without a head split the
+    gathered projections and ``to_out`` zero outside the rank's columns.
+    ``seq`` (``parallel.sequence.attach_seq``) shards the frame axis:
+    the halo-exchange attention of ``parallel.sequence``, which takes the
+    place of any backend, as JAX's ``seq_axis`` does."""
+
+    tp_params = ("to_q.weight", "to_k.weight", "to_v.weight", "to_out.0.weight")
 
     def __init__(
         self,
@@ -524,42 +578,93 @@ class Local3dAttention(nn.Module):
         self.to_out = None
         if not (heads == 1 and dim_head == dim):
             self.to_out = nn.Sequential(Dense(inner, dim), nn.Dropout(dropout))
+        self.tp = None
+        self.seq = None
+
+    def tp_supported(self, n: int) -> bool:
+        return self.to_out is not None
+
+    def _head_split(self) -> bool:
+        return self.tp is not None and self.heads % self.tp.size == 0
 
     def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """x: normed (B, S, H, W, dim) key/value input; q: query input."""
-        if self.backend == "fused":
+        if self.backend == "fused" and self.seq is None:
             return self._fused(x, q)
-        qp, k, v = self.to_q(q), self.to_k(x), self.to_v(x)
-        if self.backend != "xla":
-            out = local3d_kernels.local3d_attention(qp, k, v, self.extents, self.heads)
+        tp, heads = self.tp, self.heads
+        if tp is None:
+            qp, k, v = self.to_q(q), self.to_k(x), self.to_v(x)
+        else:
+            x, q = copy_to(x, tp), copy_to(q, tp)
+            qp, k = self.to_q(q), self.to_k(x)
+            v = dense_apply(x, self.to_v.weight,
+                            _col_bias(self.to_v.bias, self.to_v.weight.shape[0], tp))
+            if self._head_split():
+                heads //= tp.size
+            else:
+                qp, k, v = (gather_from(t, tp) for t in (qp, k, v))
+        if self.seq is not None:
+            from world_modelz_tpu_torch.parallel.sequence import seq_sharded_attention
+
+            out = seq_sharded_attention(qp, k, v, self.extents, heads, self.seq)
+        elif self.backend != "xla":
+            out = local3d_kernels.local3d_attention(qp, k, v, self.extents, heads)
         elif self.use_checkpointing and torch.is_grad_enabled():
             out = torch.utils.checkpoint.checkpoint(
-                local3d_attention, qp, k, v, self.extents, self.heads,
+                local3d_attention, qp, k, v, self.extents, heads,
                 use_reentrant=False)
         else:
-            out = local3d_attention(qp, k, v, self.extents, self.heads)
+            out = local3d_attention(qp, k, v, self.extents, heads)
+        if tp is not None:
+            proj = self.to_out[0]
+            if not self._head_split():  # this rank's columns of the whole output
+                width = proj.weight.shape[1]
+                out = out[..., tp.index * width:(tp.index + 1) * width]
+            return self.to_out[1](_row_parallel(out, proj.weight, proj.bias, tp))
         if self.to_out is not None:
             out = self.to_out(out)
         return out
+
+    def _fused_operands(self, x, q, dt):
+        """The block kernel's (x, q, wk, wv, bv, wq, wo, bo, heads): the
+        module's own, or this model rank's share of them."""
+        proj, tp = self.to_out[0], self.tp
+        wk, wv, bv, wq = (self.to_k.weight, self.to_v.weight, self.to_v.bias,
+                          self.to_q.weight)
+        wo, bo, heads = proj.weight, proj.bias, self.heads
+        if tp is not None:
+            x, q = copy_to(x, tp), copy_to(q, tp)
+            # the output bias once across the model group: on rank 0
+            bo = copy_to(bo, tp) * (1.0 if tp.index == 0 else 0.0)
+            width = wk.shape[0]
+            if self._head_split():
+                bv = _col_bias(bv, width, tp)
+                heads //= tp.size
+            else:
+                wk, wv, wq = (gather_from(t, tp, dim=0) for t in (wk, wv, wq))
+                bv = copy_to(bv, tp)
+                inner = wk.shape[0]
+                wo = F.pad(wo, (tp.index * width, inner - (tp.index + 1) * width))
+        return [t.to(dt) for t in (x, q, wk, wv, bv, wq, wo, bo)] + [heads]
 
     def _fused(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         s, h, w, dim = x.shape[1:]
         dt = torch.promote_types(x.dtype, self.to_k.weight.dtype)
         itemsize = torch.empty((), dtype=dt).element_size()
+        heads = self.heads // self.tp.size if self._head_split() else self.heads
         if self.to_out is None or not block_supported(
-                s, h, w, self.extents, self.heads, self.dim_head, dim, dim,
+                s, h, w, self.extents, heads, self.dim_head, dim, dim,
                 itemsize):
             raise ValueError(
                 f"fused local3d block kernel unsupported for grid {h}x{w} "
                 f"S={s} extents {self.extents} dtype "
                 f"{str(dt).replace('torch.', '')} (working set exceeds VMEM "
                 "or no output projection); use backend='pallas' or 'xla'")
-        proj = self.to_out[0]
-        out = local3d_block(
-            x.to(dt), q.to(dt), self.to_k.weight.to(dt),
-            self.to_v.weight.to(dt), self.to_v.bias.to(dt),
-            self.to_q.weight.to(dt), proj.weight.to(dt), proj.bias.to(dt),
-            self.extents, self.heads)
+        *operands, heads = self._fused_operands(x, q, dt)
+        out = local3d_block(*operands, self.extents, heads)
+        if self.tp is not None:
+            wide = torch.promote_types(dt, torch.float32)
+            out = reduce_from(out.to(wide), self.tp).to(dt)
         return self.to_out[1](out)
 
 
@@ -617,11 +722,15 @@ class Local3dAttentionTransformer(nn.Module):
             ])
             for _ in range(depth)
         )
+        # the seq axis (parallel.sequence.attach_seq): the tokens are this
+        # rank's frames of the clip
+        self.seq = None
 
-    def get_pos_embedding(self, s: int, h: int, w: int) -> torch.Tensor:
-        """Sum of learned s/h/w embeddings, (S, H, W, dim)."""
+    def get_pos_embedding(self, s: int, h: int, w: int, s0: int = 0) -> torch.Tensor:
+        """Sum of learned s/h/w embeddings of frames s0 .. s0 + s - 1,
+        (S, H, W, dim)."""
         dev = self.pos_emb_s.weight.device
-        s_emb = self.pos_emb_s(torch.arange(s, device=dev))
+        s_emb = self.pos_emb_s(torch.arange(s0, s0 + s, device=dev))
         h_emb = self.pos_emb_h(torch.arange(h, device=dev))
         w_emb = self.pos_emb_w(torch.arange(w, device=dev))
         return (
@@ -633,7 +742,8 @@ class Local3dAttentionTransformer(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         _, s, h, w = tokens.shape
         x = self.embedding(tokens.long())
-        x = x + self.get_pos_embedding(s, h, w)[None]
+        s0 = 0 if self.seq is None else self.seq.index * s
+        x = x + self.get_pos_embedding(s, h, w, s0)[None]
         for attn, ff in self.layers:
             x = attn(x, q=x) + x
             x = ff(x) + x
@@ -808,8 +918,16 @@ class DenseAttention(nn.Module):
       CPU); raises with dropout > 0;
     - ``"xla"``: the plain ``dense_attention``.
     The dropout on the attention weights and after ``to_out`` follows
-    ``module.train()``.
+    ``module.train()``. Under tensor parallelism (``tp``, ``parallel.mesh.
+    shard_params``) a rank holds its rows of each of q, k and v in
+    ``to_qkv`` (the fused projection's rows are [q | k | v], so each block
+    is cut by heads) and its columns of ``to_out``: the attention runs on
+    its heads, or on q, k and v gathered whole where ``heads`` does not
+    divide, and ``to_out`` is row-parallel.
     """
+
+    tp_params = ("to_qkv.weight", "to_out.0.weight")
+    tp_chunks = {"to_qkv.weight": 3}
 
     def __init__(
         self,
@@ -833,6 +951,10 @@ class DenseAttention(nn.Module):
         self.to_out = None
         if not (heads == 1 and dim_head == dim):
             self.to_out = nn.Sequential(Dense(inner, dim), nn.Dropout(dropout))
+        self.tp = None
+
+    def tp_supported(self, n: int) -> bool:
+        return self.to_out is not None and (self.heads * self.dim_head) % n == 0
 
     def uses_flash(self, x: torch.Tensor) -> bool:
         """Whether a forward on ``x`` (B, N, dim) goes through the flash
@@ -845,18 +967,30 @@ class DenseAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: normed (B, N, dim) -> (B, N, dim)."""
         b, n, _ = x.shape
+        tp, heads = self.tp, self.heads
+        if tp is not None:
+            x = copy_to(x, tp)
+        qkv = self.to_qkv(x).chunk(3, dim=-1)
+        if tp is not None:
+            if heads % tp.size == 0:
+                heads //= tp.size
+            else:
+                qkv = [gather_from(t, tp) for t in qkv]
         # (B, H, N, D) views of the fused projection: no copies
-        q, k, v = (
-            t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
-            for t in self.to_qkv(x).chunk(3, dim=-1)
-        )
+        q, k, v = (t.reshape(b, n, heads, self.dim_head).transpose(1, 2) for t in qkv)
         scale = self.dim_head**-0.5
         if self.uses_flash(x):
             out = dense_kernels.flash_attention(q, k, v, scale)
         else:
             out = dense_attention(
                 q, k, v, scale, self.dropout if self.training else 0.0)
-        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        out = out.transpose(1, 2).reshape(b, n, heads * self.dim_head)
+        if tp is not None:
+            proj = self.to_out[0]
+            width = proj.weight.shape[1]
+            if heads == self.heads:  # this rank's columns of the whole output
+                out = out[..., tp.index * width:(tp.index + 1) * width]
+            return self.to_out[1](_row_parallel(out, proj.weight, proj.bias, tp))
         if self.to_out is not None:
             out = self.to_out(out)
         return out

@@ -39,7 +39,9 @@ class VqVideoDiffusionModel(nn.Module):
     ``use_checkpointing`` recomputes the plain attention core in the
     backward pass (``Local3dAttention``; JAX's default, True). The model
     starts in eval mode, as serving uses it; a trainer calls ``.train()``
-    (dropout on, flax's ``train=True``).
+    (dropout on, flax's ``train=True``). Under ``--n_seq``
+    (``parallel.sequence.attach_seq``) the tokens are this rank's frames and
+    the logits those of its last frame (the clip's on the last seq rank).
     """
 
     def __init__(
@@ -109,7 +111,10 @@ class VqSparseDiffusionModel(nn.Module):
     ``moe_experts`` > 0 makes every FFN a mixture of experts
     (``models.attention.MoEFeedForward``, ``moe_capacity_factor``,
     ``moe_impl``); ``forward(..., return_aux=True)`` then returns
-    (logits, the layers' mean load-balance loss).
+    (logits, the layers' mean load-balance loss). ``pipeline`` (mesh,
+    n_micro), set by the trainer under ``--n_pipe`` after ``parallel.mesh.
+    shard_params`` kept this pipe rank's layers, makes ``forward`` the
+    pipelined one (``parallel.pipelined_sparse``).
     """
 
     def __init__(
@@ -145,6 +150,7 @@ class VqSparseDiffusionModel(nn.Module):
             moe_capacity_factor=moe_capacity_factor, moe_impl=moe_impl,
         )
         self.logit_proj = Dense(dim, num_classes)
+        self.pipeline = None
         self.to(device=dev, dtype=dtype)
         self.eval()
 
@@ -162,6 +168,15 @@ class VqSparseDiffusionModel(nn.Module):
 
     def forward(self, tokens: torch.Tensor, indices: torch.Tensor,
                 return_aux: bool = False):
+        if self.pipeline is not None:
+            from world_modelz_tpu_torch.parallel.pipelined_sparse import (
+                sparse_forward_pipelined,
+            )
+
+            if return_aux:
+                raise ValueError("the pipelined forward has no mixture-of-experts term")
+            mesh, n_micro = self.pipeline
+            return sparse_forward_pipelined(self, tokens, indices, mesh, n_micro=n_micro)
         x = self.embedding(tokens.long()) + self.pos_embedding_3d(indices.long())
         if return_aux:
             x, aux = self.transformer(x, return_aux=True)

@@ -16,6 +16,21 @@ in its CUDA graph (every rank captures the same collectives in the same
 order). ``mean_across`` averages equal-size per-rank means: that is the
 global mean the JAX package's global-view step takes, and over one rank
 it is the value itself, bit for bit.
+
+The model axes' differentiable collectives take a ``parallel.mesh.Axis``
+(the identity on an axis of one): ``copy_to`` (identity forward, sum
+backward) and ``reduce_from`` (sum forward, identity backward), Megatron's
+pair around column- and row-parallel layers; ``gather_from`` (all-gather
+forward, reduce-scatter backward) for features that must be whole on every
+rank of a region whose ranks each compute a part of the result; and
+``ppermute`` (JAX's ``lax.ppermute``: each source sends to its destination,
+a rank no one sends to receives zeros), whose backward is the inverse
+permutation. ``ppermute`` runs as one ``all_to_all_single`` over the axis
+with empty splits for the ranks that do not exchange, which a CUDA graph
+captures on the card.
+Every one of them runs on the current stream, so a captured step holds
+them; a rank's autograd graph reaches each backward collective in the
+same order as every other rank's, since their graphs have one topology.
 """
 
 from __future__ import annotations
@@ -181,3 +196,110 @@ def global_value(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.group is None:
         return t
     return t + (all_reduce_mean(t.detach(), mesh) - t.detach())
+
+
+def _axis_all_reduce(t: torch.Tensor, axis) -> torch.Tensor:
+    out = t.clone()
+    dist.all_reduce(out, group=axis.group)
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _axis_all_reduce(g.contiguous(), ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _axis_all_reduce(x.contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` entering a region whose ranks each use it for a part of the
+    result: the identity, with its gradient summed over ``axis``."""
+    return x if axis is None or axis.group is None else _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum over ``axis`` of each rank's part, with the gradient passed
+    to each part as it is (the result is the same on every rank)."""
+    return x if axis is None or axis.group is None else _ReduceFrom.apply(x, axis)
+
+
+def _gather_dim(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((axis.size * x.shape[0], *x.shape[1:]))
+    _all_gather(out, x, group=axis.group)
+    return out.movedim(0, dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _gather_dim(x, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.movedim(ctx.dim, 0).contiguous()
+        out = g.new_empty((g.shape[0] // ctx.axis.size, *g.shape[1:]))
+        _reduce_scatter(out, g, group=ctx.axis.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def gather_from(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order; the
+    backward sums the ranks' gradients and gives each its part
+    (reduce-scatter): each rank's use of the whole is one part of the
+    result."""
+    if axis is None or axis.group is None:
+        return x
+    return _GatherFrom.apply(x, axis, dim % x.dim())
+
+
+def _ppermute(t: torch.Tensor, axis, perm) -> torch.Tensor:
+    me = axis.index
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    t = t.contiguous()
+    flat = t.reshape(1, -1)
+    inp = flat if dst else flat[:0]
+    out = flat.new_empty((len(src), flat.shape[1]))
+    dist.all_to_all_single(
+        out, inp, output_split_sizes=[int(j in src) for j in range(axis.size)],
+        input_split_sizes=[int(j in dst) for j in range(axis.size)], group=axis.group)
+    return out.reshape(t.shape) if src else torch.zeros_like(t)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.axis, ctx.perm = axis, perm
+        return _ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _ppermute(g, ctx.axis, inverse), None, None
+
+
+def ppermute(x: torch.Tensor, axis, perm) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over ``axis``: ``perm`` lists (source,
+    destination) pairs of axis indices, each index a source at most once and
+    a destination at most once; a rank no pair sends to gets zeros. The
+    backward sends the gradients back along the inverse pairs."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if axis is None or axis.group is None:
+        return x if (0, 0) in perm else torch.zeros_like(x)
+    return _PPermute.apply(x, axis, perm)

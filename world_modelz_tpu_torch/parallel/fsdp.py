@@ -27,6 +27,11 @@ calls it; rank 0 writes), and ``load_state_dict`` takes this rank's slice
 of whole tensors, so an FSDP checkpoint resumes a replicated run and the
 other way round. Without a process group (one process) it is the
 replicated optimizer's arithmetic on a world of one.
+
+With ``--n_model`` (JAX's FSDP leaves the tensor-parallel dimension to the
+rules and shards the rest over ``data``, fsdp.py:12-14) each rank's flat
+buffer holds its tensor-parallel shards and is sharded over its data
+group; the checkpoints gather both (``parallel.mesh.ParallelPlan``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from world_modelz_tpu_torch.parallel.distributed import (
     all_gather_into,
     all_gather_rows,
+    all_reduce_sum,
     reduce_scatter_mean,
 )
 from world_modelz_tpu_torch.train.optim import ScheduledOptimizer
@@ -65,6 +71,8 @@ class ShardedOptimizer(ScheduledOptimizer):
         self.nu = torch.zeros_like(self.flat)
         if self.accumulation_steps > 1:
             self.acc = torch.zeros_like(self.flat)
+        if self.split_mask is not None:
+            self.split_mask = self.local_shard(self.split_mask)
 
     def _padded(self, t: torch.Tensor) -> torch.Tensor:
         pad = self.shard_size * self.mesh.world - t.shape[0]
@@ -78,13 +86,21 @@ class ShardedOptimizer(ScheduledOptimizer):
         return all_gather_rows(local, self.mesh)[: self.numel]
 
     def reduced_grad(self) -> torch.Tensor:
-        """This rank's shard of the global mean gradient (reduce-scatter)."""
-        return reduce_scatter_mean(self._padded(self.flat_grad()), self.mesh)
+        """This rank's shard of the global mean gradient (reduce-scatter),
+        summed over the seq axis first."""
+        return reduce_scatter_mean(self._padded(self.seq_summed(self.flat_grad())),
+                                   self.mesh)
 
     def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
-        """The norm of the ranks' shard norms, gathered."""
+        """The norm of the ranks' shard norms, gathered (with split
+        parameters, the shards' sums of squares summed first)."""
+        if self.split_mask is not None:
+            return self.split_norm(g)
         return torch.linalg.vector_norm(
             all_gather_rows(torch.linalg.vector_norm(g)[None], self.mesh))
+
+    def across_shards(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(t, self.mesh)
 
     @torch.no_grad()
     def publish(self) -> None:

@@ -1,8 +1,6 @@
 """Mixture-of-experts FFN with capacity-based top-1 routing.
 
-Port of ``world_modelz_tpu.parallel.moe`` (the expert-sharding helper
-``expert_shardings`` waits for the port's parallelism, ROADMAP A.9). The
-routing is JAX's:
+Port of ``world_modelz_tpu.parallel.moe``. The routing is JAX's:
 
 - the gate ``x @ w_gate`` in the dtype of ``x``, then an f32 softmax and
   the top-1 expert (the first of equal maxima);
@@ -27,6 +25,16 @@ so a step using it captures in a CUDA graph. In f32 the expert products
 are the same GEMMs on the same operands, and a one-hot product adds only
 zeros, so its output equals ``moe_ffn``'s. ``moe_reference`` evaluates
 each token with its own expert (no capacity), the golden path of tests.
+
+Expert sharding (``expert_shardings``, JAX's; ``DEFAULT_TP_RULES`` put the
+expert axis over ``model``): each model rank holds E / n_model experts
+(``local_experts``). The tokens and the router are the same on every
+model rank; ``moe_ffn_indexed`` with ``tp`` computes the outputs of the
+rank's experts and one all-reduce combines them. A token has one expert,
+so the f32 sum is its output plus zeros: exact, the unsharded values bit
+for bit. The gate's product, and so the router's gradient, follows the
+sum on every rank alike; the tokens' gradient through the experts is
+summed over the ranks (``copy_to``).
 """
 
 from __future__ import annotations
@@ -37,7 +45,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from world_modelz_tpu_torch.parallel.distributed import all_reduce_mean, global_value
+from world_modelz_tpu_torch.parallel.distributed import (
+    all_reduce_mean,
+    copy_to,
+    global_value,
+    reduce_from,
+)
 from world_modelz_tpu_torch.parallel.mesh import Mesh
 
 
@@ -145,12 +158,15 @@ def moe_ffn(
 
 
 def moe_ffn_indexed(
-    params: MoEParams, x: torch.Tensor, *, capacity: int, mesh: Optional[Mesh] = None
+    params: MoEParams, x: torch.Tensor, *, capacity: int, mesh: Optional[Mesh] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_ffn`` with the tokens moved by index (the main path): the same
     result, without the (B, N, E, C) tensors. Capacity is per batch row, so
     under data parallelism dispatch stays on the rank; only the
-    load-balance term's means cross the ``mesh``."""
+    load-balance term's means cross the ``mesh``. With ``tp`` (a model
+    ``Axis``) ``params`` holds this rank's experts (``local_experts``) and
+    the whole router."""
     b, n, d = x.shape
     e = params.w_gate.shape[1]
     slots = e * capacity
@@ -165,16 +181,24 @@ def moe_ffn_indexed(
     # zero row appended to x
     table = torch.full((b, slots + n), n, dtype=torch.long, device=x.device)
     table.scatter_(1, torch.where(keep, flat, slots + rows), rows)
-    table = table[:, :slots]
-    xin = torch.cat([x.float(), x.new_zeros((b, 1, d), dtype=torch.float32)], dim=1)
-    expert_in = xin.gather(1, table[..., None].expand(b, slots, d))
-    expert_in = expert_in.view(b, e, capacity, d).transpose(0, 1)
-    expert_out = _experts(params, expert_in.contiguous())  # (E, B, C, D)
-    out = torch.cat([expert_out.transpose(0, 1).reshape(b, slots, d),
+    # this rank's experts [lo, lo + e_loc) (all of them without tp)
+    e_loc = params.w_in.shape[0]
+    lo = 0 if tp is None else tp.index * e_loc
+    mine = slice(lo * capacity, (lo + e_loc) * capacity)
+    table = table[:, mine]
+    xin = torch.cat([copy_to(x, tp).float(), x.new_zeros((b, 1, d), dtype=torch.float32)],
+                    dim=1)
+    expert_in = xin.gather(1, table[..., None].expand(b, e_loc * capacity, d))
+    expert_in = expert_in.view(b, e_loc, capacity, d).transpose(0, 1)
+    expert_out = _experts(params, expert_in.contiguous())  # (E_loc, B, C, D)
+    out = torch.cat([expert_out.transpose(0, 1).reshape(b, e_loc * capacity, d),
                      expert_out.new_zeros((b, 1, d))], dim=1)
-    # a dropped token reads the appended zero row
-    picked = out.gather(1, torch.where(keep, flat, slots)[..., None].expand(b, n, d))
-    y = (picked * gate_top[..., None]).to(x.dtype)
+    # a dropped token, and one of another rank's experts, reads the
+    # appended zero row
+    held = keep & (flat >= mine.start) & (flat < mine.stop)
+    picked = out.gather(1, torch.where(held, flat - mine.start, e_loc * capacity)[
+        ..., None].expand(b, n, d))
+    y = (reduce_from(picked, tp) * gate_top[..., None]).to(x.dtype)
     return y, load_balance_loss(gate, expert, mesh)
 
 
@@ -190,3 +214,21 @@ def moe_reference(params: MoEParams, x: torch.Tensor) -> torch.Tensor:
                approximate="tanh")
     out = torch.bmm(h[:, None], params.w_out[ei].float())[:, 0] + params.b_out[ei]
     return (out * gate_top.reshape(-1, 1)).to(x.dtype).reshape(x.shape)
+
+
+def expert_shardings() -> MoEParams:
+    """The dimension of each ``MoEParams`` leaf that expert sharding splits
+    over the model axis (JAX's ``expert_shardings``: the expert axis; the
+    router replicated, None)."""
+    return MoEParams(w_gate=None, w_in=0, b_in=0, w_out=0, b_out=0)
+
+
+def local_experts(params: MoEParams, index: int, size: int) -> MoEParams:
+    """Model rank ``index`` of ``size``'s share of ``params``: E / size
+    consecutive experts and the whole router."""
+    e = params.w_in.shape[0]
+    if e % size:
+        raise ValueError(f"{e} experts do not split over {size} model ranks")
+    lo, hi = index * e // size, (index + 1) * e // size
+    return MoEParams(*(t if dim is None else t[lo:hi]
+                       for t, dim in zip(params, expert_shardings())))

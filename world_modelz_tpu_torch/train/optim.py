@@ -25,7 +25,14 @@ Data parallelism (``parallel.mesh``): with a mesh, ``reduced_grad`` is the
 flat gradient averaged over the ranks (one all-reduce), so every rank takes
 the global batch's update; ``parallel.fsdp.ShardedOptimizer`` keeps only
 this rank's shard of the state instead. One process has no group, and then
-no collective runs.
+no collective runs. The model axes: under ``--n_seq`` each rank's gradient
+is its frames' part, so it is summed over the seq axis too (one
+all-reduce over the data x seq ranks; ``ShardedOptimizer`` sums over seq
+before its reduce-scatter over data); under
+tensor or pipeline parallelism the flat buffers hold this rank's
+parameters (``split``: which of them differ across the ranks of the
+model or pipe axis), and the global grad norm sums those over that axis
+and counts the replicated ones once.
 torch's own ``capturable`` optimizers are not used: they refuse CPU
 tensors, so the CPU and the card would run different update code, and
 their per-parameter state would make the guard's select a launch per
@@ -34,12 +41,12 @@ tensor.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
-from world_modelz_tpu_torch.parallel.distributed import all_reduce_mean
-from world_modelz_tpu_torch.parallel.mesh import Mesh
+from world_modelz_tpu_torch.parallel.distributed import all_reduce_mean, reduce_from
+from world_modelz_tpu_torch.parallel.mesh import Axis, Mesh
 
 LearningRate = Union[float, Callable]
 
@@ -68,6 +75,7 @@ class ScheduledOptimizer:
         eps: float = 1e-8,
         accumulation_steps: int = 1,
         mesh: Optional[Mesh] = None,
+        split: Optional[Tuple[List[bool], Axis]] = None,
     ):
         self.mesh = mesh or Mesh()
         self.params: List[torch.nn.Parameter] = list(params)
@@ -94,6 +102,12 @@ class ScheduledOptimizer:
         if self.accumulation_steps > 1:
             self.acc = torch.zeros_like(self.flat)
             self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
+        # the elements whose parameters differ across the split axis
+        self.split_axis, self.split_mask = None, None
+        if split is not None and split[1].group is not None and any(split[0]):
+            self.split_axis = split[1]
+            self.split_mask = torch.cat([
+                torch.full((n,), bool(f), device=dev) for n, f in zip(self._sizes, split[0])])
 
     def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """``flat`` (one value a parameter element) as tensors shaped like
@@ -117,12 +131,34 @@ class ScheduledOptimizer:
 
     def reduced_grad(self) -> torch.Tensor:
         """The flat gradient of the global batch's mean loss: this rank's
-        ``flat_grad`` averaged over the data axis."""
+        ``flat_grad`` summed over the seq axis and averaged over the data
+        axis (under ``--n_seq`` one all-reduce over both)."""
+        if self.mesh.n_seq > 1:
+            return reduce_from(self.flat_grad(), self.mesh.axis("data_seq")) / self.mesh.world
         return all_reduce_mean(self.flat_grad(), self.mesh)
+
+    def seq_summed(self, g: torch.Tensor) -> torch.Tensor:
+        """``g`` summed over the seq axis (each rank's is its frames')."""
+        return reduce_from(g, self.mesh.axis("seq"))
 
     def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
         """The global L2 norm of a ``reduced_grad``."""
-        return torch.linalg.vector_norm(g)
+        if self.split_mask is None:
+            return torch.linalg.vector_norm(g)
+        return self.split_norm(g)
+
+    def split_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """The global norm with split parameters: the replicated elements'
+        squares once, the split ones' summed over the split axis."""
+        sq = g * g
+        parts = torch.stack([torch.where(self.split_mask, 0.0, sq).sum(),
+                             torch.where(self.split_mask, sq, 0.0).sum()])
+        parts = self.across_shards(parts)
+        return torch.sqrt(parts[0] + reduce_from(parts[1], self.split_axis))
+
+    def across_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the shards of the state (one here)."""
+        return t
 
     def publish(self) -> None:
         """Make the parameters the model reads current after an ``assign``
@@ -236,6 +272,7 @@ def make_optimizer(
     accumulation_steps: int = 1,
     mesh: Optional[Mesh] = None,
     fsdp: bool = False,
+    split: Optional[Tuple[List[bool], Axis]] = None,
 ) -> ScheduledOptimizer:
     """``"adamw"`` (optax.adamw, eps 1e-8) or ``"adam"`` (optax.adam), with
     optax.MultiSteps when ``accumulation_steps`` > 1, over the data axis of
@@ -249,7 +286,7 @@ def make_optimizer(
         from world_modelz_tpu_torch.parallel.fsdp import ShardedOptimizer as cls
     return cls(
         params, learning_rate, weight_decay=weight_decay if name == "adamw" else None,
-        b1=b1, b2=b2, accumulation_steps=accumulation_steps, mesh=mesh)
+        b1=b1, b2=b2, accumulation_steps=accumulation_steps, mesh=mesh, split=split)
 
 
 @torch.no_grad()
