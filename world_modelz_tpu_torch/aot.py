@@ -67,6 +67,7 @@ from world_modelz_tpu_torch.models.tokenizer import VQAutoEncoder
 from world_modelz_tpu_torch.models.video import VqVideoDiffusionModel
 from world_modelz_tpu_torch.serve import ladder, rolled_context
 from world_modelz_tpu_torch.train.dispatch import capture
+from world_modelz_tpu_torch.utils import tracing
 
 FORMAT = 1
 _META = "meta.json"
@@ -329,7 +330,9 @@ class AOTPrograms:
         (b, S, th, tw) context). The draws come from ``noise`` when given
         (``(frame, iteration) -> (gumbel, uniform)``, as ``rollout_frames``
         takes it), else from ``generator`` (a fresh one seeded 0 on the
-        programs' device when neither is given)."""
+        programs' device when neither is given). Spans: ``serve.frame``, a
+        generated frame's draws and replays; ``serve.finish``, the finish
+        replay and the read back."""
         tokens = torch.from_numpy(np.array(tokens)).long()
         b = tokens.shape[0]
         p = self._size(b)
@@ -344,17 +347,19 @@ class AOTPrograms:
                 noise = generator_noise(generator, tuple(p.uniform.shape), k)
             p.context.copy_(p.tokens)
             for t in range(frames):
-                p.z.copy_(p.context)
-                p.z[:, -1] = k
-                p.logits.zero_()
-                for i in range(iterations):
-                    gumbel, uniform = noise(t, i)
-                    p.gumbel.copy_(gumbel.reshape(p.gumbel.shape))
-                    p.uniform.copy_(uniform.reshape(p.uniform.shape))
-                    p.alpha.fill_(unmask_alpha(i, iterations))
-                    topk = "step_topk" in p.fns and i >= TOPK_FROM_ITERATION
-                    self._run("step_topk" if topk else "step", b)
-                p.gen[:, t] = p.z[:, -1]
-                p.context.copy_(shift_context(p.context, p.z[:, -1]))
-            pixels, ctx = self._run("finish", b)
-            return pixels.float().cpu().numpy(), ctx.cpu().numpy()
+                with tracing.span("serve.frame"):
+                    p.z.copy_(p.context)
+                    p.z[:, -1] = k
+                    p.logits.zero_()
+                    for i in range(iterations):
+                        gumbel, uniform = noise(t, i)
+                        p.gumbel.copy_(gumbel.reshape(p.gumbel.shape))
+                        p.uniform.copy_(uniform.reshape(p.uniform.shape))
+                        p.alpha.fill_(unmask_alpha(i, iterations))
+                        topk = "step_topk" in p.fns and i >= TOPK_FROM_ITERATION
+                        self._run("step_topk" if topk else "step", b)
+                    p.gen[:, t] = p.z[:, -1]
+                    p.context.copy_(shift_context(p.context, p.z[:, -1]))
+            with tracing.span("serve.finish"):
+                pixels, ctx = self._run("finish", b)
+                return pixels.float().cpu().numpy(), ctx.cpu().numpy()

@@ -137,6 +137,7 @@ from world_modelz_tpu_torch.train.dispatch import (
     write_timing,
 )
 from world_modelz_tpu_torch.train.timing import TrainTiming
+from world_modelz_tpu_torch.utils import tracing
 from world_modelz_tpu_torch.utils.config import (
     config_to_dict,
     dataclass_cli,
@@ -328,15 +329,17 @@ def make_model(
 def encode_batch(tok: Tokenizer, frames: torch.Tensor,
                  shape: Tuple[int, int, int]) -> torch.Tensor:
     """(B, S, H, W, C) uint8 frames -> (B, S, h, w) tokens (int64), through
-    the tokenizer or an external ``FrameTokenizer``."""
+    the tokenizer or an external ``FrameTokenizer`` (the span
+    ``sparse.encode``)."""
     b, s, hh, ww, c = frames.shape
     if c != tok.in_channels:
         raise ValueError(
             f"data has {c} channels but the tokenizer was trained with "
             f"in_channels={tok.in_channels} (check --decoder_model vs "
             "--dataset)")
-    z = tok.encode(frames.reshape(b * s, hh, ww, c).to(torch.float32) / 255.0)
-    z = z.reshape(b, s, *z.shape[1:]).long()
+    with tracing.span("sparse.encode"):
+        z = tok.encode(frames.reshape(b * s, hh, ww, c).to(torch.float32) / 255.0)
+        z = z.reshape(b, s, *z.shape[1:]).long()
     if tuple(z.shape[1:]) != tuple(shape):
         raise ValueError(
             f"the tokenizer gives {tuple(z.shape[1:])} token volumes, the "

@@ -11,7 +11,10 @@ leaf read back) and timed, for the trainers' timing report
 (``transfer_stats``, ``train/timing.py``). With ``state_fn`` (a Grain
 pipeline's ``get_state``), the source's position rides the queue with its
 batch, so ``consumed_state()`` is the position of the last batch taken,
-not of the one prefetched ahead: what a checkpoint must record.
+not of the one prefetched ahead: what a checkpoint must record. Spans
+(``utils/tracing.py``): ``data.wait`` (the consumer blocked on the queue),
+and on the worker ``data.produce`` (``make_batch``) and ``data.h2d`` (the
+copy's enqueue).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from world_modelz_tpu_torch.utils import tracing
 
 
 def batch_to(batch: Any, device) -> Any:
@@ -87,13 +92,15 @@ class PrefetchIterator:
     def _worker(self):
         while not self._stop.is_set():
             try:
-                batch = self._make_batch()
+                with tracing.span("data.produce"):
+                    batch = self._make_batch()
                 state = self._state_fn() if self._state_fn is not None else None
                 if self._device is not None:
                     self._n_put += 1
                     probe = self._probe_every > 0 and self._n_put % self._probe_every == 0
                     t0 = time.perf_counter()
-                    batch = batch_to(batch, self._device)
+                    with tracing.span("data.h2d"):
+                        batch = batch_to(batch, self._device)
                     if probe:
                         from world_modelz_tpu_torch.train.timing import fence_value
 
@@ -120,7 +127,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._queue.get()
+        with tracing.span("data.wait"):
+            item = self._queue.get()
         if item is self._SENTINEL:
             raise self._error if self._error else StopIteration
         batch, state = item

@@ -20,6 +20,12 @@ Port of ``world_modelz_tpu.serve`` (the HTTP front end is
   graphs. Frames, iterations, top-k and the ladder are the artifact's;
   ``batch_size`` may only cap the ladder. Under one seed both kinds of
   service give the same clips, bit for bit.
+- Spans (``utils/tracing.py``): each request gets an id at enqueue and a
+  ``serve.queue`` span from its enqueue to the close of the batch that
+  holds it; the worker records ``serve.coalesce`` (from the first request
+  taken to the close) and ``serve.batch`` (from the close to the last
+  future resolved; its ``rids``, ``rows`` and ladder ``size``), and in it
+  ``serve.encode`` and ``serve.rollout``.
 
 Example:
     svc = RolloutService(tok, model, num_frames=8)
@@ -33,11 +39,12 @@ Example:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,6 +53,18 @@ from world_modelz_tpu_torch._device import DeviceLike, resolve_device
 from world_modelz_tpu_torch.diffusion.masked import rollout_frames
 from world_modelz_tpu_torch.models.tokenizer import VQAutoEncoder
 from world_modelz_tpu_torch.models.video import VqVideoDiffusionModel
+from world_modelz_tpu_torch.utils import tracing
+
+
+class _Entry(NamedTuple):
+    """A queued request: its item, future and deadline, its id and its
+    enqueue's ``perf_counter_ns``."""
+
+    item: Any
+    fut: Future
+    deadline: Optional[float]
+    rid: int
+    enqueued: int
 
 
 def rolled_context(tokens: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
@@ -193,6 +212,7 @@ class RolloutService:
         self._max_wait_s = float(max_wait_s)
         self._adaptive_wait = bool(adaptive_wait)
         self._queue: "queue.Queue" = queue.Queue()
+        self._ids = itertools.count()
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(seed)
         self._closed = False
@@ -225,13 +245,13 @@ class RolloutService:
     def _encode_call(self, seeds: np.ndarray) -> np.ndarray:
         """(b, S, H, W, C) pixels -> (b, S, th, tw) tokens."""
         if self._aot is not None:
-            with self._programs:
+            with self._programs, tracing.span("serve.encode"):
                 tokens = self._aot.encode(seeds)
             self.stats["encode_calls"] += 1
             return tokens
         x = torch.as_tensor(seeds, dtype=torch.float32, device=self._device)
         b, s = x.shape[:2]
-        with self._programs, eval_mode(self._tok):
+        with self._programs, tracing.span("serve.encode"), eval_mode(self._tok):
             tokens = self._tok.encode(x.reshape(b * s, *x.shape[2:]))
         self.stats["encode_calls"] += 1
         return tokens.reshape(b, s, *tokens.shape[1:]).cpu().numpy()
@@ -240,11 +260,11 @@ class RolloutService:
     def _rollout_call(self, ctx: np.ndarray):
         """(b, S, th, tw) tokens -> ((b, T, H, W, C) pixels, rolled context)."""
         if self._aot is not None:
-            with self._programs:
+            with self._programs, tracing.span("serve.rollout"):
                 return self._aot.rollout(ctx, generator=self._generator)
         tokens = torch.as_tensor(ctx, device=self._device).long()
         k = self._tok.num_embeddings
-        with self._programs, eval_mode(self._tok, self._model):
+        with self._programs, tracing.span("serve.rollout"), eval_mode(self._tok, self._model):
             gen = rollout_frames(
                 self._model, tokens,
                 num_frames=self.num_frames, num_classes=k, mask_token=k,
@@ -304,7 +324,8 @@ class RolloutService:
         with self._lifecycle:
             if self._closed:
                 raise RuntimeError("service is closed")
-            now = _now()
+            enqueued = time.perf_counter_ns()
+            now = enqueued * 1e-9
             if self._last_arrival is not None:
                 gap = now - self._last_arrival
                 self._ewma_gap = (
@@ -313,14 +334,14 @@ class RolloutService:
                     else 0.7 * self._ewma_gap + 0.3 * gap
                 )
             self._last_arrival = now
-            self._queue.put((item, fut, deadline))
+            self._queue.put(_Entry(item, fut, deadline, next(self._ids), enqueued))
         return fut
 
     def _expired(self, entry) -> bool:
         """Resolve a past-deadline queued request; True if it was shed.
         (A request in a running batch always completes: the deadline bounds
         QUEUE time.)"""
-        _item, fut, deadline = entry
+        fut, deadline = entry.fut, entry.deadline
         if deadline is None or _now() < deadline:
             return False
         if not fut.cancelled():
@@ -332,13 +353,20 @@ class RolloutService:
 
     def _take_batch(self):
         """Block for the first live request, then coalesce up to
-        batch_size, shedding requests whose queue deadline has passed."""
+        batch_size, shedding requests whose queue deadline has passed.
+        Returns (the batch, the ``perf_counter_ns`` of its close while
+        recording, else None), or (None, None) at shutdown."""
         while True:
             first = self._queue.get()
             if first is None:
-                return None
+                return None, None
             if not self._expired(first):
                 break
+        with tracing.span("serve.coalesce") as sp:
+            batch = self._coalesce(first)
+        return batch, sp.t1
+
+    def _coalesce(self, first):
         batch = [first]
         # always coalesce what is ALREADY queued, then decide whether
         # waiting for more can pay off
@@ -386,52 +414,62 @@ class RolloutService:
 
     def _run(self):
         while True:
-            batch = self._take_batch()
+            batch, closed = self._take_batch()
             if batch is None:
                 return
-            items = [it for it, _f, _d in batch]
-            futs = [f for _it, f, _d in batch]
-            try:
-                n = len(items)
-                size = self._prog_size(n)
+            with tracing.span("serve.batch", closed) as sp:
+                if sp:
+                    sp.attrs.update(rids=[e.rid for e in batch], rows=len(batch),
+                                    size=self._prog_size(len(batch)))
+                    for e in batch:
+                        tracing.record_request("serve.queue", e.rid, e.enqueued, sp.t0)
+                self._serve(batch)
 
-                # pixel requests: encode their seed clips (one padded call)
-                pix_idx = [i for i, it in enumerate(items) if it[0] == "pixels"]
-                contexts: list = [None] * n
-                if pix_idx:
-                    clips = [items[i][1] for i in pix_idx]
-                    m = len(clips)
-                    psize = self._prog_size(m)
-                    while len(clips) < psize:
-                        clips.append(clips[-1])
-                    enc = self._encode_call(np.stack(clips))
-                    for j, i in enumerate(pix_idx):
-                        contexts[i] = enc[j]
-                    self.stats["encoded_clips"] += m
-                for i, it in enumerate(items):
-                    if it[0] == "tokens":
-                        contexts[i] = it[1]
-                        self.stats["session_rows"] += 1
+    def _serve(self, batch):
+        """Run one batch and resolve its futures."""
+        items = [e.item for e in batch]
+        futs = [e.fut for e in batch]
+        try:
+            n = len(items)
+            size = self._prog_size(n)
 
-                ctxs = list(contexts)
-                while len(ctxs) < size:
-                    ctxs.append(ctxs[-1])
-                out, new_ctx = self._rollout_call(np.stack(ctxs))
-                self.stats["requests"] += n
-                self.stats["batches"] += 1
-                self.stats["batched_rows"] += size
-                self.stats["padded_rows"] += size - n
-                for i, fut in enumerate(futs):
-                    session = items[i][2]
-                    if session is not None:
-                        session._update(new_ctx[i])
-                    # a client may have cancel()ed a queued future
-                    if not fut.cancelled():
-                        fut.set_result(out[i])
-            except Exception as e:  # propagate to every waiter
-                for fut in futs:
-                    if not fut.done():
-                        fut.set_exception(e)
+            # pixel requests: encode their seed clips (one padded call)
+            pix_idx = [i for i, it in enumerate(items) if it[0] == "pixels"]
+            contexts: list = [None] * n
+            if pix_idx:
+                clips = [items[i][1] for i in pix_idx]
+                m = len(clips)
+                psize = self._prog_size(m)
+                while len(clips) < psize:
+                    clips.append(clips[-1])
+                enc = self._encode_call(np.stack(clips))
+                for j, i in enumerate(pix_idx):
+                    contexts[i] = enc[j]
+                self.stats["encoded_clips"] += m
+            for i, it in enumerate(items):
+                if it[0] == "tokens":
+                    contexts[i] = it[1]
+                    self.stats["session_rows"] += 1
+
+            ctxs = list(contexts)
+            while len(ctxs) < size:
+                ctxs.append(ctxs[-1])
+            out, new_ctx = self._rollout_call(np.stack(ctxs))
+            self.stats["requests"] += n
+            self.stats["batches"] += 1
+            self.stats["batched_rows"] += size
+            self.stats["padded_rows"] += size - n
+            for i, fut in enumerate(futs):
+                session = items[i][2]
+                if session is not None:
+                    session._update(new_ctx[i])
+                # a client may have cancel()ed a queued future
+                if not fut.cancelled():
+                    fut.set_result(out[i])
+        except Exception as e:  # propagate to every waiter
+            for fut in futs:
+                if not fut.done():
+                    fut.set_exception(e)
 
 
 def _now() -> float:

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import torch
 
 from world_modelz_tpu_torch.train.timing import TrainTiming, fence_value
+from world_modelz_tpu_torch.utils import tracing
 
 Row = Tuple[float, float, bool]  # a step's (loss, grad norm, ok)
 
@@ -202,28 +203,35 @@ def run_dispatch(program: StepProgram, io: StepInputs, tm: TrainTiming, step: in
     of their stats. Charged to the timing's ``dispatch`` and ``device_wait``
     buckets, or, when a device probe is due, timed between value fences
     (each tensor of ``last_input``, a tensor or a dict of them, landed; the
-    stats read) into ``probe``."""
+    stats read) into ``probe``. Recorded as the span ``train.dispatch``
+    with a ``train.feed`` and a ``train.launch`` a step and one
+    ``train.stats_read``, whose edges are the buckets' clock reads."""
     n = len(feeds)
     probe = tm.probe_due(step + n) and tm.opened and n in seen_sizes
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
+    with tracing.span("train.dispatch", t0) as sp:
+        if probe:
+            for x in (last_input.values() if isinstance(last_input, dict) else [last_input]):
+                fence_value(x)
+        td = time.perf_counter_ns()
+        io.start()
+        for feed in feeds:
+            with tracing.span("train.feed"):
+                feed()
+            with tracing.span("train.launch"):
+                program()
+        seen_sizes.add(n)
+        t1 = time.perf_counter_ns()
+        rows = io.read(n)
+        now = time.perf_counter_ns()
+        tracing.record("train.stats_read", t1, now)
+        sp.end(now)
     if probe:
-        for x in (last_input.values() if isinstance(last_input, dict) else [last_input]):
-            fence_value(x)
-    td = time.perf_counter()
-    io.start()
-    for feed in feeds:
-        feed()
-        program()
-    seen_sizes.add(n)
-    t1 = time.perf_counter()
-    rows = io.read(n)
-    now = time.perf_counter()
-    if probe:
-        tm.record_probe(n, now - td)
-        tm.add("probe", now - t0)
+        tm.record_probe(n, (now - td) * 1e-9)
+        tm.add("probe", (now - t0) * 1e-9)
     else:
-        tm.add("dispatch", t1 - t0)
-        tm.add("device_wait", now - t1)
+        tm.add("dispatch", (t1 - t0) * 1e-9)
+        tm.add("device_wait", (now - t1) * 1e-9)
     return rows
 
 

@@ -1,8 +1,8 @@
 """Host utilities: dataclass CLI configs, image grids, PNGs and GIFs, the
 JSONL metric logger, evaluation metrics (PSNR, SSIM, codebook usage), the
 FVD harness (``utils.fvd``), FLOP counts and the card's peaks
-(``utils.flops``) and the tracing and timing helpers
-(``utils.profiling``)."""
+(``utils.flops``), the tracing and timing helpers (``utils.profiling``)
+and the span recorder (``utils.tracing``)."""
 
 from world_modelz_tpu_torch.utils.config import (
     config_from_dict,
