@@ -160,6 +160,44 @@ BLOCK_CASES = [
     ("cores_bf16", (8, SEQ, GRID, GRID), 196, 2, 32, (1, 2, 1), {"bfloat16": BLOCK_CORES}),
 ]
 
+# the served denoiser's dense layers (check_dense_tf32; the split-TF32 kernel
+# csrc/dense_tf32.cu): rows SEQ x GRID x GRID = 384 a clip at each size b of
+# the serving ladder, and each launch's layers (N, K) with its epilogue: q |
+# k | v in one launch, the output projection and the MLP's down projection
+# with the residual, its up projection with the GELU. The rollout CLI and
+# the trainer's --eval run the same layers at 8 clips (b = 8). The logits
+# over the last frame's GRID x GRID = 64 rows a clip stay with cuBLAS (the
+# kernel is slower there); they are checked and timed beside it all the same.
+DENSE_LADDER = (1, 2, 4, 8)
+DENSE_CASES = [
+    ("qkv", SEQ * GRID * GRID, ((128, 384),) * 3, "none"),
+    ("to_out", SEQ * GRID * GRID, ((384, 128),), "residual"),
+    ("up", SEQ * GRID * GRID, ((512, 384),), "gelu"),
+    ("down", SEQ * GRID * GRID, ((384, 512),), "residual"),
+    ("logits", GRID * GRID, ((512, 384),), "none"),
+]
+# the other f32 forwards that take the kernel, once each at their rows M:
+# the sparse evaluation (SPARSE_TRAIN's eval_batch_size x num_context rows at
+# SPARSE_MODEL's widths: the fused [q | k | v], the output projection, the
+# MLP, the logits), the external tokenizer's 8,192-class logits (2 clips x
+# 512 context tokens), and rows that fill no tile (a chunk's remainder)
+_SP_ROWS = SPARSE_TRAIN["eval_batch_size"] * SPARSE_TRAIN["num_context"]
+_SP_DIM, _SP_MLP = SPARSE_MODEL["dim"], SPARSE_MODEL["mlp_dim"]
+_SP_INNER = SPARSE_MODEL["heads"] * SPARSE_MODEL["dim_head"]
+DENSE_OTHER_CASES = [
+    ("sparse_qkv", _SP_ROWS, ((3 * _SP_INNER, _SP_DIM),), "none"),
+    ("sparse_to_out", _SP_ROWS, ((_SP_DIM, _SP_INNER),), "residual"),
+    ("sparse_up", _SP_ROWS, ((_SP_MLP, _SP_DIM),), "gelu"),
+    ("sparse_down", _SP_ROWS, ((_SP_DIM, _SP_MLP),), "residual"),
+    ("sparse_logits", _SP_ROWS, ((SPARSE_MODEL["num_classes"], _SP_DIM),), "none"),
+    ("external_logits", 2 * 512, ((8192, _SP_DIM),), "none"),
+    ("ragged_rows", 1000, ((_SP_DIM, _SP_INNER),), "residual"),
+]
+# the kernel against float64, over max(1, |Y|): the CPU test's bound on the
+# plain version (tests/test_torch_port_dense_split_tf32.py), 16 ulps of 1;
+# against its plain version (the same chunks summed on the card in another
+# order) twice that, as each lies within it of float64
+DENSE_TF32_TOL = 2.0**-19
 F32_TOL = 1e-4  # f32 kernel vs plain: the same sums in another order
 # the f32 local3d_fwd kernels, by the launch log's name: the cluster kernel
 # at head sizes 64 and 128, one warp a query at the others
@@ -1410,6 +1448,177 @@ def check_flash(torch, dev, depth=SPARSE_MODEL["depth"]):
     return records
 
 
+def check_dense_tf32(torch, dev, launches=None, smi="", ladder=DENSE_LADDER,
+                     cases=DENSE_CASES, others=DENSE_OTHER_CASES, denoiser=DENOISER):
+    """The f32 dense layers' split-TF32 kernel (``kernels.dense_tf32``) at
+    the served denoiser's shapes (DENSE_CASES at each size of ``ladder``)
+    and at the other forwards' (DENSE_OTHER_CASES): against float64 within
+    DENSE_TF32_TOL x max(1, |Y|) and its plain version within twice that,
+    two launches bitwise equal, the launch log naming
+    ``dense_tf32_kernel``; timed beside its bound (three TF32 products at
+    the TF32 peak, or the bytes), its plain version, cuBLAS's f32
+    ``F.linear`` (TF32 off; the library yardstick) and the route before the
+    kernel (``F.linear`` and the GELU or the residual add as their own
+    ops), with the launch's plan. Then the denoiser's forward at the
+    largest size captured as a CUDA graph under ``torch.inference_mode``
+    (4 depth launches of the kernel, the logits on cuBLAS, and ``depth``
+    f32 local-3D launches captured; a replay bitwise the eager forward),
+    and a bf16 training step with autograd (no launch of the kernel).
+    Returns the records by case, the served forward's sums by size, and
+    the b = 8 forward's sums at the top level."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.kernels import _build
+    from world_modelz_tpu_torch.kernels import dense_tf32 as kd
+    from world_modelz_tpu_torch.models import VqVideoDiffusionModel
+    from world_modelz_tpu_torch.train.dispatch import capture
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def check_case(label, m, layers, epi):
+        k = layers[0][1]
+        xs = [rand(m, k)] + ([rand(m, k)] if len(layers) > 1 else [])
+        ws = [rand(n, k, scale=k**-0.5) for n, _ in layers]
+        bs = [None, None, rand(layers[2][0], scale=0.1)] if len(layers) > 1 else [
+            rand(layers[0][0], scale=0.1)]
+        problems = [(xs[min(i, len(xs) - 1)], ws[i], bs[i]) for i in range(len(layers))]
+        res = rand(m, layers[0][0]) if epi == "residual" else None
+        gelu = epi == "gelu"
+
+        def kernel():
+            if len(problems) > 1:
+                return kd.dense_tf32_group(problems)
+            x, w, bias = problems[0]
+            return [kd.dense_tf32(x, w, bias, gelu=gelu, residual=res)]
+
+        def plain():
+            return [kd.dense_tf32_reference(x, w, bias, gelu=gelu, residual=res)
+                    for x, w, bias in problems]
+
+        def route():  # the parent's: cuBLAS f32, then the epilogue's own op
+            ys = [F.linear(x, w, bias) for x, w, bias in problems]
+            if gelu:
+                return [F.gelu(ys[0], approximate="tanh")]
+            return [ys[0] + res] if res is not None else ys
+
+        got = kernel()
+        if not all(torch.equal(a, c) for a, c in zip(got, kernel())):
+            raise AssertionError(f"dense_tf32 {label}: two launches differ")
+        ran = kernels_run(torch, kernel)
+        if ran != ["dense_tf32_kernel"]:
+            raise AssertionError(f"dense_tf32 {label}: the launch log names {ran}")
+        err_f64 = err_plain = 0.0
+        for y, want, (x, w, bias) in zip(got, plain(), problems):
+            ref = x.double() @ w.double().T
+            if bias is not None:
+                ref = ref + bias.double()
+            if gelu:
+                ref = F.gelu(ref, approximate="tanh")
+            if res is not None:
+                ref = ref + res.double()
+            scale = ref.abs().clamp(min=1.0)
+            err_f64 = max(err_f64, float(((y.double() - ref).abs() / scale).max()))
+            err_plain = max(err_plain, float(((y.double() - want.double()).abs()
+                                              / scale).max()))
+            del ref, scale, want
+        if not (err_f64 <= DENSE_TF32_TOL and err_plain <= 2 * DENSE_TF32_TOL):
+            raise AssertionError(
+                f"dense_tf32 {label}: error {err_f64:.3g} against float64 (tol "
+                f"{DENSE_TF32_TOL:.3g}), {err_plain:.3g} against the plain version "
+                f"(tol {2 * DENSE_TF32_TOL:.3g})")
+        ms = device_ms(torch, kernel, 200, label=f"dense_tf32 {label}")
+        plain_ms = device_ms(torch, plain, 3)
+        library_ms = device_ms(torch, lambda: [F.linear(x, w, bias)
+                                               for x, w, bias in problems], 200)
+        route_ms = device_ms(torch, route, 200)
+        widths = [n for n, _ in layers]
+        plan = kd.dense_tf32_plan(m, k, widths)
+        ops = sum(3 * 2 * m * n * k for n in widths)
+        nbytes = 4 * (len(xs) * m * k + sum(n * k + n + m * n for n in widths)
+                      + (m * widths[0] if res is not None else 0))
+        bound_ms, bound_by = bound(nbytes, ops, "tf32")
+        log(f"dense_tf32 {label} M={m} (N, K)={layers[0]} x {len(layers)} "
+            f"epilogue {epi}: err {err_f64:.3g} vs float64, {err_plain:.3g} vs plain "
+            f"(tols {DENSE_TF32_TOL:.3g}, {2 * DENSE_TF32_TOL:.3g}), repeat bitwise | "
+            f"kernel_ms={ms:.5f} "
+            f"({ops / 3 / ms / 1e9:.2f} f32 TFLOP/s) plain_ms={plain_ms:.5f} "
+            f"library_ms={library_ms:.5f} (cuBLAS f32 F.linear; kernel/library "
+            f"{ms / library_ms:.4f}) route_ms={route_ms:.5f} | bound_us="
+            f"{bound_ms * 1e3:.4f} ({bound_by}) | plan {plan}")
+        return dict(m=m, layers=[list(x) for x in layers], epilogue=epi,
+                    max_err_f64=err_f64, max_err_plain=err_plain, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms, route_ms=route_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, plan=plan,
+                    tflops=ops / 3 / ms / 1e9)
+
+    records, per_forward = {}, {}
+    depth = denoiser["depth"]
+    for b in ladder:
+        for name, rows, layers, epi in cases:
+            records[f"{name}_b{b}"] = check_case(f"{name} b={b}", b * rows, layers, epi)
+        # a forward as it runs: depth x the kernel's four launches, the
+        # logits on cuBLAS; before, cuBLAS and the epilogues' own ops
+        sums = {}
+        for key in ("ms", "plain_ms", "route_ms", "library_ms", "bound_ms"):
+            sums[key] = sum(records[f"{name}_b{b}"][key] * depth
+                            for name, *_ in cases if name != "logits")
+            lkey = "library_ms" if key in ("ms", "route_ms") else key
+            sums[key] += records[f"logits_b{b}"][lkey]
+        by = {kind: sum(records[f"{name}_b{b}"]["bound_ms"] for name, *_ in cases
+                        if records[f"{name}_b{b}"]["bound_by"] == kind)
+              for kind in ("bytes", "operations")}
+        sums["bound_by"] = max(by, key=by.get)  # the larger share of the bound
+        per_forward[str(b)] = sums
+        log(f"dense_tf32: one forward's dense layers at b={b} ({depth} layers on the "
+            f"kernel, the logits on cuBLAS): {sums['ms']:.4f} ms, the route before it "
+            f"{sums['route_ms']:.4f} ms (cuBLAS alone {sums['library_ms']:.4f}), plain "
+            f"{sums['plain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
+    for name, m, layers, epi in others:
+        records[name] = check_case(name, m, layers, epi)
+        torch.cuda.empty_cache()
+
+    # the served forward as a captured graph, and a training step without it
+    b = max(ladder)
+    torch.manual_seed(3)
+    model = VqVideoDiffusionModel(**denoiser, device=dev)
+    s, h, w = denoiser["data_shape"]
+    tokens = torch.randint(0, denoiser["num_classes"] + 1, (b, s, h, w), device=dev)
+    with torch.inference_mode():
+        eager = model(tokens)
+        cap = capture(lambda: model(tokens), dev)
+        cap.graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(cap.outputs, eager)
+    want_w = {"dense_tf32": 4 * depth, "local3d_fwd": depth}
+    names = dict(cap.kernels or {})
+    f32 = sum(n for key, n in names.items() if key.startswith(F32_CLUSTER))
+    if (not same or dict(cap.wrappers) != want_w or f32 != depth
+            or names.get("dense_tf32_kernel") != 4 * depth or len(names) != 2):
+        raise AssertionError(f"dense_tf32: the captured forward (bitwise {same}) noted "
+                             f"{dict(cap.wrappers)} / {names}")
+    del cap
+    train = VqVideoDiffusionModel(**denoiser, device=dev, dtype=torch.bfloat16).train()
+    before = _build.LAUNCHES["dense_tf32"]
+    logits = train(tokens[:2])
+    logits.float().square().mean().backward()
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["dense_tf32"] != before:
+        raise AssertionError("dense_tf32: a bf16 training step launched the kernel")
+    log(f"dense_tf32: the f32 forward at b={b} captured {dict(want_w)} launches "
+        f"({names}), a replay bitwise the eager forward; a bf16 training step with "
+        f"autograd launched none; on {smi}")
+    del model, train
+    head = per_forward[str(b)]
+    return dict(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                route_ms=head["route_ms"], per=f"one b = {b} served forward's dense layers",
+                max_err_f64=max(r["max_err_f64"] for r in records.values()),
+                records=records, per_forward=per_forward)
+
+
 def check_slice_parity(torch, dev, denoiser=DENOISER, tokenizer=TOKENIZER,
                        batch=2, backend="auto"):
     """The denoiser in f32 with attention ``backend`` on the card (kernel
@@ -2379,7 +2588,8 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
     FVD by the I3D extractor on them. Gates: the files land, each
     GIF decodes to its PNG grids bit for bit, FVD, PSNR and SSIM are finite
     (lo <= fvd <= hi), the exact launch counts, and on the card the launch
-    log names the f32 ``local3d_fwd_cluster_kernel`` alone. Logs the wall
+    log names the f32 ``local3d_fwd_cluster_kernel`` and the f32 dense
+    layers' ``dense_tf32_kernel`` alone. Logs the wall
     and clips/s of a batch, its device time and busy share, the tiny
     features card vs CPU, and the share of tokens the tokenizer's encode
     keeps with cuDNN TF32 on and off, with FVD and PSNR under both. Returns
@@ -2433,6 +2643,7 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
             batches = len(res.batch_seconds)
             # an encode per batch, and the ceiling's encode of the gt clips
             want = {"local3d_fwd": depth * frames * iters * batches,
+                    "dense_tf32": 4 * depth * frames * iters * batches,
                     "vq_encode": batches + 1, "local3d_block": 0}
             for key, n in want.items() if on_card else ():
                 if counts[name].get(key, 0) != n:
@@ -2469,9 +2680,10 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
                     return ro_obj.model(torch.zeros(
                         (b, *ro_obj.token_shape), dtype=torch.long, device=dev))
             names = kernels_run(torch, forward, launches=depth)
-            if not names or not all(n.startswith(F32_CLUSTER) for n in names):
+            if not names or not all(n.startswith(F32_CLUSTER) or n == "dense_tf32_kernel"
+                                    for n in names):
                 raise AssertionError(f"the rollout's denoiser launched {names}, not "
-                                     f"{F32_CLUSTER} alone")
+                                     f"{F32_CLUSTER} and dense_tf32_kernel alone")
             log(f"rollout: the launch log names {sorted(set(names))} "
                 f"({len(names)} launches for one forward of {depth} layers)")
             profile_busy(torch, f"one rollout batch (reference, f32, {b} clips)",
@@ -2492,6 +2704,7 @@ def drive_rollout(torch, dev, launches, smi, train=TRAIN,
     counts["eval"] = dict(launches)
     step = result.state.step
     want = {"local3d_fwd": depth * cfg.eval_timesteps * cfg.num_eval_iterations,
+            "dense_tf32": 4 * depth * cfg.eval_timesteps * cfg.num_eval_iterations,
             "vq_encode": 2}  # the token-grid probe, then the clips
     for key, n in want.items() if on_card else ():
         if counts["eval"].get(key, 0) != n:
@@ -2872,7 +3085,9 @@ def check_sparse_parity(torch, dev, launches, model=SPARSE_MODEL, batch=2,
     kernels, TF32 off) against the same weights on the CPU (their plain
     versions): logits, and every parameter's gradient of a cross-entropy
     loss with the per-tensor limits of ``check_train_grads``. Every layer's
-    to_qkv must get a non-zero gradient on the card."""
+    to_qkv must get a non-zero gradient on the card. Then the card's logits
+    without autograd (the dense layers on the split-TF32 kernel, 4 a layer
+    and the logits) against the CPU's."""
     import torch.nn.functional as F
 
     from world_modelz_tpu_torch.models import VqSparseDiffusionModel
@@ -2930,6 +3145,19 @@ def check_sparse_parity(torch, dev, launches, model=SPARSE_MODEL, batch=2,
     if not rows[worst][1] <= rows[worst][2]:
         raise AssertionError(
             f"{worst}: gradient differs by {rows[worst][1]} > {rows[worst][2]}")
+    # the same forward without autograd, as the evaluation sweep runs it: on
+    # the card every dense layer takes the split-TF32 kernel
+    before = launches["dense_tf32"]
+    with torch.no_grad():
+        routed = card(tokens.to(dev), indices.to(dev)).float().cpu()
+    n_dense = launches["dense_tf32"] - before
+    err = float((routed - logits["cpu"]).abs().max())
+    log(f"sparse model f32 logits without autograd (dense_tf32 x {n_dense}): "
+        f"max_abs_err={err:.3g} against the CPU (tol {LOGIT_TOL})")
+    if dev.type == "cuda" and n_dense != 4 * depth + 1:
+        raise AssertionError(f"dense_tf32 ran {n_dense} times, not {4 * depth + 1}")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"sparse logits without autograd differ by {err}")
 
 
 def sparse_tokenizer_checkpoint(torch, root, tokenizer=SPARSE_TOKENIZER,
@@ -3046,12 +3274,14 @@ def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
     depth = cfg.depth
     chunks = cfg.S * cfg.H * cfg.W // cfg.num_context + 1
     per_eval = cfg.num_eval_iterations * chunks * depth
+    # the f32 evaluation's dense layers: 4 a layer and the logits a forward
+    dense_eval = cfg.num_eval_iterations * chunks * (4 * depth + 1)
     encodes = len(range(0, steps, cfg.change_batch_interval))
     per_step = {"flash_fwd": depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
     want_graph = {k: n * steps for k, n in per_step.items()}
     want_eager = {"flash_fwd": depth * WARMUPS + (2 * per_eval if full else 0),
                   "flash_bwd_dq": depth * WARMUPS, "flash_bwd_dkv": depth * WARMUPS,
-                  "vq_encode": encodes}
+                  "vq_encode": encodes, **({"dense_tf32": 2 * dense_eval} if full else {})}
     if on_card and (graph != want_graph or eager != want_eager or replays != steps):
         raise AssertionError(
             f"{label}: the graph launched {graph} in {replays} replays, expected "
@@ -3084,9 +3314,9 @@ def drive_sparse_training(torch, dev, launches, smi, train=SPARSE_TRAIN,
     if frames.shape != (cfg.eval_batch_size, cfg.S, cfg.image_size, cfg.image_size, 3) \
             or not np.isfinite(frames).all():
         raise AssertionError(f"decoded frames {frames.shape} not finite")
-    if on_card and eval_counts != {"flash_fwd": per_eval}:
+    if on_card and eval_counts != {"flash_fwd": per_eval, "dense_tf32": dense_eval}:
         raise AssertionError(f"one evaluation pass launched {eval_counts}, "
-                             f"expected {per_eval} flash_fwd")
+                             f"expected {per_eval} flash_fwd, {dense_eval} dense_tf32")
     log(f"sparse evaluation alone: {eval_wall:.3f} s for {cfg.num_eval_iterations} "
         f"iterations x {chunks} chunks of B={cfg.eval_batch_size}, N="
         f"{cfg.num_context} (f32), launches {eval_counts}; tokens in "
@@ -3246,15 +3476,18 @@ def drive_serving_http(torch, dev, launches, smi, train=TRAIN, serve=SERVE_HTTP,
                        for s in progs.sizes))
         k = meta["num_embeddings"]
         if on_card:
+            dense = 4 * depth  # q | k | v, to_out, up, down a layer (logits: cuBLAS)
             want = {"encode": ({"vq_encode": 1},
                                {"vq_prep_kernel": 1, "vq_encode_kernel<float>": 1}),
-                    "step": ({"local3d_fwd": depth}, None), "finish": ({}, {})}
+                    "step": ({"local3d_fwd": depth, "dense_tf32": dense}, None),
+                    "finish": ({}, {})}
             for (name, size), (wrappers, kernels) in sorted(progs.captured.items()):
                 want_w, want_k = want[name]
                 f32 = sum(n for key, n in kernels.items() if key.startswith(F32_CLUSTER))
                 if dict(wrappers) != want_w or (
                         dict(kernels) != want_k if want_k is not None
-                        else f32 != depth or len(kernels) != 1):
+                        else f32 != depth or kernels.get("dense_tf32_kernel") != dense
+                        or len(kernels) != 2):
                     raise AssertionError(
                         f"serving_http: the {name} graph at batch {size} captured "
                         f"{dict(wrappers)} / {dict(kernels)}")
@@ -3330,6 +3563,7 @@ def drive_serving_http(torch, dev, launches, smi, train=TRAIN, serve=SERVE_HTTP,
             raise AssertionError(f"serving_http: healthz {health}, no-token status "
                                  f"{refused}, stats {stats}, delta {delta}")
         want = {"local3d_fwd": depth * iters * frames * delta["batches"],
+                "dense_tf32": 4 * depth * iters * frames * delta["batches"],
                 "vq_encode": delta["encode_calls"]}
         for key, n in want.items() if on_card else ():
             if counts.get(key, 0) != n:
@@ -4630,7 +4864,8 @@ def run_child_phase(torch, phase: str, out: str) -> int:
     return 0
 
 
-CHILD_PHASES = {"masked_denoise": check_masked_denoise, "model_axes": check_model_axes}
+CHILD_PHASES = {"masked_denoise": check_masked_denoise, "model_axes": check_model_axes,
+                "dense_tf32": check_dense_tf32}
 
 
 def main() -> int:
@@ -4677,6 +4912,7 @@ def main() -> int:
     c = check_vq_train(torch, dev)
     flash = check_flash(torch, dev)
     block = check_local3d_block(torch, dev)
+    dense = check_dense_tf32(torch, dev, _build.LAUNCHES, smi)
     t_axes = time.perf_counter()
     model_axes = check_model_axes(torch, dev, _build.LAUNCHES, smi)
     model_axes["seconds"] = time.perf_counter() - t_axes
@@ -4779,6 +5015,10 @@ def main() -> int:
              source="world_modelz_tpu_torch/csrc/local3d_block.cu",
              replaces="world_modelz_tpu/kernels/local3d_block.py:122",
              launches=counts["local3d_block"], **block),
+        dict(name="dense_tf32", route="cuda",
+             source="world_modelz_tpu_torch/csrc/dense_tf32.cu",
+             replaces="none: the JAX package leaves dense layers to XLA",
+             launches=counts.get("dense_tf32", 0), **dense),
     ] + [
         dict(name=name, route="cuda",
              source=f"world_modelz_tpu_torch/csrc/{src}",

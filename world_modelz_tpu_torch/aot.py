@@ -63,6 +63,7 @@ from world_modelz_tpu_torch.diffusion.masked import (
     shift_context,
     unmask_alpha,
 )
+from world_modelz_tpu_torch.kernels import _build
 from world_modelz_tpu_torch.models.tokenizer import VQAutoEncoder
 from world_modelz_tpu_torch.models.video import VqVideoDiffusionModel
 from world_modelz_tpu_torch.serve import ladder, rolled_context
@@ -279,7 +280,8 @@ class AOTPrograms:
         captured = capture(self._programs[b].fns[name], self.device)
         if captured.kernels is None:
             raise RuntimeError(
-                f"{name} at batch {b}: the launch log names only 64 launches")
+                f"{name} at batch {b}: the launch log names only "
+                f"{_build.LOGGED} launches")
         self.captured[name, b] = (captured.wrappers, captured.kernels)
         self._graphs[name, b] = captured.graph
         self._outputs[name, b] = captured.outputs

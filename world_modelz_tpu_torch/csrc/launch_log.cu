@@ -14,7 +14,7 @@
 
 namespace {
 
-constexpr int kLogged = 64;  // launches named; later ones are only counted
+constexpr int kLogged = 256;  // launches named (_build.LOGGED); later ones are only counted
 std::atomic<int> g_launches{0};
 std::atomic<const void*> g_kernels[kLogged];
 

@@ -1,6 +1,7 @@
 // Hopper warpgroup products (wgmma.mma_async, sm_90a) on 128-byte
 // swizzled shared-memory tiles, for the bf16 local-3D backward
-// (local3d_bwd.cu) and, in TF32, the VQ search (vq_search.cuh).
+// (local3d_bwd.cu) and, in TF32, the VQ search (vq_search.cuh) and the f32
+// dense layers (dense_tf32.cu).
 //
 // A tile of R rows of D bf16 (D a multiple of 64, R of 8) is stored as
 // D / 64 column blocks, each R rows of 128 bytes; the 16-byte chunk c of a
@@ -290,6 +291,30 @@ __device__ __forceinline__ void mma_tf32_n64(float d[8][4], uint64_t desc_a, uin
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, f32, mma.sync C layout per warp) += A B, K = 8 in TF32: A
+// from registers (this warp's 16 rows as mma.sync m16n8k8 .tf32 A
+// fragments: rows g, g + 8 at k-slots t, t + 4), B a K-major tile of f32
+// in shared memory (desc_b, as mma_tf32_n64's); scale_d 0 overwrites d.
+// The A registers are read until the product's group is waited for.
+__device__ __forceinline__ void mma_tf32_rs_n64(float d[8][4], const uint32_t a[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace wg

@@ -6,7 +6,9 @@ version for a CPU tensor, and counts its launches in ``LAUNCHES``.
 attentions: each forward kernel with its split backward pair as its
 gradient. ``local3d_block`` is the whole attention block in one kernel
 (projections, windowed attention, output projection), differentiated
-through the unfused composition.
+through the unfused composition. The module ``dense_tf32`` holds the f32
+dense layers in split TF32 with their epilogues (bias, GELU, residual),
+where ``ops.dense.tf32_route`` sends forward passes without autograd.
 """
 
 from world_modelz_tpu_torch.kernels._build import LAUNCHES, load_library

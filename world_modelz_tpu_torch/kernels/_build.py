@@ -42,6 +42,8 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+# launches the library's launch log names (csrc/launch_log.cu kLogged)
+LOGGED = 256
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -80,6 +82,12 @@ _SIGNATURES = {
     # q, k, v, g, lse, delta, dk, dv, strides (int64 [12]: q, k, v, g),
     # B, H, N, D, scale, dtype, stream
     "wmz_flash_bwd_dkv": ([_VP] * 9 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
+    # xs, ws, bs, ys (arrays of count pointers), ns (count ints), count, M,
+    # K, epi, r, stream
+    "wmz_dense_tf32": ([ctypes.POINTER(_VP)] * 4 + [ctypes.POINTER(_INT)] + [_INT] * 4
+                       + [_VP, _VP], _INT),
+    # M, K, column tiles, out (int [6]) -> the plan of a launch
+    "wmz_dense_tf32_plan": ([_INT] * 3 + [ctypes.POINTER(_INT)], _INT),
     "wmz_cuda_error_string": ([_INT], ctypes.c_char_p),
     "wmz_launch_log_reset": ([], None),
     # buf, its bytes -> launches since the reset (-1: a name not read)
@@ -190,7 +198,7 @@ def kernels_launched(fn) -> List[str]:
     params)``): which kernel each C entry picked, as the entries note it
     in the launch log (``csrc/launch_log.cu``), with no profiler. The log
     is the process's, so launches from other threads show too; it names
-    the first 64 launches."""
+    the first ``LOGGED`` launches."""
     lib = load_library()
     lib.wmz_launch_log_reset()
     fn()

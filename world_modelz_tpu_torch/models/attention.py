@@ -50,11 +50,12 @@ from torch import nn
 
 from world_modelz_tpu_torch.kernels import dense_attention as dense_kernels
 from world_modelz_tpu_torch.kernels import local3d as local3d_kernels
+from world_modelz_tpu_torch.kernels.dense_tf32 import dense_tf32, dense_tf32_group
 from world_modelz_tpu_torch.kernels.local3d_block import (
     block_supported,
     local3d_block,
 )
-from world_modelz_tpu_torch.ops.dense import dense_apply, narrow
+from world_modelz_tpu_torch.ops.dense import dense_apply, narrow, tf32_route
 from world_modelz_tpu_torch.parallel import moe
 from world_modelz_tpu_torch.parallel.distributed import copy_to, gather_from, reduce_from
 
@@ -70,6 +71,37 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense_apply(x, self.weight, self.bias)
+
+
+def _as_f32(*tensors):
+    return [None if t is None else t.to(torch.float32) for t in tensors]
+
+
+def dense_layer(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor = None, *,
+                gelu: bool = False, dropout: nn.Dropout = None, residual: torch.Tensor = None,
+                attached: bool = False) -> torch.Tensor:
+    """A dense layer and what follows it in the module: the tanh GELU
+    (``gelu``), ``dropout``, then a residual add (``residual``). Where
+    ``ops.dense.tf32_route`` takes it (an f32 forward without autograd on
+    the card; ``attached``: the calling module has a model axis) and the
+    dropout passes its input through, one launch of the split-TF32 kernel
+    with the bias, the GELU or the residual in its epilogue; else
+    ``dense_apply``, then the GELU, the dropout and the add as their own
+    ops."""
+    passes = dropout is None or not dropout.training or dropout.p == 0.0
+    if passes and tf32_route(x, weight, attached):
+        x, weight, bias, residual = _as_f32(x, weight, bias, residual)
+        return dense_tf32(x, weight, bias, gelu=gelu, residual=residual)
+    y = dense_apply(x, weight, bias)
+    if gelu:
+        y = F.gelu(y, approximate="tanh")
+    if dropout is not None:
+        y = dropout(y)
+    return _plus(y, residual)
+
+
+def _plus(y: torch.Tensor, residual) -> torch.Tensor:
+    return y if residual is None else y + residual
 
 
 class _EmbeddingFunction(torch.autograd.Function):
@@ -125,7 +157,10 @@ class FeedForward(nn.Module):
     """Dense -> GELU (tanh approximation, flax's ``nn.gelu``) -> Dense
     (transformer.py:20-31). Under tensor parallelism (``tp``, set by
     ``parallel.mesh.shard_params``) the first Dense is column-parallel and
-    the second row-parallel, one all-reduce."""
+    the second row-parallel, one all-reduce. ``forward(x, residual)``
+    returns the output plus ``residual`` (the block's skip): where
+    ``dense_layer`` takes the split-TF32 kernel, the first Dense carries
+    the GELU and the second the residual in their epilogues."""
 
     tp_params = ("net.0.weight", "net.3.weight")
 
@@ -140,14 +175,16 @@ class FeedForward(nn.Module):
         )
         self.tp = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor = None) -> torch.Tensor:
         tp = self.tp
-        if tp is None:
-            return self.net(x)
         up, act, drop, down, drop_out = self.net
+        if tp is None:
+            h = dense_layer(x, up.weight, up.bias, gelu=True, dropout=drop)
+            return dense_layer(h, down.weight, down.bias, dropout=drop_out, residual=residual)
         h = dense_apply(copy_to(x, tp), up.weight,
                         _col_bias(up.bias, up.weight.shape[0], tp))
-        return drop_out(_row_parallel(drop(act(h)), down.weight, down.bias, tp))
+        return _plus(drop_out(_row_parallel(drop(act(h)), down.weight, down.bias, tp)),
+                     residual)
 
 
 class MoEFeedForward(nn.Module):
@@ -550,7 +587,14 @@ class Local3dAttention(nn.Module):
     gathered projections and ``to_out`` zero outside the rank's columns.
     ``seq`` (``parallel.sequence.attach_seq``) shards the frame axis:
     the halo-exchange attention of ``parallel.sequence``, which takes the
-    place of any backend, as JAX's ``seq_axis`` does."""
+    place of any backend, as JAX's ``seq_axis`` does.
+
+    ``forward(x, q, residual)`` returns the block's output plus
+    ``residual``. Without a model axis, where ``ops.dense.tf32_route``
+    takes the projections (an f32 forward without autograd on the card),
+    q (over the un-normed ``q``), k and v (over ``x``, with ``to_v``'s bias)
+    are one launch of the split-TF32 kernel, and ``to_out`` carries its
+    bias and the residual in its epilogue."""
 
     tp_params = ("to_q.weight", "to_k.weight", "to_v.weight", "to_out.0.weight")
 
@@ -587,12 +631,20 @@ class Local3dAttention(nn.Module):
     def _head_split(self) -> bool:
         return self.tp is not None and self.heads % self.tp.size == 0
 
-    def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-        """x: normed (B, S, H, W, dim) key/value input; q: query input."""
+    def forward(self, x: torch.Tensor, q: torch.Tensor,
+                residual: torch.Tensor = None) -> torch.Tensor:
+        """x: normed (B, S, H, W, dim) key/value input; q: query input;
+        residual: added to the output."""
         if self.backend == "fused" and self.seq is None:
-            return self._fused(x, q)
+            return _plus(self._fused(x, q), residual)
         tp, heads = self.tp, self.heads
-        if tp is None:
+        attached = tp is not None or self.seq is not None
+        wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+        if (q.shape == x.shape and tf32_route(q, wq, attached)
+                and tf32_route(x, wk, attached) and tf32_route(x, wv, attached)):
+            q, x, wq, wk, wv, bv = _as_f32(q, x, wq, wk, wv, self.to_v.bias)
+            qp, k, v = dense_tf32_group([(q, wq, None), (x, wk, None), (x, wv, bv)])
+        elif tp is None:
             qp, k, v = self.to_q(q), self.to_k(x), self.to_v(x)
         else:
             x, q = copy_to(x, tp), copy_to(q, tp)
@@ -620,10 +672,13 @@ class Local3dAttention(nn.Module):
             if not self._head_split():  # this rank's columns of the whole output
                 width = proj.weight.shape[1]
                 out = out[..., tp.index * width:(tp.index + 1) * width]
-            return self.to_out[1](_row_parallel(out, proj.weight, proj.bias, tp))
-        if self.to_out is not None:
-            out = self.to_out(out)
-        return out
+            return _plus(self.to_out[1](_row_parallel(out, proj.weight, proj.bias, tp)),
+                         residual)
+        if self.to_out is None:
+            return _plus(out, residual)
+        proj, drop = self.to_out
+        return dense_layer(out, proj.weight, proj.bias, dropout=drop, residual=residual,
+                           attached=attached)
 
     def _fused_operands(self, x, q, dt):
         """The block kernel's (x, q, wk, wv, bv, wq, wo, bo, heads): the
@@ -745,8 +800,8 @@ class Local3dAttentionTransformer(nn.Module):
         s0 = 0 if self.seq is None else self.seq.index * s
         x = x + self.get_pos_embedding(s, h, w, s0)[None]
         for attn, ff in self.layers:
-            x = attn(x, q=x) + x
-            x = ff(x) + x
+            x = attn(x, q=x, residual=x)
+            x = ff(x, residual=x)
         return x
 
 
@@ -923,7 +978,10 @@ class DenseAttention(nn.Module):
     ``to_qkv`` (the fused projection's rows are [q | k | v], so each block
     is cut by heads) and its columns of ``to_out``: the attention runs on
     its heads, or on q, k and v gathered whole where ``heads`` does not
-    divide, and ``to_out`` is row-parallel.
+    divide, and ``to_out`` is row-parallel. ``forward(x, residual)``
+    returns the output plus ``residual``; without ``tp``, where
+    ``ops.dense.tf32_route`` takes them, ``to_qkv`` and ``to_out`` (with its
+    bias and the residual in the epilogue) run on the split-TF32 kernel.
     """
 
     tp_params = ("to_qkv.weight", "to_out.0.weight")
@@ -964,13 +1022,13 @@ class DenseAttention(nn.Module):
         return (self.backend == "auto" and x.is_cuda and self.dropout == 0.0
                 and x.shape[1] >= FLASH_MIN_TOKENS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: normed (B, N, dim) -> (B, N, dim)."""
+    def forward(self, x: torch.Tensor, residual: torch.Tensor = None) -> torch.Tensor:
+        """x: normed (B, N, dim) -> (B, N, dim), plus ``residual``."""
         b, n, _ = x.shape
         tp, heads = self.tp, self.heads
         if tp is not None:
             x = copy_to(x, tp)
-        qkv = self.to_qkv(x).chunk(3, dim=-1)
+        qkv = dense_layer(x, self.to_qkv.weight, attached=tp is not None).chunk(3, dim=-1)
         if tp is not None:
             if heads % tp.size == 0:
                 heads //= tp.size
@@ -990,10 +1048,12 @@ class DenseAttention(nn.Module):
             width = proj.weight.shape[1]
             if heads == self.heads:  # this rank's columns of the whole output
                 out = out[..., tp.index * width:(tp.index + 1) * width]
-            return self.to_out[1](_row_parallel(out, proj.weight, proj.bias, tp))
-        if self.to_out is not None:
-            out = self.to_out(out)
-        return out
+            return _plus(self.to_out[1](_row_parallel(out, proj.weight, proj.bias, tp)),
+                         residual)
+        if self.to_out is None:
+            return _plus(out, residual)
+        proj, drop = self.to_out
+        return dense_layer(out, proj.weight, proj.bias, dropout=drop, residual=residual)
 
 
 class DenseTransformer(nn.Module):
@@ -1042,13 +1102,13 @@ class DenseTransformer(nn.Module):
     def forward(self, x: torch.Tensor, return_aux: bool = False):
         aux = []
         for attn, ff in self.layers:
-            x = attn(x) + x
-            y = (ff(x, global_aux=return_aux) if isinstance(ff.fn, MoEFeedForward)
-                 else ff(x))
-            if isinstance(y, tuple):
-                y, a = y
+            x = attn(x, residual=x)
+            if isinstance(ff.fn, MoEFeedForward):
+                y, a = ff(x, global_aux=return_aux)
                 aux.append(a)
-            x = y + x
+                x = y + x
+            else:
+                x = ff(x, residual=x)
         if not return_aux:
             return x
         if not aux:

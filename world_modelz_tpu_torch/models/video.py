@@ -24,6 +24,7 @@ from world_modelz_tpu_torch.models.attention import (
     DenseTransformer,
     Embedding,
     Local3dAttentionTransformer,
+    dense_layer,
 )
 
 
@@ -93,6 +94,9 @@ class VqVideoDiffusionModel(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.transformer(tokens)
+        # the last frame's rows: Dense (cuBLAS on the card) whatever the
+        # route, as there the split-TF32 kernel is slower and its epilogue
+        # would fuse nothing but the bias
         return self.logit_proj(x[:, -1])  # (B, H, W, num_classes)
 
 
@@ -178,7 +182,8 @@ class VqSparseDiffusionModel(nn.Module):
             mesh, n_micro = self.pipeline
             return sparse_forward_pipelined(self, tokens, indices, mesh, n_micro=n_micro)
         x = self.embedding(tokens.long()) + self.pos_embedding_3d(indices.long())
+        proj = self.logit_proj
         if return_aux:
             x, aux = self.transformer(x, return_aux=True)
-            return self.logit_proj(x), aux
-        return self.logit_proj(self.transformer(x))
+            return dense_layer(x, proj.weight, proj.bias), aux
+        return dense_layer(self.transformer(x), proj.weight, proj.bias)

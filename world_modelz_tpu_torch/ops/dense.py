@@ -1,6 +1,8 @@
 """flax ``nn.Dense``'s compute contract (plain PyTorch), shared by the
 model layers (``models/attention.py``) and the fused block's backward
-(``kernels/local3d_block.py``)."""
+(``kernels/local3d_block.py``), and the route that sends f32 forward passes
+without autograd on the card to the split-TF32 kernel
+(``kernels/dense_tf32.py``)."""
 
 from __future__ import annotations
 
@@ -28,3 +30,21 @@ def dense_apply(
     if bias is None or not narrow(dt):
         return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
     return F.linear(x.to(dt), weight.to(dt)) + bias.to(dt)
+
+
+def tf32_route(x: torch.Tensor, weight: torch.Tensor, attached: bool = False) -> bool:
+    """Whether a dense layer of ``weight`` (out, in) on ``x`` takes the
+    split-TF32 kernel (``kernels.dense_tf32``), whose f32 result differs
+    from ``dense_apply``'s by f32 rounding: when x lies on a CUDA device, x
+    and the weight promote to f32, grad mode is off (as under
+    ``torch.inference_mode``, where the service and the exported programs
+    run), no model axis is attached (``attached``: the module's ``tp`` or
+    ``seq``), and the depth is a multiple of 8 with both operands
+    contiguous and 16-byte aligned. Everything else (the CPU, bf16,
+    training with autograd, the model axes) takes ``dense_apply``."""
+    k = weight.shape[-1]
+    return (x.is_cuda and not attached and not torch.is_grad_enabled()
+            and torch.promote_types(x.dtype, weight.dtype) == torch.float32
+            and weight.dim() == 2 and x.shape[-1] == k and k % 8 == 0
+            and x.is_contiguous() and weight.is_contiguous()
+            and x.data_ptr() % 16 == 0 and weight.data_ptr() % 16 == 0)

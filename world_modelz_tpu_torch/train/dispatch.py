@@ -94,7 +94,7 @@ def capture(fn: Callable[[], Any], device: torch.device, *, warmups: int = 2,
         if not _build.LAUNCHES[key]:
             del _build.LAUNCHES[key]
     kernels = (collections.Counter(kernel_name(line) for line in lines)
-               if len(lines) < 64 else None)
+               if len(lines) < _build.LOGGED else None)
     return Captured(graph, outputs[0], wrappers, kernels)
 
 
