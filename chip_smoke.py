@@ -4832,6 +4832,375 @@ def check_model_axes(torch, dev, launches, smi="", seq=((64, 6, 8, 8), 1, 128, (
     return out
 
 
+# SDAR's block-diffusion cell: (B, query heads, KV heads, L, block) of the
+# attention, (tokens a call, top k, experts, held, hidden, expert width) of
+# the expert layer (a step runs 4 calls a layer)
+SDAR_ATTN = (8, 32, 4, 4096, 4)
+SDAR_EXPERTS = (16384, 8, 128, 16, 2048, 768)
+# a row's error over its norm (``row_errors``): the GEMMs sum the same bf16
+# products in another order and round once (a step is 2^-8 of a value); the
+# attention kernels also round P and dS at other points than the plain
+# versions (tests/test_torch_port_sdar_card.py)
+SDAR_ROW_TOL = {"attention": 2 ** -6, "gemm": 2 ** -7}
+# the block-diffusion and expert kernels by wrapper (the ``LAUNCHES`` names),
+# their source files and the names of their comparisons with the plain
+# versions (``compare_sdar_kernels``)
+SDAR_KERNELS = (
+    ("bdflash_fwd", "flash_fwd.cu", ("bdflash_fwd", "bdflash_fwd_lse")),
+    ("bdflash_bwd_dq", "flash_bwd.cu", ("bdflash_bwd_dq", "bdflash_bwd_delta")),
+    ("bdflash_bwd_dkv", "flash_bwd.cu", ("bdflash_bwd_dk", "bdflash_bwd_dv")),
+    ("expert_gemm_swiglu", "expert_gemm.cu", ("expert_gemm_swiglu", "expert_gemm_swiglu_act")),
+    ("expert_gemm_nt", "expert_gemm.cu", ("expert_gemm_nt",)),
+    ("expert_gemm_swiglu_bwd", "expert_gemm.cu", ("expert_gemm_swiglu_bwd",)),
+    ("expert_gemm_nn", "expert_gemm.cu", ("expert_gemm_nn",)),
+    ("expert_gemm_wgrad", "expert_gemm.cu", ("expert_gemm_wgrad_gu", "expert_gemm_wgrad_down")),
+    ("expert_rows_gather", "expert_rows.cu", ("expert_rows_gather",)),
+    ("expert_rows_combine", "expert_rows.cu", ("expert_rows_combine",)),
+    ("expert_rows_scatter_bwd", "expert_rows.cu",
+     ("expert_rows_scatter_bwd", "expert_rows_scatter_bwd_dw")))
+
+
+def row_errors(torch, got, want):
+    """The relative error of each row of two (..., cols) tensors, flattened:
+    ||got - want|| / ||want||, a row's norm floored at a thousandth of the
+    rows' rms norm (so a row of zeros compares absolutely)."""
+    a = got.float().reshape(-1, got.shape[-1])
+    b = want.float().reshape(-1, want.shape[-1]).to(a.device)
+    norm = torch.linalg.vector_norm(b, dim=1)
+    floor = 1e-3 * norm.square().mean().sqrt().clamp_min(1e-30)
+    return torch.linalg.vector_norm(a - b, dim=1) / norm.clamp_min(floor)
+
+
+def row_rel(torch, got, want) -> float:
+    """The largest of ``row_errors``."""
+    return float(row_errors(torch, got, want).max())
+
+
+def compare_sdar_kernels(torch, dev) -> dict:
+    """Each block-diffusion and expert kernel against its plain version on
+    the same inputs, at the cell's shapes. Attention: the kernels on the
+    whole batch, compared one sequence (the first and the last) and one KV
+    head's group of query heads at a time with the plain functions on the
+    card, each plain pass fed the kernels' inputs (the backward passes the
+    forward kernel's out and lse, dk and dv the dq pass's delta). The
+    grouped GEMMs and the row moves: each kernel
+    on the rows the routing placed, against the wrapper on CPU copies of its
+    inputs (the plain version, a loop over the experts); only the rows in
+    use are compared. Each number is the largest per-row relative error
+    (``row_rel``; lse: the largest absolute difference); raises past
+    ``SDAR_ROW_TOL`` (lse past 2^-10)."""
+    from world_modelz_tpu_torch.kernels import dense_attention as da
+    from world_modelz_tpu_torch.kernels import expert_gemm as eg
+    from world_modelz_tpu_torch.parallel import moe
+
+    bf16 = torch.bfloat16
+    b, hq, hkv, L, bs = SDAR_ATTN
+    n, dh = 2 * L, da.BD_HEAD_SIZE
+    scale, group = dh ** -0.5, hq // hkv
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def heads(h):
+        return torch.randn(b, n, h, dh, generator=gen, device=dev).to(bf16).transpose(1, 2)
+
+    q, k, v, g = heads(hq), heads(hkv), heads(hkv), heads(hq)
+    o, lse = da.bd_attention_fwd(q, k, v, bs, scale)
+    dq, delta = da.bd_bwd_dq(q, k, v, o, g, lse, bs, scale)
+    dk, dv = da.bd_bwd_dkv(q, k, v, g, lse, delta, bs, scale)
+    err = {name: 0.0 for name in ("bdflash_fwd", "bdflash_fwd_lse", "bdflash_bwd_dq",
+                                  "bdflash_bwd_delta", "bdflash_bwd_dk", "bdflash_bwd_dv")}
+    for s in sorted({0, b - 1}):
+        for j in range(hkv):
+            hs, ks = slice(j * group, (j + 1) * group), slice(j, j + 1)
+            qj, gj = q[s:s + 1, hs], g[s:s + 1, hs]
+            kj, vj = k[s:s + 1, ks], v[s:s + 1, ks]
+            oj, lj, dj = o[s:s + 1, hs], lse[s:s + 1, hs], delta[s:s + 1, hs]
+            po, plse = da.bd_attention_fwd_plain(qj, kj, vj, bs, scale)
+            pdq, pdelta = da.bd_bwd_dq_plain(qj, kj, vj, oj, gj, lj, bs, scale)
+            pdk, pdv = da.bd_bwd_dkv_plain(qj, kj, vj, gj, lj, dj, bs, scale)
+            for name, got, want in (("bdflash_fwd", o[s:s + 1, hs], po),
+                                    ("bdflash_bwd_dq", dq[s:s + 1, hs], pdq),
+                                    ("bdflash_bwd_dk", dk[s:s + 1, ks], pdk),
+                                    ("bdflash_bwd_dv", dv[s:s + 1, ks], pdv)):
+                rows = row_errors(torch, got, want)
+                err[name] = max(err[name], float(rows.max()))
+                over = rows > SDAR_ROW_TOL["attention"]
+                if over.any():  # where: (head of the group, position), the row norms
+                    at = torch.nonzero(over).flatten()[:8].tolist()
+                    norms = torch.linalg.vector_norm(want.float().reshape(-1, dh), dim=1)
+                    log(f"sdar kernels: {name} sequence {s} KV head {j}: {int(over.sum())} rows "
+                        f"past the tolerance, e.g. {[divmod(r, n) for r in at]}, errors "
+                        f"{rows[at].tolist()}, norms {norms[at].tolist()} (median "
+                        f"{float(norms.median())})")
+            err["bdflash_fwd_lse"] = max(err["bdflash_fwd_lse"], float((lj - plse).abs().max()))
+            err["bdflash_bwd_delta"] = max(err["bdflash_bwd_delta"], row_rel(
+                torch, dj[..., None], pdelta[..., None]))
+            del oj, lj, dj, po, plse, pdq, pdelta, pdk, pdv
+    del q, k, v, g, o, lse, dq, delta, dk, dv
+
+    t, top, e, held_n, d, inter = SDAR_EXPERTS
+    x = torch.randn(t, d, generator=gen, device=dev).to(bf16)
+    index, weights = moe.route_topk(torch.randn(t, e, generator=gen, device=dev), top)
+    plan = moe.held_plan(index, moe.held_experts(e, 0, e // held_n), e)
+    used = int(plan.offsets[-1])
+    w_gu = (torch.randn(held_n, 2 * inter, d, generator=gen, device=dev) * d ** -0.5).to(bf16)
+    w_d = (torch.randn(held_n, d, inter, generator=gen, device=dev) * inter ** -0.5).to(bf16)
+    dout = torch.randn(t, d, generator=gen, device=dev).to(bf16)
+    row_of = torch.full((t * top + 1,), -1, dtype=torch.long, device=dev)
+    row_of.scatter_(0, plan.assign, torch.arange(plan.assign.shape[0], device=dev))
+    row_of = row_of[:-1].view(t, top)
+    w_row = torch.cat([weights.reshape(-1), weights.new_zeros(1)])[plan.assign]
+    xp = eg.gather_rows(x, plan.token, plan.offsets)
+    gu, act = eg.swiglu_fwd(xp, w_gu, plan.offsets)
+    y = eg.rows_nt(act, w_d, plan.offsets)
+    dy, dw = eg.scatter_rows_bwd(dout, y, plan.token, w_row, plan.offsets)
+    dgu = eg.swiglu_bwd(dy, w_d, gu, plan.offsets)
+    card = {"expert_rows_gather": xp, "expert_gemm_swiglu": gu,
+            "expert_gemm_swiglu_act": act, "expert_gemm_nt": y,
+            "expert_rows_combine": eg.combine_rows(y, row_of, weights),
+            "expert_rows_scatter_bwd": dy, "expert_rows_scatter_bwd_dw": dw,
+            "expert_gemm_swiglu_bwd": dgu, "expert_gemm_nn": eg.rows_nn(dgu, w_gu, plan.offsets),
+            "expert_gemm_wgrad_gu": eg.wgrad(dgu, xp, plan.offsets),
+            "expert_gemm_wgrad_down": eg.wgrad(dy, act, plan.offsets)}
+    c = {name: tensor.cpu() for name, tensor in dict(
+        x=x, xp=xp, gu=gu, act=act, y=y, dy=dy, dgu=dgu, w_gu=w_gu, w_d=w_d, dout=dout,
+        token=plan.token, off=plan.offsets, row_of=row_of, weights=weights,
+        w_row=w_row).items()}
+    pdy, pdw = eg.scatter_rows_bwd(c["dout"], c["y"], c["token"], c["w_row"], c["off"])
+    pgu, pact = eg.swiglu_fwd(c["xp"], c["w_gu"], c["off"])
+    plain = {"expert_rows_gather": eg.gather_rows(c["x"], c["token"], c["off"]),
+             "expert_gemm_swiglu": pgu, "expert_gemm_swiglu_act": pact,
+             "expert_gemm_nt": eg.rows_nt(c["act"], c["w_d"], c["off"]),
+             "expert_rows_combine": eg.combine_rows(c["y"], c["row_of"], c["weights"]),
+             "expert_rows_scatter_bwd": pdy, "expert_rows_scatter_bwd_dw": pdw,
+             "expert_gemm_swiglu_bwd": eg.swiglu_bwd(c["dy"], c["w_d"], c["gu"], c["off"]),
+             "expert_gemm_nn": eg.rows_nn(c["dgu"], c["w_gu"], c["off"]),
+             "expert_gemm_wgrad_gu": eg.wgrad(c["dgu"], c["xp"], c["off"]),
+             "expert_gemm_wgrad_down": eg.wgrad(c["dy"], c["act"], c["off"])}
+    for name, got in card.items():
+        want = plain[name]
+        if name.startswith("expert_gemm_wgrad") or name == "expert_rows_combine":
+            got = got.cpu()  # per expert (E, M, N) or per token (T, D): every row
+        else:
+            got, want = got[:used].cpu(), want[:used]
+        err[name] = row_rel(torch, got[:, None] if got.dim() == 1 else got,
+                            want[:, None] if want.dim() == 1 else want)
+    out = {"errors": err, "assignments_held": int(plan.counts.sum()), "rows_used": used,
+           "tolerance": SDAR_ROW_TOL}
+    log(f"sdar kernels vs plain: {json.dumps(out)}")
+    bad = {name: e for name, e in err.items() if e > (
+        2 ** -10 if name == "bdflash_fwd_lse" else
+        SDAR_ROW_TOL["attention" if name.startswith("bdflash") else "gemm"])}
+    if bad:
+        raise AssertionError(f"sdar kernels past their tolerance: {bad}")
+    return out
+
+
+def drive_block_diffusion(torch, dev, launches, smi, depth=2, batch=1, steps=6, k=2) -> dict:
+    """The block-diffusion trainer (``cli.block_diffusion.train``) at SDAR's
+    widths with ``depth`` layers and ``batch`` sequences of 4,096 tokens,
+    ``steps`` steps ``k`` a dispatch, its counters on. On the card the step
+    is one CUDA graph: its launches must be the step's kernels x the steps,
+    the capture's warm-up steps outside it; every loss finite, every step
+    kept, ``moe.dropped`` 0. Returns the launches (eager and replayed) and
+    the run's record."""
+    import math
+
+    from world_modelz_tpu_torch.cli import block_diffusion as bdc
+    from world_modelz_tpu_torch.models.sdar import MOE_CHUNK_TOKENS
+    from world_modelz_tpu_torch.utils import tracing
+
+    cfg = bdc.BlockDiffusionConfig(
+        batch_size=batch, depth=depth, max_steps=steps, steps_per_dispatch=k, log_interval=k,
+        output_dir=os.path.join(HERE, "build", "smoke_sdar"),
+        platform="" if dev.type == "cuda" else dev.type)
+    on_card = dev.type == "cuda"
+    tracing.clear()
+    tracing.enable()
+    launches.clear()
+    try:
+        t0 = time.perf_counter()
+        _, history, program = bdc.train(cfg)
+        wall = time.perf_counter() - t0
+    finally:
+        tracing.disable()
+    counters = tracing.collect().counters
+    eager = dict(launches)
+    graph, replays = dict(program.launches), program.replays
+    losses = [h[1] for h in history]
+    if len(losses) != steps or not all(map(math.isfinite, losses)) or not all(
+            h[3] for h in history):
+        raise AssertionError(f"block diffusion: losses not finite, missing or rejected: "
+                             f"{history}")
+    if counters.get("moe.dropped", -1) != 0 or counters.get("moe.steps") != steps:
+        raise AssertionError(f"block diffusion: counters {counters}")
+    # per layer: the attention's forward and two backward passes; per chunk
+    # of the expert layer, the forward's gather, SwiGLU, down and combine,
+    # the backward's recomputed three and its six
+    c = depth * -(-batch * 2 * cfg.seq_len // MOE_CHUNK_TOKENS)
+    per_step = {"bdflash_fwd": depth, "bdflash_bwd_dq": depth, "bdflash_bwd_dkv": depth,
+                "expert_rows_gather": 2 * c, "expert_gemm_swiglu": 2 * c,
+                "expert_gemm_nt": 2 * c, "expert_rows_combine": 2 * c,
+                "expert_rows_scatter_bwd": c, "expert_gemm_swiglu_bwd": c,
+                "expert_gemm_wgrad": 2 * c, "expert_gemm_nn": c}
+    want_graph = {name: m * steps for name, m in per_step.items()}
+    want_eager = {name: m * WARMUPS for name, m in per_step.items()}
+    if on_card and (graph != want_graph or eager != want_eager or replays != steps):
+        raise AssertionError(
+            f"block diffusion: the graph launched {graph} in {replays} replays, expected "
+            f"{want_graph}; outside it {eager}, expected {want_eager}")
+    counts = {name: eager.get(name, 0) + graph.get(name, 0) for name in set(eager) | set(graph)}
+    rec = {"depth": depth, "batch": batch, "steps": steps, "k": k, "wall_s": wall,
+           "capture_s": program.capture_seconds, "losses": losses, "per_step": per_step,
+           "counters": counters}
+    log(f"block diffusion: {steps} steps, {depth} layers, batch {batch} x {cfg.seq_len}, "
+        f"{wall:.2f} s (capture {program.capture_seconds:.2f} s); losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; launches from the step graph {graph}, outside it {eager}; counters {counters}; "
+        f"on {smi}")
+    return {"launches": counts, "record": rec}
+
+
+def sdar_phase(torch, dev, launches, smi) -> dict:
+    """SDAR's kernels against their plain versions (``compare_sdar_kernels``),
+    timed (``check_sdar_kernels``), then the trainer driven
+    (``drive_block_diffusion``)."""
+    out = {"compare": compare_sdar_kernels(torch, dev)}
+    torch.cuda.empty_cache()
+    out["timing"] = check_sdar_kernels(torch, dev, launches, smi)
+    torch.cuda.empty_cache()
+    out.update(drive_block_diffusion(torch, dev, launches, smi))
+    return out
+
+
+def check_sdar_kernels(torch, dev, launches, smi) -> dict:
+    """The block-diffusion GQA kernels and the grouped expert GEMMs at the
+    SDAR cell's shapes: device time (CUDA events) beside the bound (bytes at
+    3.35 TB/s or the products the mask or the routing needs at the bf16
+    peak), the plain version and one library route: SDPA with the boolean
+    mask (KV heads repeated) and a per-expert loop of cuBLAS products
+    (``torch.matmul``), or ``torch._grouped_mm`` where this torch has it.
+    The plain attention and SDPA run one sequence (the scores of eight do
+    not fit) and are scaled by 8."""
+    import torch.nn.functional as F
+
+    from world_modelz_tpu_torch.kernels import dense_attention as da
+    from world_modelz_tpu_torch.kernels import expert_gemm as eg
+    from world_modelz_tpu_torch.parallel import moe
+
+    bf16, peak, hbm = torch.bfloat16, 989e12, 3.35e12
+    out = {"device": smi}
+    b, hq, hkv, L, bs = SDAR_ATTN
+    n, dh, scale = 2 * L, 128, 128 ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def heads(h, rows=b):
+        return torch.randn(rows, n, h, dh, generator=gen, device=dev).to(bf16).transpose(1, 2)
+
+    q, k, v, g = heads(hq), heads(hkv), heads(hkv), heads(hq)
+    pairs = b * hq * (L * bs + L * L)
+    elems_q, elems_kv = b * n * hq * dh * 2, b * n * hkv * dh * 2
+    o, lse = da.bd_attention_fwd(q, k, v, bs, scale)
+    dq, delta = da.bd_bwd_dq(q, k, v, o, g, lse, bs, scale)
+    rec = {
+        "bdflash_fwd": (lambda: da.bd_attention_fwd(q, k, v, bs, scale),
+                        2 * elems_q + 2 * elems_kv, 4 * pairs * dh),
+        "bdflash_bwd_dq": (lambda: da.bd_bwd_dq(q, k, v, o, g, lse, bs, scale),
+                           4 * elems_q + 2 * elems_kv, 3 * 2 * pairs * dh),
+        "bdflash_bwd_dkv": (lambda: da.bd_bwd_dkv(q, k, v, g, lse, delta, bs, scale),
+                            2 * elems_q + 4 * elems_kv, 4 * 2 * pairs * dh),
+    }
+    for name, (fn, nbytes, flops) in rec.items():
+        ms = cuda_ms(torch, fn, 5)
+        out[name] = {"ms": ms, "bound_ms": max(nbytes / hbm, flops / peak) * 1e3,
+                     "tflops": flops / ms / 1e9}
+    q1, k1, v1, g1 = (t[:1] for t in (q, k, v, g))
+    mask = da.bd_mask(n, bs, dev)
+    out["bdflash_fwd"]["plain_ms"] = 8 * cuda_ms(
+        torch, lambda: da.bd_attention_fwd_plain(q1, k1, v1, bs, scale), 2, 1)
+    kr, vr = (t.repeat_interleave(hq // hkv, 1) for t in (k1, v1))
+    out["bdflash_fwd"]["library_ms"] = 8 * cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(q1, kr, vr, attn_mask=mask), 3)
+    leaves = [t.detach().requires_grad_() for t in (q1, kr, vr)]
+
+    def sdpa_step():
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(g1)
+
+    out["bdflash_bwd"] = {"library_fwd_bwd_ms": 8 * cuda_ms(torch, sdpa_step, 3)}
+    log(f"sdar attention: {json.dumps(out)}")
+    del q, k, v, g, o, dq, leaves
+
+    t, top, e, held_n, d, inter = SDAR_EXPERTS
+    x = torch.randn(t, d, generator=gen, device=dev).to(bf16)
+    index, weights = moe.route_topk(torch.randn(t, e, generator=gen, device=dev), top)
+    held = moe.held_experts(e, 0, e // held_n)
+    plan = moe.held_plan(index, held, e)
+    xp = torch.cat([x, x.new_zeros(1, d)])[plan.token]
+    w_gu = (torch.randn(held_n, 2 * inter, d, generator=gen, device=dev) * d ** -0.5).to(bf16)
+    w_d = (torch.randn(held_n, d, inter, generator=gen, device=dev) * inter ** -0.5).to(bf16)
+    gu, act = eg.swiglu_fwd(xp, w_gu, plan.offsets)
+    y = eg.rows_nt(act, w_d, plan.offsets)
+    dgu = eg.swiglu_bwd(y, w_d, gu, plan.offsets)
+    a = float(plan.counts.sum())
+    counts = plan.counts.tolist()
+    off = plan.offsets.tolist()
+    gemms = {
+        "expert_gemm_swiglu": (lambda: eg.swiglu_fwd(xp, w_gu, plan.offsets), 4 * a * d * inter,
+                               lambda r, i: xp[r] @ w_gu[i].t()),
+        "expert_gemm_nt": (lambda: eg.rows_nt(act, w_d, plan.offsets), 2 * a * d * inter,
+                           lambda r, i: act[r] @ w_d[i].t()),
+        "expert_gemm_swiglu_bwd": (lambda: eg.swiglu_bwd(y, w_d, gu, plan.offsets),
+                                   2 * a * d * inter, lambda r, i: y[r] @ w_d[i]),
+        "expert_gemm_nn": (lambda: eg.rows_nn(dgu, w_gu, plan.offsets), 4 * a * d * inter,
+                           lambda r, i: dgu[r] @ w_gu[i]),
+        "expert_gemm_wgrad_gu": (lambda: eg.wgrad(dgu, xp, plan.offsets), 4 * a * d * inter,
+                                 lambda r, i: dgu[r].t() @ xp[r]),
+        "expert_gemm_wgrad_down": (lambda: eg.wgrad(y, act, plan.offsets), 2 * a * d * inter,
+                                   lambda r, i: y[r].t() @ act[r]),
+    }
+    for name, (fn, flops, one) in gemms.items():
+        ms = cuda_ms(torch, fn, 10)
+        spans = [slice(off[i], off[i] + c) for i, c in enumerate(counts)]
+        lib = cuda_ms(torch, lambda: [one(r, i) for i, r in enumerate(spans)], 10)
+        out[name] = {"ms": ms, "bound_ms": flops / peak * 1e3, "tflops": flops / ms / 1e9,
+                     "library_ms": lib, "assignments": a}
+    grouped = getattr(torch, "_grouped_mm", None)
+    if grouped is not None:
+        ends = torch.tensor([off[i] + c for i, c in enumerate(counts)], dtype=torch.int32,
+                            device=dev)
+        try:
+            out["expert_gemm_nt"]["grouped_mm_ms"] = cuda_ms(
+                torch, lambda: grouped(act, w_d.transpose(1, 2), offs=ends), 10)
+        except Exception as err:  # noqa: BLE001 - a library route this torch lacks
+            out["expert_gemm_nt"]["grouped_mm_error"] = str(err)[:200]
+    out["routing_plan_ms"] = cuda_ms(torch, lambda: moe.held_plan(index, held, e), 10)
+    # the row moves: bytes of the rows in use read and written once
+    row_of = torch.full((t * top + 1,), -1, dtype=torch.long, device=dev)
+    row_of.scatter_(0, plan.assign, torch.arange(plan.assign.shape[0], device=dev))
+    row_of = row_of[:-1].view(t, top)
+    w_row = torch.cat([weights.reshape(-1), weights.new_zeros(1)])[plan.assign]
+    dout = torch.randn(t, d, generator=gen, device=dev).to(bf16)
+    row_bytes = a * d * 2
+    moves = {
+        "expert_rows_gather": (lambda: eg.gather_rows(x, plan.token, plan.offsets),
+                               2 * row_bytes,
+                               lambda: torch.cat([x, x.new_zeros(1, d)])[plan.token]),
+        "expert_rows_combine": (lambda: eg.combine_rows(y, row_of, weights),
+                                row_bytes + t * d * 2,
+                                lambda: torch.zeros(t + 1, d, device=dev).index_add_(
+                                    0, plan.token, y.float() * w_row[:, None])),
+        "expert_rows_scatter_bwd": (
+            lambda: eg.scatter_rows_bwd(dout, y, plan.token, w_row, plan.offsets),
+            3 * row_bytes, None),
+    }
+    for name, (fn, nbytes, lib_fn) in moves.items():
+        ms = cuda_ms(torch, fn, 10)
+        out[name] = {"ms": ms, "bound_ms": nbytes / hbm * 1e3}
+        if lib_fn is not None:  # the plain index calls over the whole static buffer
+            out[name]["library_ms"] = cuda_ms(torch, lib_fn, 10)
+    log(f"sdar experts: {json.dumps(out)}")
+    return out
+
+
 def in_child_process(phase: str):
     """``phase`` (a name of CHILD_PHASES) run by this script in a child
     process on the same card, the kernel library already built; returns
@@ -4865,7 +5234,7 @@ def run_child_phase(torch, phase: str, out: str) -> int:
 
 
 CHILD_PHASES = {"masked_denoise": check_masked_denoise, "model_axes": check_model_axes,
-                "dense_tf32": check_dense_tf32}
+                "dense_tf32": check_dense_tf32, "sdar_kernels": sdar_phase}
 
 
 def main() -> int:
@@ -4971,6 +5340,10 @@ def main() -> int:
     # kernel record), then the data axis under NCCL (a world of one; the
     # group is gone after it)
     masked_denoise, md = in_child_process("masked_denoise")
+    # SDAR's block-diffusion and expert kernels against their plain
+    # versions and timed at the cell's shapes, then its trainer (a fresh
+    # process: the cell's shapes want the card's memory)
+    sdar = in_child_process("sdar_kernels")
     data_parallel = check_data_parallel(torch, dev, smi)
     from world_modelz_tpu_torch.data import native
 
@@ -5028,6 +5401,15 @@ def main() -> int:
                                 ("flash_bwd_dq", "flash_bwd.cu", 1146),
                                 ("flash_bwd_dkv", "flash_bwd.cu", 796))
     ]
+    timing, errors = sdar["timing"], sdar["compare"]["errors"]
+    timing["expert_gemm_wgrad"] = {"gate_up": timing["expert_gemm_wgrad_gu"],
+                                   "down": timing["expert_gemm_wgrad_down"]}
+    kernels += [
+        dict(name=name, route="cuda", source=f"world_modelz_tpu_torch/csrc/{src}",
+             replaces="none: the JAX package has no block-diffusion or grouped expert layer",
+             launches=sdar["launches"].get(name, 0),
+             vs_plain={e: errors[e] for e in compared}, **timing[name])
+        for name, src, compared in SDAR_KERNELS]
     # the f32 forward of the evaluation sweep, beside the bf16 training record
     next(k for k in kernels if k["name"] == "flash_fwd")["eval_f32"] = flash["flash_fwd_eval"]
     # the f32 local-3D forward the rollout CLI runs, beside the bf16 serving
@@ -5063,7 +5445,8 @@ def main() -> int:
         launches=masked_denoise.get("vq_train_stats", 0), d12=md_vq["masked_denoise_d12_train"])
     log(json.dumps({"masked_denoise": md, "data_parallel": data_parallel,
                     "model_axes": model_axes}))
-    log(json.dumps({"moe": moe, "external_tokenizer": ext, "som_ddpm": som}))
+    log(json.dumps({"moe": moe, "external_tokenizer": ext, "som_ddpm": som,
+                    "block_diffusion": sdar["record"]}))
     log(json.dumps({"step_programs": steps, "i3d": i3d, "composite": composite, "dispatch": [
         {key: r.get(key) for key in ("k", "data", "steps_per_s", "busy", "device_ms_per_step",
                                      "host_calls_per_step", "capture_s", "peak_gib",

@@ -652,6 +652,25 @@ def ce_step(
     if moe:
         loss = loss + cfg.moe_aux_weight * aux
     loss.backward()
+    sampled = None
+    if r is not None:
+        per_sample = ce.detach().reshape(target.shape[0], -1).mean(1)
+        sampled = torch.stack([r.reshape(-1), per_sample], 1)
+    return update_state(state, loss, cfg, sampled)
+
+
+def update_state(state: TrainState, loss: torch.Tensor, cfg,
+                 sampled: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The update of a step whose backward has run: the loss and the
+    gradient reduced over the data axis, the global grad norm, the
+    optimizer's proposal of the ``nan_to_num``ed gradient, the EMA, the
+    sampler updated with this rank's (time, per-sample loss) rows
+    ``sampled`` (None: no sampler update), and with ``cfg.nan_guard`` the old
+    state kept where the loss or the grad norm is not finite. Writes the
+    state in place and returns the packed (loss, grad norm, ok) float32
+    (3,) tensor."""
+    mesh = state.mesh
+    opt = state.optimizer
     with torch.no_grad():
         # over the data axis: the global batch's mean loss and gradient (the
         # gradient reduce-scattered to shards under --fsdp), so every rank
@@ -666,10 +685,9 @@ def ce_step(
             d = cfg.ema_decay
             old["ema"] = state.ema_flat
             new["ema"] = state.ema_flat * d + new["opt"]["params"] * (1.0 - d)
-        if r is not None:
-            per_sample = ce.detach().reshape(target.shape[0], -1).mean(1)
+        if sampled is not None:
             # every rank's times and losses, in the global batch's order
-            rows = all_gather_rows(torch.stack([r.reshape(-1), per_sample], 1), mesh)
+            rows = all_gather_rows(sampled, mesh)
             upd = loss_aware_update(state.sampler, rows[:, 0], torch.nan_to_num(rows[:, 1]))
             old["sampler"] = {"weights": state.sampler.weights,
                               "counts": state.sampler.counts}

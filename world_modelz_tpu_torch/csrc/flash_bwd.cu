@@ -50,6 +50,7 @@
 
 #include <math.h>
 
+#include "bd_mask.cuh"
 #include "flash_mma.cuh"
 #include "flash_tile.cuh"
 #include "launch_log.cuh"
@@ -499,6 +500,240 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ----------------------------------------------- bf16, block diffusion
+// `bdflash_bwd_dq_kernel`, `bdflash_bwd_dkv_kernel`: the backward pair of
+// flash_fwd.cu's bdflash_fwd_kernel (GQA under the block-diffusion mask,
+// bd_mask.cuh; no TPU kernel has this form). The math and the rounding are
+// the bf16 pair's above (P and dS to bf16 before their products, f32
+// sums); each walks only the tiles the mask leaves and evaluates the
+// predicate in the masked ones. Pass 1 owns 64 queries of one query head
+// and reads K and V of its KV head. Pass 2 owns 64 keys of one KV head and
+// walks, for each of the group's query heads in turn, the query tiles
+// that read its keys, 32 queries a step: dK and dV are summed over the
+// group in registers, with no atomics. Bound at the SDAR cell's shape:
+// 6 D and 8 D allowed pairs, ~3.4 and ~4.5 ms a layer at the bf16 peak.
+
+template <int D>
+__global__ void __launch_bounds__(32 * kWarps)
+bdflash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ o,
+                      const bf16* __restrict__ g, const float* __restrict__ lse,
+                      bf16* __restrict__ dq, float* __restrict__ delta, Strides sq, Strides sk,
+                      Strides sv, Strides so, Strides sg, int H, int group, int N, int L, int bs,
+                      float scale) {
+  constexpr int kOwn = 16 * kWarps, kCols = wmz::bd::kTile, Lp = D + mma::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + kOwn * Lp;
+  bf16* KV = Gs + kOwn * Lp;  // two stages of (K, V), kCols rows each
+  const int q0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * H + h;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + hk * sk.h;
+  const bf16* vb = v + b * sv.b + hk * sv.h;
+  const bf16* gb = g + b * sg.b + h * sg.h;
+  const bf16* ob = o + b * so.b + h * so.h;
+  const int steps = wmz::bd::q_steps(q0, L);
+
+  mma::load_rows_async<D, kOwn>(Qs, qb, sq.n, q0, N);
+  mma::load_rows_async<D, kOwn>(Gs, gb, sg.n, q0, N);
+  mma::load_rows_async<D, kCols>(KV, kb, sk.n, wmz::bd::q_step_key(q0, L, 0), N);
+  mma::load_rows_async<D, kCols>(KV + kCols * Lp, vb, sv.n, wmz::bd::q_step_key(q0, L, 0), N);
+  mma::cp_async_commit();
+
+  // delta = g . o in f32 while the tiles arrive (as flash_bwd_dq_mma_kernel)
+  float part = 0.f;
+  {
+    const int n = q0 + 16 * warp + (lane >> 1);
+    const bf16* grow = gb + n * sg.n;
+    const bf16* orow = ob + n * so.n;
+#pragma unroll
+    for (int c = (lane & 1) * 8; c < D; c += 16) {
+      const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 gf = __bfloat1622float2(g2[e]), of = __bfloat1622float2(o2[e]);
+        part = fmaf(gf.x, of.x, part);
+        part = fmaf(gf.y, of.y, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((lane & 1) == 0) delta[bh * N + n] = part;
+  }
+  const float scale_log2 = scale * mma::kLog2e;
+  const int row0 = q0 + 16 * warp + gr;
+  float row_delta[2], row_lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row_delta[i] = __shfl_sync(0xffffffffu, part, 2 * (gr + 8 * i));
+    row_lse[i] = lse[bh * N + row0 + 8 * i] * mma::kLog2e;
+  }
+
+  float acc[D / 8][4];
+  mma::zero<D / 8>(acc);
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) {  // the next K, V tiles into the other stage
+      bf16* next = KV + ((it + 1) & 1) * 2 * kCols * Lp;
+      const int k1 = wmz::bd::q_step_key(q0, L, it + 1);
+      mma::load_rows_async<D, kCols>(next, kb, sk.n, k1, N);
+      mma::load_rows_async<D, kCols>(next + kCols * Lp, vb, sv.n, k1, N);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = KV + (it & 1) * 2 * kCols * Lp;
+    const bf16* Vs = Ks + kCols * Lp;
+    float s[kCols / 8][4], dp[kCols / 8][4];
+    mma::warp_dots<D, kCols>(Qs + 16 * warp * Lp, Ks, s);
+    mma::warp_dots<D, kCols>(Gs + 16 * warp * Lp, Vs, dp);
+    const int k0 = wmz::bd::q_step_key(q0, L, it);
+    const bool masked = wmz::bd::q_step_masked(q0, L, it);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = !masked || wmz::bd::allowed(row0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1),
+                                                    L, bs)
+                            ? exp2f(fmaf(s[j][e], scale_log2, -row_lse[i]))
+                            : 0.f;
+        s[j][e] = (dp[j][e] - row_delta[i]) * p * scale;  // ds, scaled
+      }
+    uint32_t ds[kCols / 16][4];
+    mma::to_a_frags<kCols>(s, ds);
+    mma::warp_product<D, kCols>(ds, Ks, acc);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  mma::store_rows<D>(acc, dq + ((long long)b * N * H + h) * D, (long long)H * D,
+                     q0 + 16 * warp, N);
+}
+
+template <int D, int kCols>
+__global__ void __launch_bounds__(32 * kWarps)
+bdflash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ g,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
+                       Strides sv, Strides sg, int Hkv, int group, int N, int L, int bs,
+                       float scale) {
+  constexpr int kOwn = 16 * kWarps, Lp = D + mma::kPad, kHalves = wmz::bd::kTile / kCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kOwn * Lp;
+  bf16* QG = Vs + kOwn * Lp;  // two stages of (Q, G), kCols rows each
+  float* stats = reinterpret_cast<float*>(QG + 4 * kCols * Lp);  // two of (lse, delta)
+  const int k0 = blockIdx.x * kOwn, hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, gr = lane >> 2;
+  const int H = Hkv * group, per_head = wmz::bd::k_steps(k0, L) * kHalves;
+  const int steps = group * per_head;
+  // step i: query head hk group + i / per_head, queries from q_of(i)
+  auto q_of = [&](int i) {
+    const int r = i % per_head;
+    return wmz::bd::k_step_query(k0, L, r / kHalves) + (r % kHalves) * kCols;
+  };
+  auto issue = [&](int i) {
+    const int s1 = i & 1, h = hk * group + i / per_head, q1 = q_of(i);
+    const long long bh = (long long)b * H + h;
+    bf16* next = QG + s1 * 2 * kCols * Lp;
+    mma::load_rows_async<D, kCols>(next, q + b * sq.b + h * sq.h, sq.n, q1, N);
+    mma::load_rows_async<D, kCols>(next + kCols * Lp, g + b * sg.b + h * sg.h, sg.n, q1, N);
+    mma::load_vec_async<kCols>(stats + s1 * 2 * kCols, lse + bh * N, q1, N);
+    mma::load_vec_async<kCols>(stats + s1 * 2 * kCols + kCols, delta + bh * N, q1, N);
+  };
+
+  mma::load_rows_async<D, kOwn>(Ks, k + b * sk.b + hk * sk.h, sk.n, k0, N);
+  mma::load_rows_async<D, kOwn>(Vs, v + b * sv.b + hk * sv.h, sv.n, k0, N);
+  issue(0);
+  mma::cp_async_commit();
+
+  const float scale_log2 = scale * mma::kLog2e;
+  const int key0 = k0 + 16 * warp + gr;  // this lane's keys key0, key0 + 8
+  float dka[D / 8][4], dva[D / 8][4];
+  mma::zero<D / 8>(dka);
+  mma::zero<D / 8>(dva);
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) issue(it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qs = QG + (it & 1) * 2 * kCols * Lp;
+    const bf16* Gs = Qs + kCols * Lp;
+    const float* Ls = stats + (it & 1) * 2 * kCols;
+    const float* Ds = Ls + kCols;
+    float s[kCols / 8][4], dp[kCols / 8][4];
+    mma::warp_dots<D, kCols>(Ks + 16 * warp * Lp, Qs, s);
+    mma::warp_dots<D, kCols>(Vs + 16 * warp * Lp, Gs, dp);
+    const int q0 = q_of(it);
+    const bool masked = wmz::bd::k_step_masked(k0, L, it % per_head / kHalves);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const float p =
+            !masked || wmz::bd::allowed(q0 + col, key0 + 8 * (e >> 1), L, bs)
+                ? exp2f(fmaf(s[j][e], scale_log2, -Ls[col] * mma::kLog2e))
+                : 0.f;
+        s[j][e] = p;
+        dp[j][e] = (dp[j][e] - Ds[col]) * p * scale;  // ds, scaled
+      }
+    uint32_t a[kCols / 16][4];
+    mma::to_a_frags<kCols>(s, a);  // P^T in bf16
+    mma::warp_product<D, kCols>(a, Gs, dva);
+    mma::to_a_frags<kCols>(dp, a);  // dS^T in bf16
+    mma::warp_product<D, kCols>(a, Qs, dka);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  const long long out = ((long long)b * N * Hkv + hk) * D;
+  mma::store_rows<D>(dka, dk + out, (long long)Hkv * D, k0 + 16 * warp, N);
+  mma::store_rows<D>(dva, dv + out, (long long)Hkv * D, k0 + 16 * warp, N);
+}
+
+template <int D>
+cudaError_t launch_bd_dq(const void* q, const void* k, const void* v, const void* o,
+                         const void* g, const float* lse, void* dq, float* delta,
+                         const long long* st, int B, int H, int group, int N, int bs,
+                         float scale, cudaStream_t stream) {
+  constexpr int kOwn = 16 * kWarps;
+  const size_t bytes = mma::tile_bytes<D>(2 * kOwn + 4 * wmz::bd::kTile);
+  auto kernel = bdflash_bwd_dq_kernel<D>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(N / kOwn), (unsigned)H, (unsigned)B);
+  wmz::note_launch(kernel);
+  kernel<<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(g), lse, static_cast<bf16*>(dq),
+      delta, at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4), H, group, N, N / 2, bs,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bd_dkv(const void* q, const void* k, const void* v, const void* g,
+                          const float* lse, const float* delta, void* dk, void* dv,
+                          const long long* st, int B, int Hkv, int group, int N, int bs,
+                          float scale, cudaStream_t stream) {
+  constexpr int kOwn = 16 * kWarps, C = 32;
+  const size_t bytes = mma::tile_bytes<D>(2 * kOwn + 4 * C) + 4 * C * sizeof(float);
+  auto kernel = bdflash_bwd_dkv_kernel<D, C>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(N / kOwn), (unsigned)Hkv, (unsigned)B);
+  wmz::note_launch(kernel);
+  kernel<<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      at(st, 0), at(st, 1), at(st, 2), at(st, 3), Hkv, group, N, N / 2, bs, scale);
+  return cudaGetLastError();
+}
 }  // namespace
 
 // strides: int64 [15], the b, h, n element strides of q, k, v, o, g.
@@ -557,4 +792,33 @@ extern "C" int wmz_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (D == 64) WMZ_FLASH_DKV_MMA(64);
   WMZ_FLASH_DKV_MMA(128);
 #undef WMZ_FLASH_DKV_MMA
+}
+
+// The block-diffusion GQA backward pair (bdflash_bwd_dq_kernel,
+// bdflash_bwd_dkv_kernel), bf16, D = 128; the arguments of
+// wmz_flash_bwd_dq and wmz_flash_bwd_dkv, with H the query heads (dq) or
+// the KV heads (dkv), group the query heads a KV head, N = 2 L (L % 64 ==
+// 0) and bs the block (64 % bs == 0).
+static bool bd_bad(int D, int group, int N, int bs) {
+  return D != 128 || group < 1 || N % 128 || bs < 1 || 64 % bs;
+}
+
+extern "C" int wmz_bdflash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                                  const void* g, const void* lse, void* dq, void* delta,
+                                  const long long* strides, int B, int H, int group, int N,
+                                  int D, int bs, float scale, void* stream) {
+  if (bd_bad(D, group, N, bs) || H % group) return (int)cudaErrorInvalidValue;
+  return (int)launch_bd_dq<128>(q, k, v, o, g, static_cast<const float*>(lse), dq,
+                                static_cast<float*>(delta), strides, B, H, group, N, bs, scale,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int wmz_bdflash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
+                                   const void* lse, const void* delta, void* dk, void* dv,
+                                   const long long* strides, int B, int Hkv, int group, int N,
+                                   int D, int bs, float scale, void* stream) {
+  if (bd_bad(D, group, N, bs)) return (int)cudaErrorInvalidValue;
+  return (int)launch_bd_dkv<128>(q, k, v, g, static_cast<const float*>(lse),
+                                 static_cast<const float*>(delta), dk, dv, strides, B, Hkv,
+                                 group, N, bs, scale, static_cast<cudaStream_t>(stream));
 }

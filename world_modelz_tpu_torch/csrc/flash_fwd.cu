@@ -87,6 +87,7 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "bd_mask.cuh"
 #include "flash_tile.cuh"
 #include "launch_log.cuh"
 #include "split_tf32.cuh"
@@ -498,6 +499,135 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+
+// ----------------------------------------------- bf16, block diffusion
+// `bdflash_fwd_kernel`: GQA attention under the block-diffusion mask
+// (bd_mask.cuh) for SDAR's block-diffusion training (models/sdar.py). No
+// TPU kernel has this form; it was added for that model. q is (B, Hq, N,
+// D), k and v (B, Hkv, N, D) with Hq = group Hkv, query head h reading KV
+// head h / group; N = 2 L positions of [x_t ; x_0]. Bound: at the SDAR
+// cell's shape (B 8, Hq 32, Hkv 4, N 8,192, D 128) the allowed pairs need
+// 4 D pairs = 2.25 TFLOP a layer, ~2.3 ms at the bf16 peak, against ~0.3 GB
+// of q, k, v and out: bound by operations; a walk over every tile would do
+// 4x the products. Design: flash_mma.cuh's tiling, 4 warps own 64 queries
+// of one (b, h), 16 a warp, and walk only the key tiles the mask leaves
+// (bd_mask.cuh), K and V of the next tile in flight by cp.async; the
+// predicate is evaluated in the one or two masked tiles alone. One online
+// softmax pass (FlashAttention-2): per 32 keys the running max and sum, P =
+// exp(s - m) rounded to bf16 into the A fragments of P V; out = acc / l.
+
+template <int D>
+__global__ void __launch_bounds__(128)
+bdflash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                   Strides sq, Strides sk, Strides sv, int H, int group, int N, int L, int bs,
+                   float scale) {
+  constexpr int kRows = 64, kKeys = wmz::bd::kTile, kSub = 32, Lp = D + mma::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KV = Qs + kRows * Lp;  // two stages of kKeys rows of K, then of V
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const bf16* kb = k + b * sk.b + hk * sk.h;
+  const bf16* vb = v + b * sv.b + hk * sv.h;
+  const int steps = wmz::bd::q_steps(q0, L);
+  auto issue = [&](int s) {
+    bf16* stage = KV + (s & 1) * 2 * kKeys * Lp;
+    const int k0 = wmz::bd::q_step_key(q0, L, s);
+    mma::load_rows_async<D, kKeys>(stage, kb, sk.n, k0, N);
+    mma::load_rows_async<D, kKeys>(stage + kKeys * Lp, vb, sv.n, k0, N);
+  };
+  mma::load_rows_async<D, kRows>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
+  issue(0);
+  mma::cp_async_commit();
+
+  float acc[D / 8][4];
+  mma::zero<D / 8>(acc);
+  // this lane's rows row0 and row0 + 8: the running max and sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + 16 * warp + gr;
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = KV + (s & 1) * 2 * kKeys * Lp;
+    const bf16* Vs = Ks + kKeys * Lp;
+    const int k0 = wmz::bd::q_step_key(q0, L, s);
+    const bool masked = wmz::bd::q_step_masked(q0, L, s);
+#pragma unroll
+    for (int c0 = 0; c0 < kKeys; c0 += kSub) {
+      float sc[kSub / 8][4];
+      mma::warp_dots<D, kSub>(Qs + 16 * warp * Lp, Ks + c0 * Lp, sc);
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + c0 + 8 * j + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+          sc[j][e] = !masked || wmz::bd::allowed(row, key, L, bs) ? sc[j][e] * scale
+                                                                  : -INFINITY;
+          mt[e >> 1] = fmaxf(mt[e >> 1], sc[j][e]);
+        }
+      float corr[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], mma::quad_max(mt[i]));
+        // a row with no allowed key yet keeps m = -inf and acc = 0
+        corr[i] = m_new == -INFINITY ? 1.f : __expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = m[i] == -INFINITY ? 0.f : __expf(sc[j][e] - m[i]);
+          sc[j][e] = p;
+          ps[i] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + mma::quad_sum(ps[i]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+      uint32_t pa[kSub / 16][4];
+      mma::to_a_frags<kSub>(sc, pa);  // P to bf16
+      mma::warp_product<D, kSub>(pa, Vs + c0 * Lp, acc);
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv = __frcp_rn(l[i]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[j][2 * i] *= inv, acc[j][2 * i + 1] *= inv;
+    if (t == 0) lse[((long long)b * H + h) * N + row0 + 8 * i] = m[i] + logf(l[i]);
+  }
+  mma::store_rows<D>(acc, out + ((long long)b * N * H + h) * D, (long long)H * D,
+                     q0 + 16 * warp, N);
+}
+
+template <int D>
+cudaError_t launch_bd(const void* q, const void* k, const void* v, void* out, float* lse,
+                      const long long* st, int B, int H, int group, int N, int bs, float scale,
+                      cudaStream_t stream) {
+  const size_t bytes = mma::tile_bytes<D>(64 + 4 * wmz::bd::kTile);
+  auto kernel = bdflash_fwd_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(N / 64), (unsigned)H, (unsigned)B);
+  wmz::note_launch(kernel);
+  kernel<<<grid, 128, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, Strides{st[0], st[1], st[2]},
+      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]}, H, group, N, N / 2, bs,
+      scale);
+  return cudaGetLastError();
+}
 }  // namespace
 
 // strides: int64 [9], the b, h, n element strides of q, k, v. block: the
@@ -527,4 +657,17 @@ extern "C" int wmz_flash_fwd(const void* q, const void* k, const void* v,
   if (normalise) WMZ_FLASH_FWD_MMA(128, true);
   WMZ_FLASH_FWD_MMA(128, false);
 #undef WMZ_FLASH_FWD_MMA
+}
+
+// The block-diffusion GQA forward (bdflash_fwd_kernel), bf16, D = 128.
+// strides: int64 [9], the b, h, n element strides of q, k, v; H: query
+// heads, group: query heads a KV head; N = 2 L with L % 64 == 0; bs: the
+// block, 64 % bs == 0. Returns the launch's cudaError_t.
+extern "C" int wmz_bdflash_fwd(const void* q, const void* k, const void* v, void* out,
+                               void* lse, const long long* strides, int B, int H, int group,
+                               int N, int D, int bs, float scale, void* stream) {
+  if (D != 128 || group < 1 || H % group || N % 128 || bs < 1 || 64 % bs)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_bd<128>(q, k, v, out, static_cast<float*>(lse), strides, B, H, group, N,
+                             bs, scale, static_cast<cudaStream_t>(stream));
 }

@@ -82,6 +82,23 @@ _SIGNATURES = {
     # q, k, v, g, lse, delta, dk, dv, strides (int64 [12]: q, k, v, g),
     # B, H, N, D, scale, dtype, stream
     "wmz_flash_bwd_dkv": ([_VP] * 9 + [_INT] * 4 + [_FLOAT, _INT, _VP], _INT),
+    # q, k, v, out, lse, strides (int64 [9]), B, H, group, N, D, block,
+    # scale, stream
+    "wmz_bdflash_fwd": ([_VP] * 6 + [_INT] * 6 + [_FLOAT, _VP], _INT),
+    # q, k, v, o, g, lse, dq, delta, strides (int64 [15]), B, H, group, N,
+    # D, block, scale, stream
+    "wmz_bdflash_bwd_dq": ([_VP] * 9 + [_INT] * 6 + [_FLOAT, _VP], _INT),
+    # q, k, v, g, lse, delta, dk, dv, strides (int64 [12]), B, Hkv, group,
+    # N, D, block, scale, stream
+    "wmz_bdflash_bwd_dkv": ([_VP] * 9 + [_INT] * 6 + [_FLOAT, _VP], _INT),
+    # a, b, c, aux, offsets, E, rows_max, N, K, b_stride, inter, mode,
+    # stream
+    "wmz_expert_gemm": ([_VP] * 5 + [_INT] * 4 + [ctypes.c_longlong] + [_INT] * 2 + [_VP],
+                        _INT),
+    # a, b, c, offsets, E, M, N, stream
+    "wmz_expert_gemm_wgrad": ([_VP] * 4 + [_INT] * 3 + [_VP], _INT),
+    # a, y, b, w, offsets, out, dw, E, T, k, D, mode, stream
+    "wmz_expert_rows": ([_VP] * 7 + [_INT] * 5 + [_VP], _INT),
     # xs, ws, bs, ys (arrays of count pointers), ns (count ints), count, M,
     # K, epi, r, stream
     "wmz_dense_tf32": ([ctypes.POINTER(_VP)] * 4 + [ctypes.POINTER(_INT)] + [_INT] * 4

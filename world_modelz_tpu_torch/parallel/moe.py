@@ -232,3 +232,162 @@ def local_experts(params: MoEParams, index: int, size: int) -> MoEParams:
     lo, hi = index * e // size, (index + 1) * e // size
     return MoEParams(*(t if dim is None else t[lo:hi]
                        for t, dim in zip(params, expert_shardings())))
+
+
+# ----------------------------------------------------------------------
+# Dropless top-k routing for an expert layer that holds some of the
+# experts (SDAR, models/sdar.py): the router sees all of them, the layer
+# computes its held experts' part of the output for every token routed to
+# them, with no capacity and no dropped token. On one card it runs without
+# its exchange; under expert parallelism each model rank would hold
+# ``held_experts(E, rank, ranks)`` and its partial outputs would be summed
+# over the model axis. The expert products are the grouped bf16 kernels of
+# ``kernels/expert_gemm.py`` (plain versions on the CPU), over rows grouped
+# by expert and padded to ``expert_gemm.ROW_TILE`` in a buffer of static
+# size: nothing is read on the host, so a step captures in a CUDA graph.
+
+
+def held_experts(num_experts: int, index: int, size: int) -> torch.Tensor:
+    """The experts model rank ``index`` of ``size`` holds: E / size
+    consecutive ones, as ``local_experts`` cuts them."""
+    if num_experts % size:
+        raise ValueError(f"{num_experts} experts do not split over {size} model ranks")
+    return torch.arange(index * num_experts // size, (index + 1) * num_experts // size)
+
+
+def route_topk(logits: torch.Tensor, k: int, normalise: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 softmax over every expert, its top ``k`` (indices (T, k)
+    int64, the first of equal values first) and their weights (T, k) f32,
+    renormalised to sum to 1 with ``normalise`` (``norm_topk_prob``)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, index = torch.topk(probs, k, dim=-1)
+    if normalise:
+        weights = weights / weights.sum(-1, keepdim=True)
+    return index, weights
+
+
+def held_rows(tokens: int, k: int, held: int) -> int:
+    """Rows of the static grouped buffer: every assignment of ``tokens``
+    tokens could go to a held expert (at most min(k, held) a token), each
+    expert's group padded to the kernels' tile."""
+    from world_modelz_tpu_torch.kernels.expert_gemm import ROW_TILE
+
+    need = tokens * min(k, held) + held * (ROW_TILE - 1)
+    return -(-need // ROW_TILE) * ROW_TILE
+
+
+class HeldPlan(NamedTuple):
+    """Where the held experts' assignments go in the grouped buffer.
+
+    offsets:  (E_held + 1,) int32 padded group starts (the kernels').
+    token:    (rows_max,) int64 each row's token (T: a padding row).
+    assign:   (rows_max,) int64 each row's assignment, token * k + slot
+              (T k: a padding row).
+    counts:   (E_held,) int64 assignments each held expert received.
+    placed:   () int64 assignments placed in the buffer (all held ones).
+    """
+
+    offsets: torch.Tensor
+    token: torch.Tensor
+    assign: torch.Tensor
+    counts: torch.Tensor
+    placed: torch.Tensor
+
+
+def held_plan(index: torch.Tensor, held: torch.Tensor, num_experts: int) -> HeldPlan:
+    """The grouping of the (T, k) assignments ``index`` to the held experts
+    (global ids ``held``, their local order the buffer's), on the device:
+    a stable sort by held expert, each group starting at its padded
+    offset."""
+    from world_modelz_tpu_torch.kernels.expert_gemm import ROW_TILE
+
+    t, k = index.shape
+    e = held.shape[0]
+    dev = index.device
+    lut = torch.full((num_experts,), e, dtype=torch.long, device=dev)
+    lut[held.to(dev)] = torch.arange(e, device=dev)
+    bucket = lut[index.reshape(-1)]  # E_held: not held here
+    n = bucket.shape[0]
+    counts = torch.zeros(e + 1, dtype=torch.long, device=dev).scatter_add_(
+        0, bucket, torch.ones_like(bucket))
+    padded = (counts[:e] + ROW_TILE - 1) // ROW_TILE * ROW_TILE
+    offsets = torch.cat([padded.new_zeros(1), torch.cumsum(padded, 0)])
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    order = torch.argsort(bucket, stable=True)
+    sorted_bucket = bucket[order]
+    rows = held_rows(t, k, e)
+    rank = torch.arange(n, device=dev) - starts[sorted_bucket]
+    dest = torch.where(sorted_bucket < e, offsets[sorted_bucket.clamp(max=e - 1)] + rank, rows)
+    token = torch.full((rows + 1,), t, dtype=torch.long, device=dev)
+    token.scatter_(0, dest, order // k)
+    assign = torch.full((rows + 1,), n, dtype=torch.long, device=dev)
+    assign.scatter_(0, dest, order)
+    token, assign = token[:rows], assign[:rows]
+    return HeldPlan(offsets.to(torch.int32), token, assign, counts[:e],
+                    (token < t).sum())
+
+
+class HeldExperts(torch.autograd.Function):
+    """The held experts' weighted SwiGLU outputs, summed per token in f32
+    and rounded to x's dtype: sum over a token's held assignments of w
+    down(silu(gate(x)) up(x)). Saves x, the plan and the weights; the
+    backward recomputes the expert products (the grouped buffers are not
+    kept between the passes)."""
+
+    @staticmethod
+    def forward(ctx, x, weights, w_gu, w_down, token, assign, offsets):
+        from world_modelz_tpu_torch.kernels import expert_gemm as eg
+
+        n = weights.numel()
+        # each (token, slot)'s row, -1 where the expert is not held here
+        row_of = torch.full((n + 1,), -1, dtype=torch.long, device=x.device)
+        row_of.scatter_(0, assign, torch.arange(assign.shape[0], device=x.device))
+        row_of = row_of[:n].view(weights.shape)
+        xp = eg.gather_rows(x, token, offsets)
+        _, act = eg.swiglu_fwd(xp, w_gu, offsets)
+        del xp
+        out = eg.combine_rows(eg.rows_nt(act, w_down, offsets), row_of, weights)
+        ctx.save_for_backward(x, weights, w_gu, w_down, token, assign, offsets, row_of)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from world_modelz_tpu_torch.kernels import expert_gemm as eg
+
+        x, weights, w_gu, w_down, token, assign, offsets, row_of = ctx.saved_tensors
+        xp = eg.gather_rows(x, token, offsets)
+        gu, act = eg.swiglu_fwd(xp, w_gu, offsets)
+        y = eg.rows_nt(act, w_down, offsets)
+        w_row = torch.cat([weights.reshape(-1), weights.new_zeros(1)])[assign]
+        dy, dw_row = eg.scatter_rows_bwd(dout.to(x.dtype).contiguous(), y, token, w_row,
+                                         offsets)
+        del y
+        dgu = eg.swiglu_bwd(dy, w_down, gu, offsets)
+        del gu
+        d_down = eg.wgrad(dy, act, offsets)
+        del dy, act
+        dx = eg.combine_rows(eg.rows_nn(dgu, w_gu, offsets), row_of)
+        d_gu = eg.wgrad(dgu, xp, offsets)
+        dweights = torch.zeros(weights.numel() + 1, dtype=torch.float32, device=x.device)
+        dweights.index_copy_(0, assign, dw_row)
+        dweights = dweights[:-1].reshape(weights.shape).to(weights.dtype)
+        return dx, dweights, d_gu, d_down, None, None, None
+
+
+def moe_swiglu_held(x: torch.Tensor, w_router: torch.Tensor, w_gu: torch.Tensor,
+                    w_down: torch.Tensor, held: torch.Tensor, k: int,
+                    normalise: bool = True) -> Tuple[torch.Tensor, HeldPlan]:
+    """The held experts' part of a dropless top-``k`` SwiGLU expert layer
+    (Qwen3-MoE's block): router logits x W_r^T in f32 (the operands as
+    given, the sums unrounded: a bf16 rounding of the logits ties experts),
+    the f32 softmax over all E experts and its top k (``route_topk``); each token
+    through each of its selected held experts ``held`` (w_gu (E_held, 2 I,
+    D): gate rows then up rows; w_down (E_held, D, I)), weighted and summed
+    in f32, then cast to x's dtype. x is (T, D); returns (out (T, D), the
+    plan: counts and placed assignments for the layer's statistics)."""
+    logits = F.linear(x.float(), w_router.float())
+    index, weights = route_topk(logits, k, normalise)
+    plan = held_plan(index, held, w_router.shape[0])
+    out = HeldExperts.apply(x, weights, w_gu, w_down, plan.token, plan.assign, plan.offsets)
+    return out, plan

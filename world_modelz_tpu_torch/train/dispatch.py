@@ -79,6 +79,9 @@ def capture(fn: Callable[[], Any], device: torch.device, *, warmups: int = 2,
         for t, s in zip(keep, saved):
             t.copy_(s)
     del saved
+    # the graph allocates from a pool of its own, which cannot take the
+    # blocks the warm-up left cached: give them back first
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     before = collections.Counter(_build.LAUNCHES)
     outputs = []

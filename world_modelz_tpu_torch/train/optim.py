@@ -205,6 +205,7 @@ class ScheduledOptimizer:
         mu_hat = mu / (1.0 - torch.pow(b1, c))
         nu_hat = nu / (1.0 - torch.pow(b2, c))
         u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        del mu_hat, nu_hat  # freed before the next whole-size temporaries
         if self.weight_decay is not None:
             u = u + self.weight_decay * self.flat
         lr = self.schedule(self.count_t)
